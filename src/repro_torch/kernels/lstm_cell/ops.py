@@ -1,0 +1,99 @@
+"""Wrapper of the fused LSTM cell kernel (``csrc/lstm_cell.cu``).
+
+On CUDA tensors it launches the kernel on the current stream, or raises;
+on CPU tensors it runs the plain version (:func:`lstm_cell_ref`).  It
+never pads: the kernel masks the ragged edge of the batch.  Inference
+only — inputs that require grad are refused until the cell has a
+``torch.autograd.Function`` with a backward kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref
+
+_SYMBOLS = {torch.float32: "lstm_cell_f32", torch.bfloat16: "lstm_cell_bf16"}
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+# the kernel's launch geometry (csrc/lstm_cell.cu): 4H threads per block,
+# and 8 rows x (In + 5H) fp32 values of shared memory within 48 KB
+_MAX_THREADS = 1024
+_ROWS, _SMEM_BYTES = 8, 48 * 1024
+
+
+def _launcher(dtype: torch.dtype):
+    fn = getattr(_build.library("lstm_cell"), _SYMBOLS[dtype])
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(x, h, c, wx, wh, b) -> tuple[int, int, int]:
+    ts = (x, h, c, wx, wh, b)
+    if any(t.requires_grad for t in ts):
+        raise ValueError("lstm_cell is inference-only: an input requires "
+                         "grad")
+    if any(t.device != x.device for t in ts):
+        raise ValueError("lstm_cell inputs lie on different devices")
+    if any(t.dtype != x.dtype for t in ts) or x.dtype not in _SYMBOLS:
+        raise TypeError("lstm_cell takes float32 or bfloat16 inputs of one "
+                        f"dtype, got {[t.dtype for t in ts]}")
+    if x.dim() != 2 or h.dim() != 2:
+        raise ValueError(f"x and h must be 2-D, got {x.shape}, {h.shape}")
+    bsz, n_in = x.shape
+    hid = h.shape[1]
+    want = ((bsz, n_in), (bsz, hid), (bsz, hid), (n_in, 4 * hid),
+            (hid, 4 * hid), (4 * hid,))
+    got = tuple(tuple(t.shape) for t in ts)
+    if got != want:
+        raise ValueError(f"lstm_cell shapes {got}, expected {want}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("lstm_cell inputs must be contiguous")
+    return bsz, n_in, hid
+
+
+def _check_launch(bsz: int, n_in: int, hid: int) -> None:
+    """Shapes the kernel's geometry takes (the plain version takes any)."""
+    if 4 * hid > _MAX_THREADS:
+        raise ValueError(f"lstm_cell kernel takes 4H <= {_MAX_THREADS}, "
+                         f"got H={hid}")
+    if 4 * _ROWS * (n_in + 5 * hid) > _SMEM_BYTES:
+        raise ValueError(f"lstm_cell kernel: In={n_in}, H={hid} exceed its "
+                         f"{_SMEM_BYTES} bytes of shared memory")
+    if max(bsz * n_in, bsz * hid, n_in * 4 * hid) >= 2 ** 31:
+        raise ValueError("lstm_cell kernel takes 32-bit offsets")
+
+
+def lstm_cell(x, h, c, wx, wh, b):
+    """One fused LSTM cell step: returns ``(h', c')``.
+
+    x (B, In); h, c (B, H); wx (In, 4H); wh (H, 4H); b (4H,); gates
+    packed [i, f, g, o]; float32 or bfloat16, fp32 math.
+    ``lstm_cell.launches`` counts kernel launches (CPU calls do not
+    launch and do not count)."""
+    bsz, n_in, hid = _check(x, h, c, wx, wh, b)
+    if x.device.type == "cpu":
+        return lstm_cell_ref(x, h, c, wx, wh, b)
+    if x.device.type != "cuda":
+        raise ValueError(f"lstm_cell has no kernel for {x.device}")
+    if x.get_device() != torch.cuda.current_device():
+        raise ValueError("lstm_cell inputs must lie on the current device")
+    h_out = torch.empty_like(h)
+    c_out = torch.empty_like(c)
+    if bsz == 0:
+        return h_out, c_out
+    _check_launch(bsz, n_in, hid)
+    rc = _launcher(x.dtype)(
+        x.data_ptr(), h.data_ptr(), c.data_ptr(), wx.data_ptr(),
+        wh.data_ptr(), b.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
+        bsz, n_in, hid, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"lstm_cell kernel launch failed: CUDA error {rc}")
+    lstm_cell.launches += 1
+    return h_out, c_out
+
+
+lstm_cell.launches = 0

@@ -21,6 +21,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running test, excluded from the fast CI lane "
         "(deselect with -m \"not slow\")")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card; skips where "
+        "torch.cuda.is_available() is false")
 
 
 def _install_hypothesis_stub() -> None:

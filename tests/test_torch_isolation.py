@@ -1,0 +1,56 @@
+"""The port stands alone: no file of ``src/repro_torch/`` and not
+``chip_smoke.py`` imports ``jax`` or the JAX package ``repro``, and
+building and running the port's controller on the CPU loads neither."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_the_scan_sees_every_port_module():
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    assert "src/repro_torch/core/predictor.py" in names
+    assert "src/repro_torch/kernels/lstm_cell/ops.py" in names
+    assert _imported_roots(ROOT / "src" / "repro" / "core" / "start.py") \
+        >= {"repro", "numpy"}
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: p.name)
+def test_no_file_imports_jax_or_the_jax_package(path):
+    assert not _imported_roots(path) & set(FORBIDDEN)
+
+
+def test_running_the_port_loads_no_jax():
+    code = (
+        "import sys, numpy as np\n"
+        "from repro_torch.core.start import STARTController\n"
+        "c = STARTController(n_hosts=4, max_tasks=3, device='cpu')\n"
+        "c.observe_hosts(np.ones((4, 11), np.float32))\n"
+        "e = c.predict_es_batch(np.arange(2), np.ones((2, 3, 5), "
+        "np.float32), np.array([2, 3]))\n"
+        "assert e.shape == (2,)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r}]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
