@@ -6,18 +6,35 @@
 Run from the repository root, on a machine with the card and ``nvcc``.
 Phases:
 
-1. environment: a CUDA card, TF32 off, the card's name and power limit;
-2. build: every CUDA kernel of the port, from the sources in the checkout;
+1. environment: a CUDA card, TF32 and bf16 reduced-precision reductions
+   off, the card's name and power limit;
+2. build: every CUDA kernel of the port (``lstm_cell``,
+   ``flash_attention``, ``decode_attention``), from the sources in the
+   checkout, one ``nvcc`` per source, all started together;
 3. kernel vs plain: each kernel against its plain PyTorch version on the
-   card, at the test sweep's shapes and the decision path's shapes, and
-   timed beside the plain version and the one-call PyTorch yardstick;
-4. the slice: ``STARTController`` at the paper's width (400 hosts x 11
-   features, 10 tasks per job, horizon 5), fed seeded telemetry, in both
-   triggers, on the card and on the CPU from the same weights: E_S
-   agrees within the Tier-1 bound, actions agree, every LSTM cell of the
-   card's run went through the kernel, one staged copy per warm interval;
-   then the warm ms per interval for each batch bucket;
-5. summary: one JSON line of kernel numbers, the card's line, and last
+   card, at the JAX test sweep's shapes and its path's shapes, and timed
+   beside the plain version and the one-call PyTorch yardstick
+   (``torch.lstm_cell``, ``scaled_dot_product_attention``);
+4. the decision slice: ``STARTController`` at the paper's width (400
+   hosts x 11 features, 10 tasks per job, horizon 5), fed seeded
+   telemetry, in both triggers, on the card and on the CPU from the same
+   weights: E_S agrees within the Tier-1 bound, actions agree, every
+   LSTM cell of the card's run went through the kernel, one staged copy
+   per warm interval; then the warm ms per interval for each batch
+   bucket;
+5. LM serving, fp32: yi-6b at full width and depth (seeded weights),
+   ``Engine(n_slots=4, max_len=4096)`` serving 6 seeded requests
+   (prompts of 12 to 3000 tokens, 16 new tokens each); every prefill
+   launches ``flash_attention`` once per layer and every decoded token
+   ``decode_attention`` (two kernels) once per layer; the same token
+   streams re-run under teacher forcing through the plain attention
+   functions agree within 1e-4 on every step's logits, with equal greedy
+   tokens except where the plain path's top-2 margin is under 1e-4;
+6. LM serving, bf16 (the config's own dtype): the same requests, timed
+   (TTFT per prompt length, warm decode ms per token, tokens/s), drift
+   against the plain path, profiler device busy per token, and the
+   serving entry point ``repro_torch.launch.serve`` once at yi-6b;
+7. summary: one JSON line of kernel numbers, the card's line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -25,6 +42,9 @@ result.  Without a CUDA card it exits non-zero in phase 1.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -36,12 +56,25 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.paper_default import PAPER  # noqa: E402
 from repro_torch.core import features  # noqa: E402
 from repro_torch.core.start import STARTController  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    decode_attention, decode_attention_ref)
+from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
+    LAUNCHES_PER_CALL)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    attention_ref, flash_attention)
 from repro_torch.kernels.lstm_cell import (  # noqa: E402
     lstm_cell, lstm_cell_ref)
+from repro_torch.launch import serve as serve_entry  # noqa: E402
+from repro_torch.models import backend  # noqa: E402
+from repro_torch.models.lm import Model, full_precision  # noqa: E402
+from repro_torch.serve.engine import (  # noqa: E402
+    Engine, EngineConfig, Request)
+from repro_torch.serve.kv_cache import pad_to_length  # noqa: E402
 
 # (batch, n_in, hidden): the JAX package's kernel sweep
 # (tests/test_kernels.py LSTM_SWEEP) and the decision path's cell shapes
@@ -72,6 +105,37 @@ K_LO, K_HI = 1.0, PAPER["k"]
 REPLACES = "src/repro/kernels/lstm_cell/lstm_cell.py:23"
 SOURCE = "src/repro_torch/kernels/lstm_cell/csrc/lstm_cell.cu"
 
+# (b, h, hkv, s, d, causal): the JAX package's flash sweep
+# (tests/test_kernels.py FLASH_SWEEP), then yi-6b's prefill shapes
+FLASH_SWEEP = [(1, 4, 4, 128, 64, True), (1, 4, 2, 256, 64, True),
+               (2, 8, 1, 128, 128, True), (1, 2, 2, 192, 64, False),
+               (1, 4, 2, 100, 128, True)]
+FLASH_PATH = [(1, 32, 4, s, 128, True) for s in (12, 512, 2048)]
+# (b, h, hkv, s, d, kv_len): the JAX decode sweep (DECODE_SWEEP), then
+# yi-6b's decode shapes against a 4096-long cache
+DECODE_SWEEP = [(1, 4, 4, 512, 64, 512), (2, 8, 2, 1024, 128, 700),
+                (1, 16, 2, 512, 128, 512), (1, 4, 1, 300, 64, 300)]
+DECODE_PATH = [(1, 32, 4, 4096, 128, n) for n in (1, 513, 4096)]
+# fp32: max abs; bf16: the sweep's allclose tolerance
+ATTN_TOL = {torch.float32: dict(rtol=0.0, atol=2e-5),
+            torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+BF16_FLOP_PER_S = 989e12     # dense tensor-core peak
+FLASH = dict(source="src/repro_torch/kernels/flash_attention/csrc/"
+             "flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention/flash_attention.py"
+             ":36")
+DECODE = dict(source="src/repro_torch/kernels/decode_attention/csrc/"
+              "decode_attention.cu",
+              replaces="src/repro/kernels/decode_attention/"
+              "decode_attention.py:25")
+
+# LM serving: yi-6b at full width and depth, seeded weights
+LM_ARCH = "yi-6b"
+PROMPT_LENS = [12, 64, 300, 1000, 2048, 3000]
+MAX_NEW, N_SLOTS, MAX_LEN = 16, 4, 4096
+LOGIT_TOL = 1e-4             # fp32 engine vs plain path, max abs
+DEVICE = "cuda"
+
 
 # --------------------------------- phase 1 ---------------------------------
 
@@ -101,9 +165,9 @@ def cell_inputs(bsz, n_in, hid, dtype, seed):
     return [t.to("cuda", dtype).contiguous() for t in (x, h, c, wx, wh, b)]
 
 
-def time_ms(fn, reps: int = 500) -> float:
+def time_ms(fn, reps: int = 500, warmup: int = 20) -> float:
     """Mean device time of one call, by CUDA events over ``reps`` calls."""
-    for _ in range(20):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -173,6 +237,135 @@ def check_kernel() -> dict:
               f"(runs {k1:.5f}, {k2:.5f}), plain {row['plain_ms']:.5f} ms, "
               f"torch.lstm_cell {lib_ms:.5f} ms, bound {bound_ms:.7f} ms "
               f"({bound_by})")
+    return {"worst": worst, "timing": rows}
+
+
+def time_auto(fn, budget_ms: float = 300.0) -> float:
+    """``time_ms`` with as many calls as fit ``budget_ms`` (5 to 500)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    once = (time.perf_counter() - t0) * 1e3
+    return time_ms(fn, reps=int(min(500, max(5, budget_ms / once))),
+                   warmup=2)
+
+
+def attn_bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
+    """Least time: bytes over HBM, or the products' FLOPs over the peak
+    for the I/O type (bf16 tensor cores, fp32 CUDA cores)."""
+    peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_work(b, h, hkv, s, d, causal, elem) -> tuple[float, float]:
+    """FLOPs of the two products over the (query, key) pairs the mask
+    keeps (4 D each), and bytes of q, k, v read once and o written once."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    return (4.0 * d * pairs * b * h,
+            elem * (2 * b * h * s * d + 2 * b * hkv * s * d))
+
+
+def decode_work(b, h, hkv, d, kv_len, elem) -> tuple[float, float]:
+    """FLOPs against the kv_len keys it needs, bytes of q, those keys and
+    values, and o."""
+    return (4.0 * d * kv_len * b * h,
+            elem * (2 * b * h * d + 2 * b * hkv * kv_len * d))
+
+
+def _compare(name, got, want, dtype, worst, label) -> None:
+    torch.cuda.synchronize()
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        raise AssertionError(f"{name}: non-finite output")
+    torch.testing.assert_close(g, w, **ATTN_TOL[dtype])
+    worst[dtype] = max(worst[dtype], (g - w).abs().max().item())
+    print(f"[kernel] {name} {label} {str(dtype)[6:]}: ok")
+
+
+def _timing(name, label, kernel, plain, library, dtype, work) -> dict:
+    """Kernel and plain alternated (so drift in clocks hits both), the
+    library call, and the bound."""
+    k1, p1 = time_auto(kernel), time_auto(plain)
+    p2, k2 = time_auto(plain), time_auto(kernel)
+    lib_ms = time_auto(library)
+    bound_ms, bound_by = attn_bound(*work, dtype)
+    row = dict(shape=label, dtype=str(dtype)[6:], ms=min(k1, k2),
+               plain_ms=min(p1, p2), library_ms=lib_ms, bound_ms=bound_ms,
+               bound_by=bound_by)
+    print(f"[kernel] {name} {label} {row['dtype']}: kernel {row['ms']:.5f} "
+          f"ms (runs {k1:.5f}, {k2:.5f}), plain {row['plain_ms']:.5f} ms, "
+          f"sdpa {lib_ms:.5f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+    return row
+
+
+def check_flash() -> dict:
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    rows = []
+    for i, (b, h, hkv, s, d, causal) in enumerate(FLASH_SWEEP + FLASH_PATH):
+        label = f"B={b} H={h} Hkv={hkv} S={s} D={d} causal={causal}"
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator().manual_seed(100 + i)
+            q, k, v = (torch.randn(sh, generator=g).to("cuda", dtype)
+                       for sh in ((b, h, s, d), (b, hkv, s, d),
+                                  (b, hkv, s, d)))
+            want = attention_ref(q, k, v, causal=causal)
+            _compare("flash_attention", flash_attention(q, k, v, causal),
+                     want, dtype, worst, label)
+            if (b, h, hkv, s, d, causal) != FLASH_PATH[-1]:
+                continue
+            lib = sdpa(q, k, v, is_causal=causal, enable_gqa=True)
+            torch.testing.assert_close(lib.float(), want.float(),
+                                       **ATTN_TOL[torch.bfloat16])
+            rows.append(_timing(
+                "flash_attention", label,
+                lambda: flash_attention(q, k, v, causal),
+                lambda: attention_ref(q, k, v, causal=causal),
+                lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True),
+                dtype, flash_work(b, h, hkv, s, d, causal,
+                                  q.element_size())))
+    print(f"[kernel] flash_attention max abs err fp32 "
+          f"{worst[torch.float32]:.3e} (bound 2e-5), bf16 "
+          f"{worst[torch.bfloat16]:.3e} (bound 2e-2)")
+    return {"worst": worst, "timing": rows}
+
+
+def check_decode() -> dict:
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    rows = []
+    for i, (b, h, hkv, s, d, n) in enumerate(DECODE_SWEEP + DECODE_PATH):
+        label = f"B={b} H={h} Hkv={hkv} S={s} D={d} kv_len={n}"
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator().manual_seed(200 + i)
+            q, k, v = (torch.randn(sh, generator=g).to("cuda", dtype)
+                       for sh in ((b, h, d), (b, hkv, s, d), (b, hkv, s, d)))
+            want = decode_attention_ref(q, k, v, kv_len=n)
+            k[:, :, n:] = float("nan")     # past kv_len: never read
+            v[:, :, n:] = float("nan")
+            _compare("decode_attention", decode_attention(q, k, v, kv_len=n),
+                     want, dtype, worst, label)
+            if (b, h, hkv, s, d, n) != DECODE_PATH[-1]:
+                continue
+
+            def lib(q=q, k=k, v=v, n=n):
+                return sdpa(q[:, :, None], k[:, :, :n], v[:, :, :n],
+                            enable_gqa=True)[:, :, 0]
+
+            torch.testing.assert_close(lib().float(), want.float(),
+                                       **ATTN_TOL[torch.bfloat16])
+            rows.append(_timing(
+                "decode_attention", label,
+                lambda: decode_attention(q, k, v, kv_len=n),
+                lambda: decode_attention_ref(q, k, v, kv_len=n), lib,
+                dtype, decode_work(b, h, hkv, d, n, q.element_size())))
+    print(f"[kernel] decode_attention max abs err fp32 "
+          f"{worst[torch.float32]:.3e} (bound 2e-5), bf16 "
+          f"{worst[torch.bfloat16]:.3e} (bound 2e-2)")
     return {"worst": worst, "timing": rows}
 
 
@@ -444,10 +637,284 @@ def profile_intervals(ctrl, tel_gen, nb: int, reps: int = 10) -> dict:
     return out
 
 
+# ------------------------------ phases 5 and 6 ------------------------------
+
+class Recorder:
+    """The model as the engine sees it, keeping the logits of every call:
+    prefill logits by prompt length, decode logits by position (the
+    prompts' lengths are far enough apart that positions identify the
+    request)."""
+
+    def __init__(self, model: Model):
+        self.model = model
+        self.prefill_logits: dict[int, torch.Tensor] = {}
+        self.decode_logits: dict[int, torch.Tensor] = {}
+
+    def prefill(self, params, batch):
+        logits, caches = self.model.prefill(params, batch)
+        self.prefill_logits[batch["tokens"].shape[1]] = logits
+        return logits, caches
+
+    def decode_step(self, params, caches, tokens, pos):
+        logits, caches = self.model.decode_step(params, caches, tokens, pos)
+        self.decode_logits[pos] = logits
+        return logits, caches
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """The model's attention through the plain PyTorch versions, on the
+    card (the kernels' wrappers are not called)."""
+    saved = backend.attention, backend.decode_attention
+    backend.attention = (lambda q, k, v, *, causal=True:
+                         attention_ref(q, k, v, causal=causal))
+    backend.decode_attention = (lambda q, k, v, *, kv_len:
+                                decode_attention_ref(q, k, v, kv_len=kv_len))
+    try:
+        yield
+    finally:
+        backend.attention, backend.decode_attention = saved
+
+
+def lm_prompts(vocab: int) -> list[np.ndarray]:
+    assert all(b - a > MAX_NEW for a, b in zip(PROMPT_LENS,
+                                               PROMPT_LENS[1:]))
+    rng = np.random.default_rng(SEED)
+    return [rng.integers(0, vocab, n) for n in PROMPT_LENS]
+
+
+def serve_engine(model: Model, params, prompts) -> dict:
+    """The main path: ``Engine`` serving every prompt, launch counts set
+    to 0 just before and read just after."""
+    rec = Recorder(model)
+    eng = Engine(rec, params, EngineConfig(n_slots=N_SLOTS, max_len=MAX_LEN))
+    for i, p in enumerate(prompts):
+        eng.submit(Request(req_id=i, tokens=p, max_new=MAX_NEW))
+    torch.cuda.synchronize()
+    flash_attention.launches = decode_attention.launches = 0
+    lstm_cell.launches = 0
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(flash_attention=flash_attention.launches,
+                    decode_attention=decode_attention.launches,
+                    lstm_cell=lstm_cell.launches)
+    n_layers = model.cfg.n_layers
+    decoded = sum(len(r.out) - 1 for r in done)
+    want = dict(flash_attention=n_layers * len(prompts),
+                decode_attention=LAUNCHES_PER_CALL * n_layers * decoded,
+                lstm_cell=0)
+    if len(done) != len(prompts) or launches != want:
+        raise AssertionError(f"engine: {len(done)} requests done, launches "
+                             f"{launches}, expected {want}")
+    tokens = sum(len(r.out) for r in done)
+    print(f"[lm] engine served {len(done)} requests, {tokens} tokens in "
+          f"{wall:.3f} s: flash_attention {launches['flash_attention']} "
+          f"launches = {n_layers} x {len(prompts)} prefills, "
+          f"decode_attention {launches['decode_attention']} = "
+          f"{LAUNCHES_PER_CALL} x {n_layers} x {decoded} decoded tokens")
+    return dict(done=sorted(done, key=lambda r: r.req_id), rec=rec,
+                wall_s=wall, tokens=tokens, launches=launches)
+
+
+def teacher_forced(model: Model, params, prompts, served) -> dict:
+    """Every step of every request re-run through the plain attention
+    functions on the card, fed the engine's tokens: logits drift against
+    the engine's, greedy agreement, and the plain path's top-2 margin
+    where they disagree."""
+    rec, dev = served["rec"], params["embed"].device
+    drift, agree, total, flips = 0.0, 0, 0, []
+    f0, d0 = flash_attention.launches, decode_attention.launches
+    with plain_attention():
+        for p, req in zip(prompts, served["done"]):
+            toks = torch.as_tensor(p, device=dev)[None]
+            logits, caches = model.prefill(params, {"tokens": toks})
+            caches = pad_to_length(caches, len(p) + MAX_NEW)
+            steps = [(rec.prefill_logits[len(p)], logits)]
+            for j, tok in enumerate(req.out[:-1]):
+                logits, caches = model.decode_step(
+                    params, caches, torch.tensor([[tok]], device=dev),
+                    len(p) + j)
+                steps.append((rec.decode_logits[len(p) + j], logits))
+            for j, (eng_l, plain_l) in enumerate(steps):
+                eng_l, plain_l = eng_l[0, -1], plain_l[0, -1]
+                if not torch.isfinite(plain_l).all():
+                    raise AssertionError("plain path: non-finite logits")
+                drift = max(drift, (eng_l - plain_l).abs().max().item())
+                total += 1
+                if int(torch.argmax(plain_l)) == req.out[j]:
+                    agree += 1
+                    continue
+                top2 = torch.topk(plain_l, 2).values
+                flips.append(dict(req=req.req_id, step=j, token=req.out[j],
+                                  plain_token=int(torch.argmax(plain_l)),
+                                  margin=(top2[0] - top2[1]).item()))
+            del caches
+    if (flash_attention.launches, decode_attention.launches) != (f0, d0):
+        raise AssertionError("the plain path launched a kernel")
+    return dict(max_abs_drift=drift, agree=agree, steps=total, flips=flips)
+
+
+def free_cuda() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_gate() -> dict:
+    """Phase 5: fp32 at full width and depth, the correctness gate."""
+    cfg = dataclasses.replace(get_config(LM_ARCH), param_dtype="float32")
+    model = Model(cfg)
+    matmul = torch.backends.cuda.matmul
+    if (matmul.allow_tf32 or torch.backends.cudnn.allow_tf32
+            or matmul.allow_bf16_reduced_precision_reduction):
+        raise AssertionError("reduced-precision products are on")
+    t0 = time.perf_counter()
+    params = model.init(SEED, DEVICE)
+    torch.cuda.synchronize()
+    print(f"[lm] {cfg.name} fp32: {cfg.param_count() / 1e9:.3f} B params, "
+          f"init {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    prompts = lm_prompts(cfg.vocab)
+    torch.cuda.reset_peak_memory_stats()
+    served = serve_engine(model, params, prompts)
+    tf = teacher_forced(model, params, prompts, served)
+    for f in tf["flips"]:
+        print(f"[lm] fp32 boundary flip: {f}")
+    print(f"[lm] fp32 engine vs plain path: max abs logit drift "
+          f"{tf['max_abs_drift']:.3e} (bound {LOGIT_TOL}), greedy tokens "
+          f"equal {tf['agree']}/{tf['steps']}, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not tf["max_abs_drift"] <= LOGIT_TOL:
+        raise AssertionError(f"fp32 logits drift {tf['max_abs_drift']}")
+    bad = [f for f in tf["flips"] if f["margin"] >= LOGIT_TOL]
+    if bad:
+        raise AssertionError(f"fp32 greedy tokens differ away from a top-2 "
+                             f"tie: {bad}")
+    out = dict(launches=served["launches"], wall_s=served["wall_s"],
+               tokens=served["tokens"], **tf)
+    del params, served
+    free_cuda()
+    return out
+
+
+def _sync_ms(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def lm_timing() -> dict:
+    """Phase 6: bf16, the config's own dtype: the engine's run, warm TTFT
+    per prompt length (prefill, cache padding and the first token, one
+    request alone), warm decode ms per token, drift against the plain
+    path, and a profiled window of decode steps."""
+    cfg = get_config(LM_ARCH)
+    model = Model(cfg)
+    params = model.init(SEED, DEVICE)
+    prompts = lm_prompts(cfg.vocab)
+    served = serve_engine(model, params, prompts)
+    tf = teacher_forced(model, params, prompts, served)
+    print(f"[lm] bf16 engine vs plain path: max abs logit drift "
+          f"{tf['max_abs_drift']:.3e}, greedy tokens equal "
+          f"{tf['agree']}/{tf['steps']}")
+
+    def first_token(p):
+        toks = torch.as_tensor(p, device=DEVICE)[None]
+        logits, caches = model.prefill(params, {"tokens": toks})
+        pad_to_length(caches, MAX_LEN)
+        return int(torch.argmax(logits[:, -1], dim=-1)[0])
+
+    ttft = {}
+    for p in prompts:
+        ttft[len(p)] = float(np.median([_sync_ms(lambda: first_token(p))
+                                        for _ in range(3)]))
+    decode_ms, decode_busy = {}, {}
+    for n in (PROMPT_LENS[0], PROMPT_LENS[-1]):
+        p = prompts[PROMPT_LENS.index(n)]
+        logits, caches = model.prefill(
+            params, {"tokens": torch.as_tensor(p, device=DEVICE)[None]})
+        caches = pad_to_length(caches, MAX_LEN)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        times = []
+        for j in range(MAX_NEW):
+            def step(j=j):
+                nonlocal tok
+                out, _ = model.decode_step(params, caches, tok, n + j)
+                tok = torch.argmax(out[:, -1], dim=-1)[:, None]
+                int(tok[0, 0])
+            times.append(_sync_ms(step))
+        decode_ms[n] = float(np.median(times[2:]))
+        decode_busy[n] = profile_decode(model, params, caches, tok,
+                                        n + MAX_NEW)
+        del caches
+    longest = prompts[-1]
+    prefill_busy = profile_window(
+        f"prefill of {len(longest)} tokens", lambda: first_token(longest), 1)
+    tok_s = served["tokens"] / served["wall_s"]
+    print(f"[lm] bf16 TTFT ms by prompt length (warm, alone): {ttft}")
+    print(f"[lm] bf16 decode ms/token (B=1, warm median) by context: "
+          f"{decode_ms}; engine {served['tokens']} tokens in "
+          f"{served['wall_s']:.3f} s = {tok_s:.1f} tokens/s "
+          f"({len(prompts)} requests, {N_SLOTS} slots, prefill included)")
+    out = dict(ttft_ms=ttft, decode_ms=decode_ms, profile=decode_busy,
+               prefill_profile=prefill_busy,
+               engine_tok_per_s=tok_s, engine_wall_s=served["wall_s"],
+               tokens=served["tokens"], launches=served["launches"],
+               max_abs_drift=tf["max_abs_drift"], agree=tf["agree"],
+               steps=tf["steps"], flips=len(tf["flips"]))
+    del params, served
+    free_cuda()
+    return out
+
+
+def profile_window(label: str, fn, reps: int) -> dict:
+    """Device time of ``reps`` calls of ``fn`` under torch.profiler: busy
+    ms per call (every kernel and copy) and the top device ops."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ops = [(e.key, e.self_device_time_total, e.count)
+           for e in prof.key_averages()
+           if str(e.device_type).endswith("CUDA")
+           and e.self_device_time_total > 0]
+    busy_us = sum(t for _, t, _ in ops)
+    top = sorted(ops, key=lambda o: -o[1])[:6]
+    out = dict(device_busy_ms=busy_us / 1e3 / reps,
+               device_ops=sum(c for *_, c in ops) / reps,
+               top=[dict(op=k[:60], ms=t / 1e3 / reps, calls=c / reps)
+                    for k, t, c in top])
+    print(f"[profile] {label}: device busy {out['device_busy_ms']:.4f} ms "
+          f"per call over {out['device_ops']:.0f} kernels and copies; top: "
+          + "; ".join(f"{t['op']} {t['ms']:.4f} ms x{t['calls']:.0f}"
+                      for t in out['top']))
+    return out
+
+
+def profile_decode(model, params, caches, tok, pos, reps: int = 8) -> dict:
+    """``reps`` decode steps from ``pos`` under the profiler, per token."""
+    state = dict(tok=tok, pos=pos)
+
+    def step():
+        out, _ = model.decode_step(params, caches, state["tok"],
+                                   state["pos"])
+        state["tok"] = torch.argmax(out[:, -1], dim=-1)[:, None]
+        state["pos"] += 1
+
+    return profile_window(f"decode from position {pos}, per token", step,
+                          reps)
+
+
 # --------------------------------- main ------------------------------------
 
 def main() -> None:
     smi = environment()
+    full_precision()
     t0 = time.perf_counter()
     built = _build.build_all()
     print(f"[build] {built} in {time.perf_counter() - t0:.2f} s wall")
@@ -457,6 +924,8 @@ def main() -> None:
                 print(f"[build] {name}: {line.strip()}")
 
     cell = check_kernel()
+    flash = check_flash()
+    decode = check_decode()
 
     n_hosts, max_tasks = PAPER["n_hosts"], PAPER["max_tasks"]
     lstm_cell.launches = 0
@@ -480,6 +949,11 @@ def main() -> None:
           f"{fused} fused intervals; one staged copy per warm interval")
     buckets = time_buckets(n_hosts, max_tasks)
 
+    gate = lm_gate()
+    timing = lm_timing()
+    served = serve_entry.main(["--arch", LM_ARCH, "--device", "cuda"])
+    free_cuda()
+
     headline = cell["timing"][-1]
     kernels = [dict(
         name="lstm_cell", route="cuda", source=SOURCE, replaces=REPLACES,
@@ -492,7 +966,24 @@ def main() -> None:
         device_ms=buckets[f"milestone/{TIMED_BUCKETS[-1]}"][
             "kernel_device_ms"],
         per_shape=cell["timing"])]
+    # attention: launches from the fp32 gate's engine run; times at the
+    # path's largest shape in bf16, the config's own dtype
+    for name, meta, res in (("flash_attention", FLASH, flash),
+                            ("decode_attention", DECODE, decode)):
+        head = [r for r in res["timing"] if r["dtype"] == "bfloat16"][0]
+        kernels.append(dict(
+            name=name, route="cuda", **meta,
+            launches=gate["launches"][name],
+            max_abs_err=res["worst"][torch.float32],
+            max_abs_err_bf16=res["worst"][torch.bfloat16],
+            ms=head["ms"], kernel_ms=head["ms"], plain_ms=head["plain_ms"],
+            bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+            library_ms=head["library_ms"], shape=head["shape"],
+            per_dtype=res["timing"]))
     print(json.dumps({"slice": slice_stats, "ms_per_interval": buckets}))
+    print(json.dumps({"lm_fp32": {k: v for k, v in gate.items()
+                                  if k != "flips"},
+                      "lm_bf16": timing, "serve": served}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,100 @@
+"""Wrapper of the flash attention kernel (``csrc/flash_attention.cu``).
+
+On CUDA tensors it launches the kernel on the current stream, or raises;
+on CPU tensors it runs the plain version (:func:`attention_ref`).  It
+never pads: the kernel masks the ragged edge of the sequence.
+Inference only — inputs that require grad are refused until the kernel
+has a ``torch.autograd.Function`` (training).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+_SYMBOLS = {torch.float32: "flash_attention_f32",
+            torch.bfloat16: "flash_attention_bf16"}
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+HEAD_DIMS = (16, 32, 64, 128)     # the kernel's instantiations
+_MAX_GRID_Y = 65535               # batch * heads is the grid's y
+
+
+def _launcher(dtype: torch.dtype):
+    fn = getattr(_build.library("flash_attention"), _SYMBOLS[dtype])
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(q, k, v) -> None:
+    ts = (q, k, v)
+    if any(t.requires_grad for t in ts):
+        raise ValueError("flash_attention is inference-only: an input "
+                         "requires grad")
+    if any(t.device != q.device for t in ts):
+        raise ValueError("flash_attention inputs lie on different devices")
+    if any(t.dtype != q.dtype for t in ts) or q.dtype not in _SYMBOLS:
+        raise TypeError("flash_attention takes float32 or bfloat16 inputs "
+                        f"of one dtype, got {[t.dtype for t in ts]}")
+    if any(t.dim() != 4 for t in ts):
+        raise ValueError("flash_attention takes q (B, H, Sq, D) and k, v "
+                         "(B, Hkv, Sk, D), got "
+                         f"{[tuple(t.shape) for t in ts]}")
+    b, h, _, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if k.shape != (b, hkv, sk, d) or v.shape != k.shape or hkv == 0 \
+            or h % hkv:
+        raise ValueError(f"flash_attention shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+
+
+def flash_attention(q, k, v, causal: bool = True,
+                    sm_scale: float | None = None):
+    """GQA attention: q (B, H, Sq, D); k, v (B, Hkv, Sk, D), H % Hkv == 0;
+    query head h reads KV head ``h // (H / Hkv)``.  Causal keeps
+    ``qpos >= kpos``.  fp32 softmax, output in q's dtype.
+    ``flash_attention.launches`` counts kernel launches (CPU calls do not
+    launch and do not count)."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, sm_scale=sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention has no kernel for {q.device}")
+    if q.get_device() != torch.cuda.current_device():
+        raise ValueError("flash_attention inputs must lie on the current "
+                         "device")
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel takes head_dim in "
+                         f"{HEAD_DIMS}, got {d}")
+    if not all(t.is_contiguous() for t in (q, k, v)):
+        raise ValueError("flash_attention inputs must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention inputs must be 16-byte aligned")
+    out = torch.empty_like(q)
+    if q.numel() == 0:
+        return out
+    if sk == 0:
+        raise ValueError("flash_attention needs at least one key")
+    if b * h > _MAX_GRID_Y:
+        raise ValueError(f"flash_attention kernel: B*H = {b * h} exceeds "
+                         f"its grid ({_MAX_GRID_Y})")
+    scale = sm_scale if sm_scale is not None else d ** -0.5
+    rc = _launcher(q.dtype)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
+        h // hkv, sq, sk, d, scale, int(causal),
+        torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+                           f"error {rc}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -1,0 +1,71 @@
+"""The port's flash attention (on the CPU: its plain version, which the
+wrapper runs for CPU tensors) against the JAX package's Pallas kernel in
+interpret mode and its ``attention_ref``, over the JAX sweep's shapes,
+with the same inputs made by numpy from a seed (the sweep's tolerances:
+2e-5 fp32, 2e-2 bf16)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import attention_ref as jax_ref
+from repro.kernels.flash_attention import flash_attention as jax_flash
+from repro_torch.kernels.flash_attention import (attention_ref,
+                                                 flash_attention)
+from test_kernels import FLASH_SWEEP
+
+DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+
+
+def _inputs(seed, shapes, dtype):
+    """Each array rounded to ``dtype`` once, then handed to both sides."""
+    rng = np.random.default_rng(seed)
+    jdt, tdt, _ = DTYPES[dtype]
+    out = []
+    for s in shapes:
+        a = np.asarray(jnp.asarray(rng.standard_normal(s, np.float32), jdt),
+                       np.float32)
+        out.append((jnp.asarray(a, jdt), torch.tensor(a, dtype=tdt)))
+    return out
+
+
+def _np(x):
+    return x.float().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("b,h,hkv,s,d,causal", FLASH_SWEEP)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_attention_matches_jax(b, h, hkv, s, d, causal, dtype):
+    (jq, tq), (jk, tk), (jv, tv) = _inputs(
+        s + d, [(b, h, s, d), (b, hkv, s, d), (b, hkv, s, d)], dtype)
+    got = flash_attention(tq, tk, tv, causal)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    assert flash_attention.launches == 0      # CPU tensors never launch
+    tol = DTYPES[dtype][2]
+    for want in (jax_flash(jq, jk, jv, causal),                # Pallas
+                 jax_ref(jq, jk, jv, causal=causal)):          # oracle
+        np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+def test_chunked_plain_version_matches_one_block():
+    """``chunk_q`` splits the queries and keeps each row's softmax whole."""
+    (_, q), (_, k), (_, v) = _inputs(
+        7, [(1, 4, 64, 16), (1, 2, 64, 16), (1, 2, 64, 16)], "float32")
+    whole = attention_ref(q, k, v, causal=True, chunk_q=None)
+    chunked = attention_ref(q, k, v, causal=True, chunk_q=16)
+    np.testing.assert_allclose(_np(chunked), _np(whole), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_wrapper_refuses_what_the_kernel_does_not_take():
+    q = torch.zeros(1, 4, 8, 16)
+    kv = torch.zeros(1, 3, 8, 16)
+    with pytest.raises(ValueError):          # 4 heads over 3 KV heads
+        flash_attention(q, kv, kv)
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), kv.half(), kv.half())
+    with pytest.raises(ValueError):
+        flash_attention(q.requires_grad_(), torch.zeros(1, 2, 8, 16),
+                        torch.zeros(1, 2, 8, 16))

@@ -1,6 +1,7 @@
 """The port stands alone: no file of ``src/repro_torch/`` and not
 ``chip_smoke.py`` imports ``jax`` or the JAX package ``repro``, and
-building and running the port's controller on the CPU loads neither."""
+building and running the port's controller and its LM serving engine on
+the CPU loads neither."""
 import ast
 import os
 import subprocess
@@ -29,6 +30,10 @@ def test_the_scan_sees_every_port_module():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert "src/repro_torch/core/predictor.py" in names
     assert "src/repro_torch/kernels/lstm_cell/ops.py" in names
+    assert {"src/repro_torch/models/lm.py",
+            "src/repro_torch/serve/engine.py",
+            "src/repro_torch/kernels/flash_attention/ops.py",
+            "src/repro_torch/kernels/decode_attention/ops.py"} <= names
     assert _imported_roots(ROOT / "src" / "repro" / "core" / "start.py") \
         >= {"repro", "numpy"}
 
@@ -47,6 +52,18 @@ def test_running_the_port_loads_no_jax():
         "e = c.predict_es_batch(np.arange(2), np.ones((2, 3, 5), "
         "np.float32), np.array([2, 3]))\n"
         "assert e.shape == (2,)\n"
+        "import dataclasses\n"
+        "from repro_torch.configs import get_reduced\n"
+        "from repro_torch.models.lm import Model\n"
+        "from repro_torch.serve.engine import Engine, EngineConfig, "
+        "Request\n"
+        "m = Model(get_reduced('yi-6b'))\n"
+        "eng = Engine(m, m.init(0, 'cpu'), EngineConfig(n_slots=2, "
+        "max_len=24))\n"
+        "for i in range(3):\n"
+        "    eng.submit(Request(req_id=i, tokens=np.arange(3 + i), "
+        "max_new=4))\n"
+        "assert len(eng.run()) == 3\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n")
