@@ -9,12 +9,15 @@ Phases:
 1. environment: a CUDA card, TF32 and bf16 reduced-precision reductions
    off, the card's name and power limit;
 2. build: every CUDA kernel of the port (``lstm_cell``,
-   ``flash_attention``, ``decode_attention``), from the sources in the
-   checkout, one ``nvcc`` per source, all started together;
+   ``flash_attention``, ``decode_attention``, ``moe_router``), from the
+   sources in the checkout, one ``nvcc`` per source, all started
+   together;
 3. kernel vs plain: each kernel against its plain PyTorch version on the
    card, at the JAX test sweep's shapes and its path's shapes, and timed
-   beside the plain version and the one-call PyTorch yardstick
-   (``torch.lstm_cell``, ``scaled_dot_product_attention``);
+   beside the plain version and the PyTorch yardstick
+   (``torch.lstm_cell``, ``scaled_dot_product_attention``, and for the
+   router ``softmax`` + ``topk`` + renormalisation, since no one call
+   computes it);
 4. the decision slice: ``STARTController`` at the paper's width (400
    hosts x 11 features, 10 tasks per job, horizon 5), fed seeded
    telemetry, in both triggers, on the card and on the CPU from the same
@@ -34,8 +37,22 @@ Phases:
    (TTFT per prompt length, warm decode ms per token, tokens/s), drift
    against the plain path, profiler device busy per token, and the
    serving entry point ``repro_torch.launch.serve`` once at yi-6b;
-7. summary: one JSON line of kernel numbers, the card's line, and last
+7. MoE serving, fp32: qwen3-moe-30b-a3b at full width, 12 of its 48
+   layers (seeded weights), the same engine and requests; every MoE
+   layer launches ``moe_router`` once per prefill and per decoded token;
+   the teacher-forced re-run takes the plain attention and the plain
+   router.  Routing may differ only where the plain path's k-th and
+   (k+1)-th probabilities nearly tie (a hidden state moved by ~1e-6 can
+   swap them); each request's logits are held to 1e-4, and its greedy
+   tokens as in phase 5, on every step before its first routing
+   difference;
+8. MoE serving, bf16: qwen3-moe-30b-a3b at full width and depth, timed
+   as in phase 6, with the routing differences counted, and
+   ``repro_torch.launch.serve`` once at qwen3-moe-30b-a3b;
+9. summary: one JSON line of kernel numbers, the card's line, and last
    ``{"ok": true, "device": {...}}``.
+
+Each phase prints its wall time.
 
 Any failed check raises, so the script exits non-zero and prints no
 result.  Without a CUDA card it exits non-zero in phase 1.
@@ -69,6 +86,8 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_ref, flash_attention)
 from repro_torch.kernels.lstm_cell import (  # noqa: E402
     lstm_cell, lstm_cell_ref)
+from repro_torch.kernels.moe_router import (  # noqa: E402
+    moe_router, moe_router_ref)
 from repro_torch.launch import serve as serve_entry  # noqa: E402
 from repro_torch.models import backend  # noqa: E402
 from repro_torch.models.lm import Model, full_precision  # noqa: E402
@@ -129,12 +148,29 @@ DECODE = dict(source="src/repro_torch/kernels/decode_attention/csrc/"
               replaces="src/repro/kernels/decode_attention/"
               "decode_attention.py:25")
 
+# (tokens, experts, k): the JAX router sweep (tests/test_kernels.py
+# ROUTER_SWEEP), then qwen3-moe-30b-a3b's router shapes (one decoded
+# token, the shortest and the longest prompt)
+ROUTER_SWEEP = [(256, 8, 2), (512, 128, 8), (300, 256, 8), (64, 16, 2)]
+ROUTER_PATH = [(t, 128, 8) for t in (1, 12, 3000)]
+ROUTER_ATOL = 1e-6           # weights, taken expert by expert, max abs
+ROUTER = dict(source="src/repro_torch/kernels/moe_router/csrc/moe_router.cu",
+              replaces="src/repro/kernels/moe_router/moe_router.py:24")
+
 # LM serving: yi-6b at full width and depth, seeded weights
 LM_ARCH = "yi-6b"
 PROMPT_LENS = [12, 64, 300, 1000, 2048, 3000]
 MAX_NEW, N_SLOTS, MAX_LEN = 16, 4, 4096
 LOGIT_TOL = 1e-4             # fp32 engine vs plain path, max abs
 DEVICE = "cuda"
+# MoE serving: qwen3-moe-30b-a3b at full width; the fp32 gate keeps 12 of
+# its 48 layers (8.1 B params, 32.4 GB: all 48 in fp32 are 122 GB)
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MOE_GATE_LAYERS = 12
+NEAR_TIE = 1e-5              # k-th vs (k+1)-th probability, relative
+# the port's kernels by their names in a profiler trace
+OUR_KERNELS = ("flash_attention_kernel", "decode_partial_kernel",
+               "decode_combine_kernel", "router_kernel")
 
 
 # --------------------------------- phase 1 ---------------------------------
@@ -286,7 +322,8 @@ def _compare(name, got, want, dtype, worst, label) -> None:
     print(f"[kernel] {name} {label} {str(dtype)[6:]}: ok")
 
 
-def _timing(name, label, kernel, plain, library, dtype, work) -> dict:
+def _timing(name, label, kernel, plain, library, dtype, work,
+            library_name="sdpa") -> dict:
     """Kernel and plain alternated (so drift in clocks hits both), the
     library call, and the bound."""
     k1, p1 = time_auto(kernel), time_auto(plain)
@@ -298,7 +335,8 @@ def _timing(name, label, kernel, plain, library, dtype, work) -> dict:
                bound_by=bound_by)
     print(f"[kernel] {name} {label} {row['dtype']}: kernel {row['ms']:.5f} "
           f"ms (runs {k1:.5f}, {k2:.5f}), plain {row['plain_ms']:.5f} ms, "
-          f"sdpa {lib_ms:.5f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+          f"{library_name} {lib_ms:.5f} ms, bound {bound_ms:.6f} ms "
+          f"({bound_by})")
     return row
 
 
@@ -366,6 +404,91 @@ def check_decode() -> dict:
     print(f"[kernel] decode_attention max abs err fp32 "
           f"{worst[torch.float32]:.3e} (bound 2e-5), bf16 "
           f"{worst[torch.bfloat16]:.3e} (bound 2e-2)")
+    return {"worst": worst, "timing": rows}
+
+
+def router_work(t, e, k, elem) -> tuple[float, float]:
+    """fp32 operations (per logit: max, subtract, exp, sum, divide, and
+    one compare per round; per chosen weight: add and divide) and bytes
+    of the logits read once and the weights and indices written once."""
+    return (float(t * e * (5 + k) + 2 * t * k), float(t * e * elem + t * k * 8))
+
+
+def router_library(logits, k):
+    """The PyTorch yardstick, three calls: softmax, topk, renormalise."""
+    w, idx = torch.topk(torch.softmax(logits.float(), dim=-1), k)
+    return w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-20), idx
+
+
+def _by_expert(w, idx):
+    """Each row's (weights, indices) sorted by expert index."""
+    idx, order = torch.sort(idx.long(), dim=-1)
+    return torch.gather(w, -1, order), idx
+
+
+def _compare_routing(label, got, want, worst, dtype) -> None:
+    """Index sets equal (order-insensitive, as the JAX test compares),
+    weights within ROUTER_ATOL expert by expert, rows summing to 1."""
+    torch.cuda.synchronize()
+    gw, gi = _by_expert(*got)
+    ww, wi = _by_expert(*want)
+    if not torch.isfinite(got[0]).all():
+        raise AssertionError(f"moe_router {label}: non-finite weights")
+    if not torch.equal(gi, wi):
+        rows = (gi != wi).any(-1).nonzero()[:5, 0].tolist()
+        raise AssertionError(f"moe_router {label}: index sets differ in "
+                             f"rows {rows}")
+    err = (gw - ww).abs().max().item()
+    if not err <= ROUTER_ATOL:
+        raise AssertionError(f"moe_router {label}: weights differ by {err}")
+    torch.testing.assert_close(got[0].sum(-1), torch.ones_like(got[0][:, 0]),
+                               rtol=1e-5, atol=1e-5)
+    worst[dtype] = max(worst[dtype], err)
+
+
+def check_router() -> dict:
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    rows = []
+    for i, (t, e, k) in enumerate(ROUTER_SWEEP + ROUTER_PATH):
+        label = f"T={t} E={e} k={k}"
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator().manual_seed(300 + i)
+            logits = torch.randn(t, e, generator=g).to("cuda", dtype)
+            want = moe_router_ref(logits, k)
+            _compare_routing(label, moe_router(logits, k), want, worst, dtype)
+            print(f"[kernel] moe_router {label} {str(dtype)[6:]}: ok")
+            if (t, e, k) != ROUTER_PATH[-1] or dtype != torch.float32:
+                continue
+            _compare_routing(f"{label} (library)", router_library(logits, k),
+                             want, {dtype: 0.0}, dtype)
+            rows.append(_timing(
+                "moe_router", label, lambda: moe_router(logits, k),
+                lambda: moe_router_ref(logits, k),
+                lambda: router_library(logits, k), dtype,
+                router_work(t, e, k, logits.element_size()),
+                library_name="softmax+topk+renorm"))
+    # exact ties: the lower expert index wins, in the order chosen
+    for e, k in ((128, 8), (8, 2), (16, 4)):
+        ties = torch.zeros(4, e)
+        ties[1, [e - 1, 3, e // 2]] = 2.0           # three tied maxima
+        ties[2] = torch.arange(e) % 4                # groups of ties
+        ties[3, :k + 1] = 1.0                        # a tie across the cut
+        for dtype in (torch.float32, torch.bfloat16):
+            x = ties.to("cuda", dtype)
+            w, idx = moe_router(x, k)
+            wr, ir = moe_router_ref(x, k)
+            torch.cuda.synchronize()
+            if not (torch.equal(idx, ir) and idx[0].tolist() == list(range(k))
+                    and idx[1, :3].tolist() == [3, e // 2, e - 1][:k]
+                    and idx[3].tolist() == list(range(k))):
+                raise AssertionError(f"moe_router ties E={e} k={k}: "
+                                     f"{idx.tolist()} vs {ir.tolist()}")
+            worst[dtype] = max(worst[dtype], (w - wr).abs().max().item())
+        print(f"[kernel] moe_router exact ties E={e} k={k}: lower index "
+              f"first, as the plain version")
+    print(f"[kernel] moe_router max abs weight err fp32 "
+          f"{worst[torch.float32]:.3e}, bf16 inputs "
+          f"{worst[torch.bfloat16]:.3e} (bound {ROUTER_ATOL})")
     return {"worst": worst, "timing": rows}
 
 
@@ -639,41 +762,84 @@ def profile_intervals(ctrl, tel_gen, nb: int, reps: int = 10) -> dict:
 
 # ------------------------------ phases 5 and 6 ------------------------------
 
+class RouteLog:
+    """``backend.moe_router`` as the model calls it: each call's indices
+    are kept under the current step's key (``key``, set by the caller),
+    one entry per MoE layer in order.  ``with_gap`` also keeps, per
+    token, the relative gap between the k-th and (k+1)-th probability."""
+
+    def __init__(self, router, with_gap: bool = False):
+        self.router, self.with_gap = router, with_gap
+        self.key = None
+        self.calls: dict = {}
+
+    def __call__(self, logits, k: int):
+        w, idx = self.router(logits, k)
+        gap = None
+        if self.with_gap:
+            top = torch.topk(torch.softmax(logits.float(), dim=-1), k + 1,
+                             dim=-1).values
+            gap = (top[:, k - 1] - top[:, k]) / top[:, k - 1]
+        self.calls.setdefault(self.key, []).append((idx, gap))
+        return w, idx
+
+
+@contextlib.contextmanager
+def routed_by(log: RouteLog):
+    saved = backend.moe_router
+    backend.moe_router = log
+    try:
+        yield log
+    finally:
+        backend.moe_router = saved
+
+
 class Recorder:
-    """The model as the engine sees it, keeping the logits of every call:
+    """The model as the engine sees it, keeping the logits of every call,
     prefill logits by prompt length, decode logits by position (the
     prompts' lengths are far enough apart that positions identify the
-    request)."""
+    request), and keying the router calls of each in ``log``."""
 
-    def __init__(self, model: Model):
-        self.model = model
+    def __init__(self, model: Model, log: RouteLog):
+        self.model, self.log = model, log
         self.prefill_logits: dict[int, torch.Tensor] = {}
         self.decode_logits: dict[int, torch.Tensor] = {}
 
     def prefill(self, params, batch):
+        n = batch["tokens"].shape[1]
+        self.log.key = ("prefill", n)
         logits, caches = self.model.prefill(params, batch)
-        self.prefill_logits[batch["tokens"].shape[1]] = logits
+        self.prefill_logits[n] = logits
         return logits, caches
 
     def decode_step(self, params, caches, tokens, pos):
+        self.log.key = ("decode", pos)
         logits, caches = self.model.decode_step(params, caches, tokens, pos)
         self.decode_logits[pos] = logits
         return logits, caches
 
 
 @contextlib.contextmanager
-def plain_attention():
-    """The model's attention through the plain PyTorch versions, on the
-    card (the kernels' wrappers are not called)."""
+def plain_path():
+    """The model's attention and router through the plain PyTorch
+    versions, on the card (the kernels' wrappers are not called); yields
+    the router's log, with the top-k gaps."""
     saved = backend.attention, backend.decode_attention
     backend.attention = (lambda q, k, v, *, causal=True:
                          attention_ref(q, k, v, causal=causal))
     backend.decode_attention = (lambda q, k, v, *, kv_len:
                                 decode_attention_ref(q, k, v, kv_len=kv_len))
     try:
-        yield
+        with routed_by(RouteLog(moe_router_ref, with_gap=True)) as log:
+            yield log
     finally:
         backend.attention, backend.decode_attention = saved
+
+
+def kernel_launches() -> dict:
+    return dict(flash_attention=flash_attention.launches,
+                decode_attention=decode_attention.launches,
+                moe_router=moe_router.launches, lstm_cell=lstm_cell.launches)
 
 
 def lm_prompts(vocab: int) -> list[np.ndarray]:
@@ -686,62 +852,114 @@ def lm_prompts(vocab: int) -> list[np.ndarray]:
 def serve_engine(model: Model, params, prompts) -> dict:
     """The main path: ``Engine`` serving every prompt, launch counts set
     to 0 just before and read just after."""
-    rec = Recorder(model)
+    log = RouteLog(backend.moe_router)
+    rec = Recorder(model, log)
     eng = Engine(rec, params, EngineConfig(n_slots=N_SLOTS, max_len=MAX_LEN))
     for i, p in enumerate(prompts):
         eng.submit(Request(req_id=i, tokens=p, max_new=MAX_NEW))
     torch.cuda.synchronize()
     flash_attention.launches = decode_attention.launches = 0
-    lstm_cell.launches = 0
+    moe_router.launches = lstm_cell.launches = 0
     t0 = time.perf_counter()
-    done = eng.run()
+    with routed_by(log):
+        done = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(flash_attention=flash_attention.launches,
-                    decode_attention=decode_attention.launches,
-                    lstm_cell=lstm_cell.launches)
-    n_layers = model.cfg.n_layers
+    launches = kernel_launches()
+    cfg = model.cfg
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
     decoded = sum(len(r.out) - 1 for r in done)
-    want = dict(flash_attention=n_layers * len(prompts),
-                decode_attention=LAUNCHES_PER_CALL * n_layers * decoded,
-                lstm_cell=0)
+    want = dict(flash_attention=cfg.n_layers * len(prompts),
+                decode_attention=LAUNCHES_PER_CALL * cfg.n_layers * decoded,
+                moe_router=n_moe * (len(prompts) + decoded), lstm_cell=0)
     if len(done) != len(prompts) or launches != want:
         raise AssertionError(f"engine: {len(done)} requests done, launches "
                              f"{launches}, expected {want}")
     tokens = sum(len(r.out) for r in done)
     print(f"[lm] engine served {len(done)} requests, {tokens} tokens in "
           f"{wall:.3f} s: flash_attention {launches['flash_attention']} "
-          f"launches = {n_layers} x {len(prompts)} prefills, "
+          f"launches = {cfg.n_layers} x {len(prompts)} prefills, "
           f"decode_attention {launches['decode_attention']} = "
-          f"{LAUNCHES_PER_CALL} x {n_layers} x {decoded} decoded tokens")
+          f"{LAUNCHES_PER_CALL} x {cfg.n_layers} x {decoded} decoded tokens, "
+          f"moe_router {launches['moe_router']} = {n_moe} x "
+          f"({len(prompts)} prefills + {decoded} decoded tokens)")
     return dict(done=sorted(done, key=lambda r: r.req_id), rec=rec,
-                wall_s=wall, tokens=tokens, launches=launches)
+                routes=log.calls, wall_s=wall, tokens=tokens,
+                launches=launches)
 
 
-def teacher_forced(model: Model, params, prompts, served) -> dict:
-    """Every step of every request re-run through the plain attention
-    functions on the card, fed the engine's tokens: logits drift against
-    the engine's, greedy agreement, and the plain path's top-2 margin
-    where they disagree."""
+def route_diffs(eng_calls, plain_calls) -> tuple[int, list]:
+    """One step's routing, engine against plain path, MoE layer by layer:
+    (rows compared, [(layer, plain top-k gaps of the rows whose expert
+    sets differ)] for the layers where any do)."""
+    if len(eng_calls) != len(plain_calls):
+        raise AssertionError(f"{len(eng_calls)} router calls in the engine, "
+                             f"{len(plain_calls)} in the plain path")
+    rows, out = 0, []
+    for layer, ((idx, _), (p_idx, gap)) in enumerate(zip(eng_calls,
+                                                         plain_calls)):
+        differ = (torch.sort(idx, -1).values
+                  != torch.sort(p_idx, -1).values).any(-1)
+        rows += idx.shape[0]
+        if differ.any():
+            out.append((layer, gap[differ]))
+    return rows, out
+
+
+def teacher_forced(model: Model, params, prompts, served,
+                   hold_routing: bool = True) -> dict:
+    """Every step of every request re-run through the plain attention and
+    router functions on the card, fed the engine's tokens: logits drift
+    against the engine's, greedy agreement, the plain path's top-2 margin
+    where they disagree, and the routing differences.  With
+    ``hold_routing`` (the fp32 gate), every token whose experts differ at
+    a request's first routing difference must be a near-tie of the plain
+    path's k-th and (k+1)-th probability, and only the steps before it
+    are measured; what follows it in that request (later layers and
+    steps) is counted, not held."""
     rec, dev = served["rec"], params["embed"].device
-    drift, agree, total, flips = 0.0, 0, 0, []
-    f0, d0 = flash_attention.launches, decode_attention.launches
-    with plain_attention():
+    drift, drift_after, agree, total, flips = 0.0, 0.0, 0, 0, []
+    routing = dict(rows=0, first=[], rows_after=0, steps_after=0)
+    before = kernel_launches()
+    with plain_path() as log:
         for p, req in zip(prompts, served["done"]):
-            toks = torch.as_tensor(p, device=dev)[None]
-            logits, caches = model.prefill(params, {"tokens": toks})
-            caches = pad_to_length(caches, len(p) + MAX_NEW)
-            steps = [(rec.prefill_logits[len(p)], logits)]
+            n = len(p)
+            log.key = ("prefill", n)
+            logits, caches = model.prefill(
+                params, {"tokens": torch.as_tensor(p, device=dev)[None]})
+            caches = pad_to_length(caches, n + MAX_NEW)
+            steps = [(log.key, rec.prefill_logits[n], logits)]
             for j, tok in enumerate(req.out[:-1]):
+                log.key = ("decode", n + j)
                 logits, caches = model.decode_step(
-                    params, caches, torch.tensor([[tok]], device=dev),
-                    len(p) + j)
-                steps.append((rec.decode_logits[len(p) + j], logits))
-            for j, (eng_l, plain_l) in enumerate(steps):
+                    params, caches, torch.tensor([[tok]], device=dev), n + j)
+                steps.append((log.key, rec.decode_logits[n + j], logits))
+            del caches
+            flipped = False
+            for j, (key, eng_l, plain_l) in enumerate(steps):
+                rows, diffs = route_diffs(served["routes"].get(key, []),
+                                          log.calls.get(key, []))
+                routing["rows"] += rows
+                if diffs and not flipped:
+                    layer, gaps = diffs[0]
+                    first = dict(req=req.req_id, step=j, layer=layer,
+                                 tokens=len(gaps), gap=gaps.max().item())
+                    if hold_routing and not first["gap"] <= NEAR_TIE:
+                        raise AssertionError(f"routing differs away from a "
+                                             f"top-k near-tie: {first}")
+                    routing["first"].append(first)
+                    diffs = diffs[1:]
+                    flipped = True
+                routing["rows_after"] += sum(len(g) for _, g in diffs)
                 eng_l, plain_l = eng_l[0, -1], plain_l[0, -1]
                 if not torch.isfinite(plain_l).all():
                     raise AssertionError("plain path: non-finite logits")
-                drift = max(drift, (eng_l - plain_l).abs().max().item())
+                d = (eng_l - plain_l).abs().max().item()
+                if flipped and hold_routing:
+                    drift_after = max(drift_after, d)
+                    routing["steps_after"] += 1
+                    continue
+                drift = max(drift, d)
                 total += 1
                 if int(torch.argmax(plain_l)) == req.out[j]:
                     agree += 1
@@ -750,10 +968,11 @@ def teacher_forced(model: Model, params, prompts, served) -> dict:
                 flips.append(dict(req=req.req_id, step=j, token=req.out[j],
                                   plain_token=int(torch.argmax(plain_l)),
                                   margin=(top2[0] - top2[1]).item()))
-            del caches
-    if (flash_attention.launches, decode_attention.launches) != (f0, d0):
+            log.calls.clear()
+    if kernel_launches() != before:
         raise AssertionError("the plain path launched a kernel")
-    return dict(max_abs_drift=drift, agree=agree, steps=total, flips=flips)
+    return dict(max_abs_drift=drift, agree=agree, steps=total, flips=flips,
+                routing=routing, max_abs_drift_after_routing=drift_after)
 
 
 def free_cuda() -> None:
@@ -761,9 +980,21 @@ def free_cuda() -> None:
     torch.cuda.empty_cache()
 
 
-def lm_gate() -> dict:
-    """Phase 5: fp32 at full width and depth, the correctness gate."""
-    cfg = dataclasses.replace(get_config(LM_ARCH), param_dtype="float32")
+def _routing_line(tf: dict) -> str:
+    r = tf["routing"]
+    return (f"routing: {len(r['first'])} requests with a routing "
+            f"difference over {r['rows']} token-layer routings, first ones "
+            f"{r['first']}; {r['rows_after']} differing routings after them "
+            f"({r['steps_after']} steps held out, logit drift there "
+            f"{tf['max_abs_drift_after_routing']:.3e})")
+
+
+def lm_gate(arch: str, n_layers: int | None = None) -> dict:
+    """fp32 at full width (and depth, unless ``n_layers`` cuts it), the
+    correctness gate."""
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, param_dtype="float32",
+                              n_layers=n_layers or full.n_layers)
     model = Model(cfg)
     matmul = torch.backends.cuda.matmul
     if (matmul.allow_tf32 or torch.backends.cudnn.allow_tf32
@@ -772,7 +1003,8 @@ def lm_gate() -> dict:
     t0 = time.perf_counter()
     params = model.init(SEED, DEVICE)
     torch.cuda.synchronize()
-    print(f"[lm] {cfg.name} fp32: {cfg.param_count() / 1e9:.3f} B params, "
+    print(f"[lm] {cfg.name} fp32, {cfg.n_layers} layers: "
+          f"{cfg.param_count() / 1e9:.3f} B params, "
           f"init {time.perf_counter() - t0:.2f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
     prompts = lm_prompts(cfg.vocab)
@@ -781,18 +1013,22 @@ def lm_gate() -> dict:
     tf = teacher_forced(model, params, prompts, served)
     for f in tf["flips"]:
         print(f"[lm] fp32 boundary flip: {f}")
-    print(f"[lm] fp32 engine vs plain path: max abs logit drift "
-          f"{tf['max_abs_drift']:.3e} (bound {LOGIT_TOL}), greedy tokens "
-          f"equal {tf['agree']}/{tf['steps']}, peak "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[lm] {cfg.name} fp32 engine vs plain path: max abs logit drift "
+          f"{tf['max_abs_drift']:.3e} (bound {LOGIT_TOL}) over {tf['steps']} "
+          f"steps, greedy tokens equal {tf['agree']}/{tf['steps']}, peak "
+          f"{peak:.2f} GiB")
+    if served["launches"]["moe_router"]:
+        print(f"[lm] {cfg.name} fp32 {_routing_line(tf)}")
     if not tf["max_abs_drift"] <= LOGIT_TOL:
         raise AssertionError(f"fp32 logits drift {tf['max_abs_drift']}")
     bad = [f for f in tf["flips"] if f["margin"] >= LOGIT_TOL]
     if bad:
         raise AssertionError(f"fp32 greedy tokens differ away from a top-2 "
                              f"tie: {bad}")
-    out = dict(launches=served["launches"], wall_s=served["wall_s"],
-               tokens=served["tokens"], **tf)
+    out = dict(n_layers=cfg.n_layers, launches=served["launches"],
+               wall_s=served["wall_s"], tokens=served["tokens"],
+               peak_gib=peak, **tf)
     del params, served
     free_cuda()
     return out
@@ -806,20 +1042,25 @@ def _sync_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def lm_timing() -> dict:
-    """Phase 6: bf16, the config's own dtype: the engine's run, warm TTFT
-    per prompt length (prefill, cache padding and the first token, one
-    request alone), warm decode ms per token, drift against the plain
-    path, and a profiled window of decode steps."""
-    cfg = get_config(LM_ARCH)
+def lm_timing(arch: str) -> dict:
+    """bf16, the config's own dtype, at full width and depth: the
+    engine's run, warm TTFT per prompt length (prefill, cache padding and
+    the first token, one request alone), warm decode ms per token, drift
+    and routing differences against the plain path, and profiled windows
+    of decode steps and of the longest prefill."""
+    cfg = get_config(arch)
     model = Model(cfg)
     params = model.init(SEED, DEVICE)
     prompts = lm_prompts(cfg.vocab)
+    torch.cuda.reset_peak_memory_stats()
     served = serve_engine(model, params, prompts)
-    tf = teacher_forced(model, params, prompts, served)
-    print(f"[lm] bf16 engine vs plain path: max abs logit drift "
+    tf = teacher_forced(model, params, prompts, served, hold_routing=False)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[lm] {cfg.name} bf16 engine vs plain path: max abs logit drift "
           f"{tf['max_abs_drift']:.3e}, greedy tokens equal "
-          f"{tf['agree']}/{tf['steps']}")
+          f"{tf['agree']}/{tf['steps']}, peak {peak:.2f} GiB")
+    if served["launches"]["moe_router"]:
+        print(f"[lm] {cfg.name} bf16 {_routing_line(tf)}")
 
     def first_token(p):
         toks = torch.as_tensor(p, device=DEVICE)[None]
@@ -854,17 +1095,19 @@ def lm_timing() -> dict:
     prefill_busy = profile_window(
         f"prefill of {len(longest)} tokens", lambda: first_token(longest), 1)
     tok_s = served["tokens"] / served["wall_s"]
-    print(f"[lm] bf16 TTFT ms by prompt length (warm, alone): {ttft}")
-    print(f"[lm] bf16 decode ms/token (B=1, warm median) by context: "
-          f"{decode_ms}; engine {served['tokens']} tokens in "
+    print(f"[lm] {cfg.name} bf16 TTFT ms by prompt length (warm, alone): "
+          f"{ttft}")
+    print(f"[lm] {cfg.name} bf16 decode ms/token (B=1, warm median) by "
+          f"context: {decode_ms}; engine {served['tokens']} tokens in "
           f"{served['wall_s']:.3f} s = {tok_s:.1f} tokens/s "
           f"({len(prompts)} requests, {N_SLOTS} slots, prefill included)")
     out = dict(ttft_ms=ttft, decode_ms=decode_ms, profile=decode_busy,
                prefill_profile=prefill_busy,
                engine_tok_per_s=tok_s, engine_wall_s=served["wall_s"],
                tokens=served["tokens"], launches=served["launches"],
-               max_abs_drift=tf["max_abs_drift"], agree=tf["agree"],
-               steps=tf["steps"], flips=len(tf["flips"]))
+               peak_gib=peak, max_abs_drift=tf["max_abs_drift"],
+               agree=tf["agree"], steps=tf["steps"], flips=len(tf["flips"]),
+               routing=dict(tf["routing"], first=len(tf["routing"]["first"])))
     del params, served
     free_cuda()
     return out
@@ -885,14 +1128,22 @@ def profile_window(label: str, fn, reps: int) -> dict:
            and e.self_device_time_total > 0]
     busy_us = sum(t for _, t, _ in ops)
     top = sorted(ops, key=lambda o: -o[1])[:6]
+    ours = {}
+    for name in OUR_KERNELS:
+        hits = [(t, c) for k, t, c in ops if f"::{name}<" in k]
+        if hits:
+            ours[name] = dict(ms=sum(t for t, _ in hits) / 1e3 / reps,
+                              calls=sum(c for _, c in hits) / reps)
     out = dict(device_busy_ms=busy_us / 1e3 / reps,
                device_ops=sum(c for *_, c in ops) / reps,
                top=[dict(op=k[:60], ms=t / 1e3 / reps, calls=c / reps)
-                    for k, t, c in top])
+                    for k, t, c in top], kernels=ours)
     print(f"[profile] {label}: device busy {out['device_busy_ms']:.4f} ms "
           f"per call over {out['device_ops']:.0f} kernels and copies; top: "
           + "; ".join(f"{t['op']} {t['ms']:.4f} ms x{t['calls']:.0f}"
-                      for t in out['top']))
+                      for t in out['top']) + "; the port's kernels: "
+          + "; ".join(f"{k} {v['ms']:.4f} ms x{v['calls']:.0f}"
+                      for k, v in ours.items()))
     return out
 
 
@@ -912,47 +1163,69 @@ def profile_decode(model, params, caches, tok, pos, reps: int = 8) -> dict:
 
 # --------------------------------- main ------------------------------------
 
+@contextlib.contextmanager
+def phase(name: str):
+    t0 = time.perf_counter()
+    yield
+    print(f"[time] {name}: {time.perf_counter() - t0:.1f} s wall")
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     smi = environment()
     full_precision()
-    t0 = time.perf_counter()
-    built = _build.build_all()
-    print(f"[build] {built} in {time.perf_counter() - t0:.2f} s wall")
-    for name in built:
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+    with phase("build"):
+        t0 = time.perf_counter()
+        built = _build.build_all()
+        print(f"[build] {built} in {time.perf_counter() - t0:.2f} s wall")
+        for name in built:
+            for line in _build.build_log(name).splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"[build] {name}: {line.strip()}")
 
-    cell = check_kernel()
-    flash = check_flash()
-    decode = check_decode()
+    with phase("kernels vs plain"):
+        cell = check_kernel()
+        flash = check_flash()
+        decode = check_decode()
+        router = check_router()
 
     n_hosts, max_tasks = PAPER["n_hosts"], PAPER["max_tasks"]
-    lstm_cell.launches = 0
-    slice_stats = run_slice("cuda", "cpu", n_hosts, max_tasks)
-    launches = lstm_cell.launches
-    if (torch.backends.cuda.matmul.allow_tf32
-            or torch.backends.cudnn.allow_tf32):
-        raise AssertionError("TF32 is on with the predictor built")
-    fused = sum(s["intervals"] for s in slice_stats.values())
-    layers, horizon = 2, PAPER["horizon"]
-    if launches != layers * horizon * fused:
-        raise AssertionError(f"lstm_cell launched {launches} times over "
-                             f"{fused} fused intervals, expected "
-                             f"{layers * horizon} each")
-    for trigger, s in slice_stats.items():
-        # the first interval stages the ring and the packed batch
-        if s["h2d_stages"] != s["intervals"] + 1:
-            raise AssertionError(f"{trigger}: {s['h2d_stages']} staged "
-                                 f"copies over {s['intervals']} intervals")
-    print(f"[slice] lstm_cell launches {launches} = {layers * horizon} x "
-          f"{fused} fused intervals; one staged copy per warm interval")
-    buckets = time_buckets(n_hosts, max_tasks)
+    with phase("decision slice"):
+        lstm_cell.launches = 0
+        slice_stats = run_slice("cuda", "cpu", n_hosts, max_tasks)
+        launches = lstm_cell.launches
+        if (torch.backends.cuda.matmul.allow_tf32
+                or torch.backends.cudnn.allow_tf32):
+            raise AssertionError("TF32 is on with the predictor built")
+        fused = sum(s["intervals"] for s in slice_stats.values())
+        layers, horizon = 2, PAPER["horizon"]
+        if launches != layers * horizon * fused:
+            raise AssertionError(f"lstm_cell launched {launches} times over "
+                                 f"{fused} fused intervals, expected "
+                                 f"{layers * horizon} each")
+        for trigger, s in slice_stats.items():
+            # the first interval stages the ring and the packed batch
+            if s["h2d_stages"] != s["intervals"] + 1:
+                raise AssertionError(f"{trigger}: {s['h2d_stages']} staged "
+                                     f"copies over {s['intervals']} "
+                                     f"intervals")
+        print(f"[slice] lstm_cell launches {launches} = {layers * horizon} x "
+              f"{fused} fused intervals; one staged copy per warm interval")
+        buckets = time_buckets(n_hosts, max_tasks)
 
-    gate = lm_gate()
-    timing = lm_timing()
-    served = serve_entry.main(["--arch", LM_ARCH, "--device", "cuda"])
-    free_cuda()
+    with phase(f"{LM_ARCH} fp32 gate"):
+        gate = lm_gate(LM_ARCH)
+    with phase(f"{LM_ARCH} bf16 timing and serve"):
+        timing = lm_timing(LM_ARCH)
+        served = serve_entry.main(["--arch", LM_ARCH, "--device", "cuda"])
+        free_cuda()
+    with phase(f"{MOE_ARCH} fp32 gate ({MOE_GATE_LAYERS} layers)"):
+        moe_gate = lm_gate(MOE_ARCH, MOE_GATE_LAYERS)
+    with phase(f"{MOE_ARCH} bf16 timing and serve"):
+        moe_timing = lm_timing(MOE_ARCH)
+        moe_served = serve_entry.main(["--arch", MOE_ARCH, "--device",
+                                       "cuda"])
+        free_cuda()
 
     headline = cell["timing"][-1]
     kernels = [dict(
@@ -966,14 +1239,18 @@ def main() -> None:
         device_ms=buckets[f"milestone/{TIMED_BUCKETS[-1]}"][
             "kernel_device_ms"],
         per_shape=cell["timing"])]
-    # attention: launches from the fp32 gate's engine run; times at the
-    # path's largest shape in bf16, the config's own dtype
-    for name, meta, res in (("flash_attention", FLASH, flash),
-                            ("decode_attention", DECODE, decode)):
-        head = [r for r in res["timing"] if r["dtype"] == "bfloat16"][0]
+    # attention: launches from yi-6b's fp32 gate, the router's from
+    # qwen3's; times at the path's largest shape, attention in bf16 (the
+    # config's own dtype), the router in fp32 (its logits are fp32)
+    for name, meta, res, runs in (
+            ("flash_attention", FLASH, flash, gate),
+            ("decode_attention", DECODE, decode, gate),
+            ("moe_router", ROUTER, router, moe_gate)):
+        want = "float32" if name == "moe_router" else "bfloat16"
+        head = [r for r in res["timing"] if r["dtype"] == want][0]
         kernels.append(dict(
             name=name, route="cuda", **meta,
-            launches=gate["launches"][name],
+            launches=runs["launches"][name],
             max_abs_err=res["worst"][torch.float32],
             max_abs_err_bf16=res["worst"][torch.bfloat16],
             ms=head["ms"], kernel_ms=head["ms"], plain_ms=head["plain_ms"],
@@ -984,6 +1261,10 @@ def main() -> None:
     print(json.dumps({"lm_fp32": {k: v for k, v in gate.items()
                                   if k != "flips"},
                       "lm_bf16": timing, "serve": served}))
+    print(json.dumps({"moe_fp32": {k: v for k, v in moe_gate.items()
+                                   if k != "flips"},
+                      "moe_bf16": moe_timing, "moe_serve": moe_served}))
+    print(f"[time] total: {time.perf_counter() - t_start:.1f} s wall")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

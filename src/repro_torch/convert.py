@@ -3,7 +3,9 @@
 Both packages keep the same pytrees: the predictor's ``{"enc": [{w, b}]
 x 4, "lstm": [{wx, wh, b}] x 2, "head": {w, b}}`` with ``x @ w`` products
 and LSTM gates packed [i, f, g, o], and the LM's dict of layer-stacked
-leaves (``models/lm.py``).  So conversion is a plain copy of every leaf.
+leaves (``models/lm.py``; an MoE layer's fp32 router beside its expert
+stacks in the config's dtype).  So conversion is a plain copy of every
+leaf.
 The JAX side is handled as numpy arrays (``np.asarray`` of each leaf), so
 this module needs no JAX: a JAX bfloat16 leaf arrives as a numpy array of
 the ``bfloat16`` extension dtype, and its bits are carried over as they

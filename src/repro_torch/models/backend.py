@@ -11,6 +11,7 @@ from repro_torch.kernels.decode_attention import (decode_attention as
                                                   _decode_kernel)
 from repro_torch.kernels.flash_attention import (flash_attention as
                                                  _flash_kernel)
+from repro_torch.kernels.moe_router import moe_router as _router_kernel
 
 
 def attention(q, k, v, *, causal: bool = True):
@@ -25,11 +26,10 @@ def decode_attention(q, k, v, *, kv_len: int):
 
 def mamba_scan(u, delta, a, b, c, skip):
     raise NotImplementedError(
-        "mamba_scan is not ported yet: ROADMAP.md Queue 1 item 2 (SSM "
-        "serving)")
+        "mamba_scan is not ported yet: ROADMAP.md Queue 1 item 2 (the SSM "
+        "training forward)")
 
 
 def moe_router(logits, k: int):
-    raise NotImplementedError(
-        "moe_router is not ported yet: ROADMAP.md Queue 1 item 1 (MoE "
-        "serving)")
+    """logits (T, E) -> (weights (T, k) fp32, indices (T, k) int32)."""
+    return _router_kernel(logits, k)

@@ -1,5 +1,6 @@
 """Model assembly, the dense families (``dense`` and ``vlm``'s dense
-backbone), in the JAX package's layout.
+backbone) and ``moe`` (attention + routed MoE layers, on one device), in
+the JAX package's layout.
 
 Parameters are a dict pytree with each group's layers stacked along a
 leading axis (``params["g0"]["attn"]["wq"]`` is (L, d, H*hd)), exactly as
@@ -21,6 +22,7 @@ import torch
 from repro_torch.convert import tree_map
 from repro_torch.core.predictor import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as Moe
 from repro_torch.models.config import ModelConfig
 
 
@@ -28,21 +30,31 @@ from repro_torch.models.config import ModelConfig
 class Group:
     """A run of identical layers, stacked (the JAX package's ``Group``,
     with the fields of the kinds the port runs)."""
-    kind: str          # dense (the only kind the port runs so far)
+    kind: str          # dense | moe
     n: int             # number of layers
     causal: bool = True
-    ff: int = 0        # dense ff dim
+    ff: int = 0        # dense ff dim (0 -> no dense mlp)
+    moe: bool = False
 
 
 def _groups(cfg: ModelConfig) -> list[Group]:
     f = cfg.family
+    if cfg.use_mla:
+        raise NotImplementedError(
+            "MLA attention is not ported yet: ROADMAP.md Queue 1 item 4.5 "
+            "(the rest of the LM stack)")
     if f in ("dense", "vlm"):
         return [Group("dense", cfg.n_layers, ff=cfg.d_ff)]
-    waits = {"moe": "Queue 1 item 1 (MoE serving)",
-             "ssm": "Queue 1 item 2 (SSM serving)"}
+    if f == "moe":
+        if cfg.first_dense_layers:
+            raise NotImplementedError(
+                "a dense prefix before the MoE layers is not ported yet: "
+                "ROADMAP.md Queue 1 item 4.5 (the rest of the LM stack)")
+        return [Group("moe", cfg.n_layers, moe=True)]
+    waits = {"ssm": "Queue 1 item 2 (the SSM training forward)"}
     raise NotImplementedError(
         f"family {f!r} is not ported yet: ROADMAP.md "
-        f"{waits.get(f, 'Queue 1 item 4 (the rest of the LM stack)')}")
+        f"{waits.get(f, 'Queue 1 item 4.5 (the rest of the LM stack)')}")
 
 
 def full_precision() -> None:
@@ -98,21 +110,28 @@ class Model:
         del embed
         for gi, g in enumerate(self.groups):
             # drawn one layer at a time into the stacked leaves, so the
-            # fp32 draws stay one matrix large
-            first = self._layer_init(gen, g, dev)
-            stack = tree_map(lambda a: a.new_empty((g.n, *a.shape)), first)
+            # fp32 draws stay one layer large (a qwen3 expert stack is
+            # 0.8 GB in fp32)
+            one = self._layer_init(gen, g, dev)
+            stack = tree_map(lambda a: a.new_empty((g.n, *a.shape)), one)
             for i in range(g.n):
-                _copy_into(layer(stack, i), first if i == 0
-                           else self._layer_init(gen, g, dev))
+                if i:
+                    one = self._layer_init(gen, g, dev)
+                _copy_into(layer(stack, i), one)
+                del one
             params[f"g{gi}"] = stack
         return params
 
     def _layer_init(self, gen, g: Group, dev) -> dict:
         cfg = self.cfg
-        return {"ln1": L.norm_init(cfg.d_model, dev),
-                "attn": L.attn_init(gen, cfg),
-                "ln2": L.norm_init(cfg.d_model, dev),
-                "mlp": L.mlp_init(gen, cfg.d_model, g.ff, cfg.dtype)}
+        p = {"ln1": L.norm_init(cfg.d_model, dev),
+             "attn": L.attn_init(gen, cfg),
+             "ln2": L.norm_init(cfg.d_model, dev)}
+        if g.moe:
+            p["moe"] = Moe.moe_init(gen, cfg)
+        if g.ff:
+            p["mlp"] = L.mlp_init(gen, cfg.d_model, g.ff, cfg.dtype)
+        return p
 
     # --------------------------- layer bodies ------------------------------
 
@@ -127,8 +146,12 @@ class Model:
         return x + o, c
 
     def _ff_sublayer(self, p, x):
+        """Routed experts or the dense MLP: JAX adds whichever the layer
+        has to zeros (exact), and no config gives a layer both."""
         cfg = self.cfg
         h = L.rms_norm(p["ln2"], x, cfg.norm_eps)
+        if "moe" in p:
+            return x + Moe.moe_apply(p["moe"], cfg, h)
         return x + L.mlp_apply(p["mlp"], h)
 
     def _std_layer(self, p, x, cos, sin, mode, cache, pos, causal):

@@ -9,6 +9,7 @@ import torch
 from repro.configs import get_reduced
 from repro.models.lm import Model as JModel
 from repro_torch import convert
+from repro_torch.configs import PORTED
 
 
 @pytest.mark.parametrize("jdt,tdt", [(jnp.bfloat16, torch.bfloat16),
@@ -27,15 +28,34 @@ def test_leaves_round_trip_exactly(jdt, tdt):
                                   np.asarray(a[0], np.float32))
 
 
-def test_lm_params_convert_leaf_for_leaf():
-    """The LM's bf16 matrices stay bf16, its fp32 norms stay fp32."""
-    jp = JModel(get_reduced("yi-6b")).init(jax.random.PRNGKey(0))
+def _converts_leaf_for_leaf(arch):
+    """Every leaf keeps its JAX dtype and round-trips exactly; returns
+    the port's params."""
+    jp = JModel(get_reduced(arch)).init(jax.random.PRNGKey(0))
     tp = convert.from_jax(jax.tree_util.tree_map(np.asarray, jp), "cpu")
-    assert tp["g0"]["attn"]["wq"].dtype == torch.bfloat16
-    assert tp["g0"]["ln1"]["w"].dtype == torch.float32
+    leaves = jax.tree_util.tree_flatten_with_path(jp)[0]
+    assert len(leaves) == len(jax.tree_util.tree_leaves(tp))
     back = convert.to_numpy(tp)
-    for (path, want), got in zip(
-            jax.tree_util.tree_flatten_with_path(jp)[0],
-            jax.tree_util.tree_leaves(back)):
+    for (path, want), got, t in zip(leaves, jax.tree_util.tree_leaves(back),
+                                    jax.tree_util.tree_leaves(tp)):
+        assert str(t.dtype).split(".")[-1] == str(want.dtype), path
         np.testing.assert_array_equal(got, np.asarray(want, np.float32),
                                       err_msg=str(path))
+    return tp
+
+
+def test_lm_params_convert_leaf_for_leaf():
+    """The LM's bf16 matrices stay bf16, its fp32 norms stay fp32."""
+    tp = _converts_leaf_for_leaf("yi-6b")
+    assert tp["g0"]["attn"]["wq"].dtype == torch.bfloat16
+    assert tp["g0"]["ln1"]["w"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("arch", [a for a in PORTED if a != "yi-6b"])
+def test_every_ported_arch_converts_leaf_for_leaf(arch):
+    """The other ported archs (yi-6b is the test above); the MoE router
+    stays fp32 beside bf16 experts."""
+    tp = _converts_leaf_for_leaf(arch)
+    if "moe" in tp["g0"]:
+        assert tp["g0"]["moe"]["router"].dtype == torch.float32
+        assert tp["g0"]["moe"]["wg"].dtype == torch.bfloat16

@@ -1,6 +1,6 @@
 """On-card tests of the port: the CUDA kernels against their plain
-versions, the decision step's launches, and a reduced LM served on the
-card against the same model on the CPU.  They need an NVIDIA Hopper
+versions, the decision step's launches, and reduced LMs (dense and MoE)
+served on the card against the same model on the CPU.  They need an NVIDIA Hopper
 card and ``nvcc`` and skip elsewhere; run them on the card with
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -20,6 +20,7 @@ from repro_torch.kernels.decode_attention import (decode_attention,
 from repro_torch.kernels.flash_attention import (attention_ref,
                                                  flash_attention)
 from repro_torch.kernels.lstm_cell import lstm_cell, lstm_cell_ref
+from repro_torch.kernels.moe_router import moe_router, moe_router_ref
 from repro_torch.models.lm import Model
 from repro_torch.serve.engine import Engine, EngineConfig, Request
 
@@ -117,8 +118,54 @@ def test_decode_attention_kernel_matches_plain_version(cuda, b, h, hkv, s,
                                atol=atol)
 
 
-def test_reduced_engine_on_the_card_matches_the_cpu(cuda):
-    cfg = dataclasses.replace(get_reduced("yi-6b"), param_dtype="float32")
+@pytest.mark.parametrize("t,e,k", [(256, 8, 2), (512, 128, 8),
+                                   (300, 256, 8), (64, 16, 2), (1, 128, 8),
+                                   (12, 128, 8), (3000, 128, 8),
+                                   (5, 512, 32), (3, 40, 40)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_router_kernel_matches_plain_version(cuda, t, e, k, dtype):
+    g = torch.Generator().manual_seed(t + e)
+    logits = torch.randn(t, e, generator=g).to(cuda, dtype)
+    before = moe_router.launches
+    w, idx = moe_router(logits, k)
+    torch.cuda.synchronize()
+    assert moe_router.launches == before + 1
+    assert (w.dtype, idx.dtype, w.shape) == (torch.float32, torch.int32,
+                                             (t, k))
+    wr, ir = moe_router_ref(logits, k)
+    # in order: the kernel picks as the stable sort does, ties included
+    assert torch.equal(idx, ir)
+    torch.testing.assert_close(w, wr, rtol=0.0, atol=1e-6)
+
+
+def test_moe_router_kernel_takes_the_lower_index_on_ties(cuda):
+    rows = torch.zeros(3, 128)
+    rows[1, [5, 9, 100]] = 2.0
+    rows[2] = torch.arange(128) % 4
+    w, idx = moe_router(rows.to(cuda), 8)
+    assert idx[0].tolist() == list(range(8))
+    assert idx[1].tolist() == [5, 9, 100, 0, 1, 2, 3, 4]
+    assert idx[2].tolist() == [3, 7, 11, 15, 19, 23, 27, 31]
+    torch.testing.assert_close(w[0].cpu(), torch.full((8,), 0.125),
+                               rtol=0.0, atol=1e-7)
+
+
+def test_moe_router_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    before = moe_router.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        moe_router(torch.zeros(128, 8, device=cuda).t(), 2)
+    with pytest.raises(ValueError):
+        moe_router(torch.zeros(4, 513, device=cuda), 8)
+    with pytest.raises(ValueError):
+        moe_router(torch.zeros(4, 8, device=cuda), 9)
+    with pytest.raises(TypeError):
+        moe_router(torch.zeros(4, 8, device=cuda, dtype=torch.float16), 2)
+    assert moe_router.launches == before
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "qwen3-moe-30b-a3b"])
+def test_reduced_engine_on_the_card_matches_the_cpu(cuda, arch):
+    cfg = dataclasses.replace(get_reduced(arch), param_dtype="float32")
     params = Model(cfg).init(0, "cpu")
     streams, launches = [], []
     for dev in ("cpu", cuda):
@@ -131,11 +178,16 @@ def test_reduced_engine_on_the_card_matches_the_cpu(cuda):
                                                              5 + 7 * i),
                                max_new=6))
         f0, d0 = flash_attention.launches, decode_attention.launches
+        r0 = moe_router.launches
         streams.append({r.req_id: r.out for r in eng.run()})
         launches.append((flash_attention.launches - f0,
-                         decode_attention.launches - d0))
+                         decode_attention.launches - d0,
+                         moe_router.launches - r0))
     assert streams[0] == streams[1]
-    assert launches[0] == (0, 0)
+    assert launches[0] == (0, 0, 0)
     # one flash launch per layer per prefill, two decode launches per
-    # layer per decoded token (5 of the 6 tokens of each request)
-    assert launches[1] == (4 * cfg.n_layers, 4 * 5 * 2 * cfg.n_layers)
+    # layer per decoded token (5 of the 6 tokens of each request), one
+    # router launch per MoE layer per prefill and per decoded token
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    assert launches[1] == (4 * cfg.n_layers, 4 * 5 * 2 * cfg.n_layers,
+                           4 * 6 * n_moe)

@@ -1,7 +1,7 @@
-"""The port's dense LM (configs, layers, ``Model.prefill`` and
-``decode_step``) against the JAX package's, on the CPU, at the reduced
-yi-6b and demo-100m configs, with weights from ``convert.from_jax`` and
-token ids from numpy.
+"""The port's LM (configs, layers, ``Model.prefill`` and ``decode_step``)
+against the JAX package's, on the CPU, at the reduced configs of every
+ported arch (yi-6b, demo-100m, qwen3-moe-30b-a3b), with weights from
+``convert.from_jax`` and token ids from numpy.
 
 fp32 (``param_dtype="float32"``) is held to 2e-5 with equal greedy
 tokens.  bf16, the configs' own dtype, is held to the kernel sweep's
@@ -17,7 +17,10 @@ The JAX model runs once more through its Pallas kernels (interpret
 mode): prefill reaches its flash kernel; its decode does not reach its
 decode kernel, because ``kv_len`` is traced there (the decode kernel
 module is held against the Pallas kernel in
-``test_torch_decode_attention.py``).
+``test_torch_decode_attention.py``).  The MoE model reaches its router
+kernel in prefill and in decode.  Inside the port, prefill of S tokens
+equals prefill of S - 1 and a decode step, in fp32 within the 2e-4 of
+the JAX package's own test (``tests/test_models.py``).
 """
 import contextlib
 import dataclasses
@@ -31,11 +34,13 @@ import torch
 from repro import configs as jconfigs
 from repro.models import backend as jbackend
 from repro.models import layers as JL
+from repro.models import moe as JMoe
 from repro.models.lm import Model as JModel
 from repro.serve.kv_cache import pad_to_length as jpad
 from repro_torch import configs
 from repro_torch import convert
 from repro_torch.models import layers as TL
+from repro_torch.models import moe as TMoe
 from repro_torch.models.lm import Model, layer
 from repro_torch.serve.kv_cache import pad_to_length as tpad
 
@@ -89,6 +94,15 @@ def test_configs_match_the_jax_registry(arch):
     assert configs.list_archs(False) == jconfigs.list_archs(False)
 
 
+def test_qwen3_moe_is_the_published_shape():
+    cfg = configs.get_config("qwen3-moe-30b-a3b")
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+            cfg.n_experts, cfg.top_k, cfg.expert_ff, cfg.padded_vocab) == \
+        (48, 2048, 32, 4, 128, 128, 8, 768, 153600)
+    assert round(cfg.param_count() / 1e9, 2) == 30.54
+    assert [g.moe for g in Model(cfg).groups] == [True]
+
+
 def test_yi_6b_is_the_published_shape():
     cfg = configs.get_config("yi-6b")
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
@@ -97,11 +111,19 @@ def test_yi_6b_is_the_published_shape():
     assert round(cfg.param_count() / 1e9, 2) == 6.07
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "falcon-mamba-7b",
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "falcon-mamba-7b",
                                   "deepseek-67b"])
 def test_unported_archs_name_their_roadmap_item(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
         configs.get_config(arch)
+
+
+def test_moe_dense_prefix_names_its_roadmap_item():
+    cfg = dataclasses.replace(configs.get_reduced("qwen3-moe-30b-a3b"),
+                              first_dense_layers=1)
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md Queue 1 item 4.5"):
+        Model(cfg)
 
 
 # --------------------------------- layers ----------------------------------
@@ -124,7 +146,14 @@ def test_layer_functions_match(pair):
     tx = torch.tensor(np.asarray(jx, np.float32), dtype=cfg.dtype)
     _close(TL.rms_norm(tl0["ln1"], tx, cfg.norm_eps),
            JL.rms_norm(jl0["ln1"], jx, cfg.norm_eps), dt)
-    _close(TL.mlp_apply(tl0["mlp"], tx), JL.mlp_apply(jl0["mlp"], jx), dt)
+    if "mlp" in tl0:
+        _close(TL.mlp_apply(tl0["mlp"], tx), JL.mlp_apply(jl0["mlp"], jx),
+               dt)
+    if "moe" in tl0:
+        with _jax_reference(dt):
+            want = JMoe.moe_apply(jl0["moe"], pair["jcfg"], jx,
+                                  inference=True)
+        _close(TMoe.moe_apply(tl0["moe"], cfg, tx), want, dt)
     jcos, jsin = JL.rope_table(PROMPT, cfg.hd, cfg.rope_theta)
     tcos, tsin = TL.rope_table(PROMPT, cfg.hd, cfg.rope_theta)
     xh = x_np[..., :cfg.hd * 4].reshape(1, PROMPT, 4, cfg.hd)
@@ -155,23 +184,41 @@ def test_layer_functions_match(pair):
         _close(tcache[key], jcache[key], dt)
 
 
-def test_init_matches_the_jax_shapes_dtypes_and_scales():
-    cfg = configs.get_reduced("yi-6b")
-    jm = JModel(jconfigs.get_reduced("yi-6b"))
+def _same_shapes_and_dtypes(arch):
+    """The port's seeded init against the JAX init's shapes and dtypes,
+    leaf for leaf; returns the port's params."""
+    jm = JModel(jconfigs.get_reduced(arch))
     want = jax.eval_shape(jm.init, jax.random.PRNGKey(0))
-    got = Model(cfg).init(0, "cpu")
+    got = Model(configs.get_reduced(arch)).init(0, "cpu")
     flat_w = jax.tree_util.tree_flatten_with_path(want)[0]
+    assert len(flat_w) == len(jax.tree_util.tree_leaves(got))
     for path, spec in flat_w:
         t = got
         for k in path:
             t = t[k.key]
         assert tuple(t.shape) == spec.shape, path
         assert str(t.dtype).split(".")[-1] == str(spec.dtype), path
+    return got
+
+
+def test_init_matches_the_jax_shapes_dtypes_and_scales():
+    cfg = configs.get_reduced("yi-6b")
+    got = _same_shapes_and_dtypes("yi-6b")
     wq = got["g0"]["attn"]["wq"].float()        # n_in^-0.5 scale
     assert abs(wq.std().item() * cfg.d_model ** 0.5 - 1.0) < 0.05
     assert torch.equal(got["g0"]["ln1"]["w"], torch.ones(2, cfg.d_model))
     again = Model(cfg).init(0, "cpu")
     assert torch.equal(again["head"], got["head"])   # seeded
+
+
+def test_moe_init_matches_the_jax_shapes_dtypes_and_scales():
+    cfg = configs.get_reduced("qwen3-moe-30b-a3b")
+    moe = _same_shapes_and_dtypes("qwen3-moe-30b-a3b")["g0"]["moe"]
+    assert moe["router"].dtype == torch.float32          # kept fp32
+    for name, fan_in in (("router", cfg.d_model), ("wg", cfg.d_model),
+                         ("wd", cfg.expert_ff)):
+        std = moe[name].float().std().item() * fan_in ** 0.5
+        assert abs(std - 1.0) < 0.05, name
 
 
 # ------------------------------ prefill, decode ----------------------------
@@ -239,3 +286,55 @@ def test_unported_families_raise():
     cfg = dataclasses.replace(configs.get_reduced("yi-6b"), family="ssm")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         Model(cfg)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_equals_prefill_then_decode(arch):
+    """prefill(S) last-token logits == prefill(S - 1), then a decode step
+    of token S - 1, in fp32 within the JAX package's 2e-4, at B = 2."""
+    cfg = dataclasses.replace(configs.get_reduced(arch),
+                              param_dtype="float32")
+    model = Model(cfg)
+    params = model.init(0, "cpu")
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 16)))
+    full, _ = model.prefill(params, {"tokens": toks})
+    _, caches = model.prefill(params, {"tokens": toks[:, :-1]})
+    logits, _ = model.decode_step(params, tpad(caches, 16), toks[:, -1:],
+                                  15)
+    np.testing.assert_allclose(_np(logits), _np(full), rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_moe_model_matches_the_jax_model_through_its_pallas_router(
+        monkeypatch):
+    """The JAX MoE model with its Pallas kernels on (interpret mode): its
+    router kernel runs in prefill and in decode."""
+    arch = "qwen3-moe-30b-a3b"
+    cfg = dataclasses.replace(configs.get_reduced(arch),
+                              param_dtype="float32")
+    jm = JModel(dataclasses.replace(jconfigs.get_reduced(arch),
+                                    param_dtype="float32"))
+    jp = jm.init(jax.random.PRNGKey(4))
+    tp = convert.from_jax(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+    toks = np.random.default_rng(4).integers(0, cfg.vocab, (1, 20))
+    calls = []
+    pallas_router = jbackend._router_pallas
+    monkeypatch.setattr(jbackend, "_USE_PALLAS", True)
+    monkeypatch.setattr(jbackend, "_router_pallas",
+                        lambda *a, **kw: calls.append(1)
+                        or pallas_router(*a, **kw))
+    jl, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks, jnp.int32)})
+    assert calls, "the JAX prefill did not reach its router kernel"
+    tm = Model(cfg)
+    tl, tc = tm.prefill(tp, {"tokens": torch.as_tensor(toks)})
+    _close(tl, jl, "float32")
+    tok = int(np.argmax(_np(jl)[0, -1]))
+    assert int(torch.argmax(tl[0, -1])) == tok
+    jc, tc = jpad(jc, 24), tpad(tc, 24)
+    n = len(calls)
+    jd, _ = jm.decode_step(jp, jc, jnp.asarray([[tok]], jnp.int32),
+                           jnp.asarray(20, jnp.int32))
+    assert len(calls) > n, "the JAX decode did not reach its router kernel"
+    td, _ = tm.decode_step(tp, tc, torch.tensor([[tok]]), 20)
+    _close(td, jd, "float32")

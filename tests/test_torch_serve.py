@@ -2,7 +2,8 @@
 greedy == a hand-rolled decode loop, the slot manager and START replica
 re-dispatch (``tests/test_serve.py``'s cases), plus the JAX engine and
 the port's giving equal token streams from the same converted fp32
-params and seeded requests, and the serving entry point end to end."""
+params and seeded requests for every ported arch, and the serving entry
+point end to end (dense and MoE)."""
 import dataclasses
 
 import jax
@@ -16,7 +17,7 @@ from repro.serve.engine import Engine as JEngine
 from repro.serve.engine import EngineConfig as JEngineConfig
 from repro.serve.engine import Request as JRequest
 from repro_torch import convert
-from repro_torch.configs import get_reduced
+from repro_torch.configs import PORTED, get_reduced
 from repro_torch.launch import serve
 from repro_torch.models.lm import Model
 from repro_torch.serve.engine import Engine, EngineConfig, \
@@ -124,8 +125,18 @@ def test_replica_dispatcher_redispatches_slow_replica():
 
 
 def test_jax_and_port_engines_give_equal_token_streams():
-    jcfg = dataclasses.replace(jax_reduced("yi-6b"), param_dtype="float32")
-    cfg = dataclasses.replace(get_reduced("yi-6b"), param_dtype="float32")
+    _engines_give_equal_token_streams("yi-6b")
+
+
+@pytest.mark.parametrize("arch", [a for a in PORTED if a != "yi-6b"])
+def test_every_ported_arch_gives_the_jax_engines_token_streams(arch):
+    """The other ported archs (yi-6b is the test above)."""
+    _engines_give_equal_token_streams(arch)
+
+
+def _engines_give_equal_token_streams(arch):
+    jcfg = dataclasses.replace(jax_reduced(arch), param_dtype="float32")
+    cfg = dataclasses.replace(get_reduced(arch), param_dtype="float32")
     jmodel = JModel(jcfg)
     jparams = jmodel.init(jax.random.PRNGKey(0))
     params = convert.from_jax(jax.tree_util.tree_map(np.asarray, jparams),
@@ -150,6 +161,13 @@ def test_serve_entry_point_runs_on_the_cpu():
     assert out["requests_done"] == 3 and out["tokens"] >= 12
     assert set(out) == {"requests_done", "tokens", "tok_per_s",
                         "redispatch_candidates"}
+
+
+def test_serve_entry_point_serves_the_moe_arch_on_the_cpu():
+    out = serve.main(["--arch", "qwen3-moe-30b-a3b", "--reduced",
+                      "--device", "cpu", "--requests", "3", "--max-new",
+                      "4"])
+    assert out["requests_done"] == 3 and out["tokens"] >= 12
 
 
 def test_entry_points_refuse_a_missing_card(served):
