@@ -9,15 +9,15 @@ Phases:
 1. environment: a CUDA card, TF32 and bf16 reduced-precision reductions
    off, the card's name and power limit;
 2. build: every CUDA kernel of the port (``lstm_cell``,
-   ``flash_attention``, ``decode_attention``, ``moe_router``), from the
-   sources in the checkout, one ``nvcc`` per source, all started
-   together;
+   ``flash_attention``, ``decode_attention``, ``moe_router``,
+   ``mamba_scan``), from the sources in the checkout, one ``nvcc`` per
+   source, all started together;
 3. kernel vs plain: each kernel against its plain PyTorch version on the
    card, at the JAX test sweep's shapes and its path's shapes, and timed
    beside the plain version and the PyTorch yardstick
    (``torch.lstm_cell``, ``scaled_dot_product_attention``, and for the
    router ``softmax`` + ``topk`` + renormalisation, since no one call
-   computes it);
+   computes it; no PyTorch call computes the selective scan);
 4. the decision slice: ``STARTController`` at the paper's width (400
    hosts x 11 features, 10 tasks per job, horizon 5), fed seeded
    telemetry, in both triggers, on the card and on the CPU from the same
@@ -49,7 +49,19 @@ Phases:
 8. MoE serving, bf16: qwen3-moe-30b-a3b at full width and depth, timed
    as in phase 6, with the routing differences counted, and
    ``repro_torch.launch.serve`` once at qwen3-moe-30b-a3b;
-9. summary: one JSON line of kernel numbers, the card's line, and last
+9. SSM training, fp32: falcon-mamba-7b at full width, 8 of its 64
+   layers (seeded weights), three AdamW steps of ``Trainer`` on
+   ``SyntheticLM`` batches of 2 x 256 tokens, every layer's forward and
+   its recompute in the backward launching ``mamba_scan``; then from the
+   params before each step the same loss through the plain scan, within
+   1e-5 relative, and step 1's gradients within 1e-4 relative in norm;
+10. SSM training, bf16: falcon-mamba-7b at full width, 32 of its 64
+   layers, batches of 4 x 512 tokens, one warm step and three timed (ms
+   per step, tokens/s), one step by its parts (forward / backward /
+   optimizer, and the plain scan backward's share timed inside it),
+   profiler device busy per step, peak memory; and
+   ``repro_torch.launch.train`` once, reduced, on the card;
+11. summary: one JSON line of kernel numbers, the card's line, and last
    ``{"ok": true, "device": {...}}``.
 
 Each phase prints its wall time.
@@ -73,6 +85,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch import convert  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.paper_default import PAPER  # noqa: E402
 from repro_torch.core import features  # noqa: E402
@@ -86,14 +99,21 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_ref, flash_attention)
 from repro_torch.kernels.lstm_cell import (  # noqa: E402
     lstm_cell, lstm_cell_ref)
+from repro_torch.kernels.mamba_scan import (  # noqa: E402
+    mamba_scan, mamba_scan_ref)
+from repro_torch.kernels.mamba_scan import ops as scan_ops  # noqa: E402
 from repro_torch.kernels.moe_router import (  # noqa: E402
     moe_router, moe_router_ref)
 from repro_torch.launch import serve as serve_entry  # noqa: E402
+from repro_torch.launch import train as train_entry  # noqa: E402
 from repro_torch.models import backend  # noqa: E402
 from repro_torch.models.lm import Model, full_precision  # noqa: E402
 from repro_torch.serve.engine import (  # noqa: E402
     Engine, EngineConfig, Request)
 from repro_torch.serve.kv_cache import pad_to_length  # noqa: E402
+from repro_torch.train import optimizer as Opt  # noqa: E402
+from repro_torch.train.data import DataConfig, SyntheticLM  # noqa: E402
+from repro_torch.train.trainer import Trainer, value_and_grad  # noqa: E402
 
 # (batch, n_in, hidden): the JAX package's kernel sweep
 # (tests/test_kernels.py LSTM_SWEEP) and the decision path's cell shapes
@@ -168,9 +188,36 @@ DEVICE = "cuda"
 MOE_ARCH = "qwen3-moe-30b-a3b"
 MOE_GATE_LAYERS = 12
 NEAR_TIE = 1e-5              # k-th vs (k+1)-th probability, relative
+# (b, l, d, n): the JAX scan sweep (tests/test_kernels.py MAMBA_SWEEP),
+# ragged shapes, then falcon-mamba-7b's training shapes (B x L x d_inner
+# x N) of the fp32 gate and of the timed run
+SCAN_SWEEP = [(1, 64, 128, 16), (2, 128, 64, 16), (1, 96, 256, 8),
+              (3, 77, 200, 5), (1, 1, 3, 1), (2, 33, 129, 32)]
+SCAN_PATH = [(2, 256, 8192, 16), (4, 512, 8192, 16)]
+# fp32: 1e-5 of max(1, |y|): the states agree bit for bit and y's N-sum
+# runs in another order, which moves y by an ulp of |y|, and |y| grows
+# with L (an fp32 ulp is 1.5e-5 at |y| = 128); bf16: that fp32 y rounds
+# to a bf16 value at most one ulp (2^-7 = 0.78% of |y|) away, so 1e-2 of
+# |y|, plus 1e-3 for fp32 sums that cancel to near 0
+SCAN_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+            torch.bfloat16: dict(rtol=1e-2, atol=1e-3)}
+SCAN = dict(source="src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
+            replaces="src/repro/kernels/mamba_scan/mamba_scan.py:31")
+# special-function (ex2) results: 16 per clock per SM (NVIDIA's CUDA C++
+# Programming Guide, compute capability 9.0) x 132 SMs x 1.98 GHz boost
+SFU_PER_S = 16 * 132 * 1.98e9
+# SSM training: falcon-mamba-7b at full width; the fp32 gate keeps 8 of
+# 64 layers (1.38 B params x 16 B of params, grads and moments = 22 GB),
+# the bf16 run 32 (3.91 B params x 12 B = 47 GB; 64 layers need 87 GB)
+SSM_ARCH = "falcon-mamba-7b"
+SSM_GATE_LAYERS, SSM_GATE_BATCH, SSM_GATE_SEQ = 8, 2, 256
+SSM_LAYERS, SSM_BATCH, SSM_SEQ = 32, 4, 512
+SSM_STEPS = 3
+# OptConfig's default lr (3e-4) and launch.train's warmup rule (5 steps)
+SSM_OPT = dict(warmup_steps=5, total_steps=100)
 # the port's kernels by their names in a profiler trace
 OUR_KERNELS = ("flash_attention_kernel", "decode_partial_kernel",
-               "decode_combine_kernel", "router_kernel")
+               "decode_combine_kernel", "router_kernel", "scan_kernel")
 
 
 # --------------------------------- phase 1 ---------------------------------
@@ -490,6 +537,79 @@ def check_router() -> dict:
           f"{worst[torch.float32]:.3e}, bf16 inputs "
           f"{worst[torch.bfloat16]:.3e} (bound {ROUTER_ATOL})")
     return {"worst": worst, "timing": rows}
+
+
+def scan_inputs(b, l, d, n, dtype, seed):
+    """The JAX sweep's distributions (``test_mamba_scan_sweep``): u, b, c
+    normal, delta a softplus of a normal, a = -exp(normal), skip normal;
+    u, delta, b, c in ``dtype``, a and skip fp32, on the card."""
+    g = torch.Generator().manual_seed(seed)
+    u = torch.randn(b, l, d, generator=g)
+    delta = torch.nn.functional.softplus(torch.randn(b, l, d, generator=g))
+    a = -torch.exp(torch.randn(d, n, generator=g))
+    bm, cm = (torch.randn(b, l, n, generator=g) for _ in range(2))
+    skip = torch.randn(d, generator=g)
+    u, delta, bm, cm = (t.to("cuda", dtype) for t in (u, delta, bm, cm))
+    return [u, delta, a.to("cuda"), bm, cm, skip.to("cuda")]
+
+
+def scan_bound(b, l, d, n, elem) -> tuple[float, str]:
+    """Least time for one scan: u, delta, b, c read once and y written
+    once over HBM; or its operations, the larger of its fp32 multiplies
+    and adds (6 per state per step, 3 per channel per step) over the fp32
+    peak and its b*l*d*n exponentials over the special-function rate."""
+    nbytes = elem * (3 * b * l * d + 2 * b * l * n) + 4 * (d * n + d)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(b * l * d * (6 * n + 3) / FP32_FLOP_PER_S,
+                b * l * d * n / SFU_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_scan() -> dict:
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    worst_rel = dict(worst)
+    rows = []
+    for i, (b, l, d, n) in enumerate(SCAN_SWEEP + SCAN_PATH):
+        label = f"B={b} L={l} D={d} N={n}"
+        for dtype in (torch.float32, torch.bfloat16):
+            args = scan_inputs(b, l, d, n, dtype, seed=400 + i)
+            got = mamba_scan(*args)
+            want = mamba_scan_ref(*args)
+            torch.cuda.synchronize()
+            g, w = got.float(), want.float()
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"mamba_scan {label}: non-finite output")
+            torch.testing.assert_close(g, w, **SCAN_TOL[dtype])
+            err = (g - w).abs().max().item()
+            worst[dtype] = max(worst[dtype], err)
+            worst_rel[dtype] = max(worst_rel[dtype], ((g - w).abs() / w.abs(
+            ).clamp_min(1.0)).max().item())
+            print(f"[kernel] mamba_scan {label} {str(dtype)[6:]}: ok, max "
+                  f"abs err {err:.3e} at max |y| {w.abs().max().item():.1f}")
+            if (b, l, d, n) not in SCAN_PATH:
+                continue
+            k1 = time_auto(lambda: mamba_scan(*args))
+            p1 = time_auto(lambda: mamba_scan_ref(*args))
+            p2 = time_auto(lambda: mamba_scan_ref(*args))
+            k2 = time_auto(lambda: mamba_scan(*args))
+            bound_ms, bound_by = scan_bound(b, l, d, n, args[0].element_size())
+            prof = profile_window(f"mamba_scan {label} {str(dtype)[6:]}",
+                                  lambda: mamba_scan(*args), 10)
+            dev = prof["kernels"].get("scan_kernel", {}).get("ms")
+            row = dict(shape=label, dtype=str(dtype)[6:], ms=min(k1, k2),
+                       plain_ms=min(p1, p2), library_ms=None,
+                       bound_ms=bound_ms, bound_by=bound_by, device_ms=dev)
+            rows.append(row)
+            print(f"[kernel] mamba_scan {label} {row['dtype']}: kernel "
+                  f"{row['ms']:.5f} ms (runs {k1:.5f}, {k2:.5f}; device "
+                  f"{dev} ms per launch), plain {row['plain_ms']:.5f} ms, "
+                  f"no PyTorch call computes it, bound {bound_ms:.6f} ms "
+                  f"({bound_by})")
+    print(f"[kernel] mamba_scan max abs err fp32 {worst[torch.float32]:.3e} "
+          f"(bound 1e-5 * max(1, |y|); relative to max(1, |y|) "
+          f"{worst_rel[torch.float32]:.3e}), bf16 "
+          f"{worst[torch.bfloat16]:.3e} (bound 1e-3 + 1e-2 * |y|)")
+    return {"worst": worst, "worst_rel": worst_rel, "timing": rows}
 
 
 # --------------------------------- phase 4 ---------------------------------
@@ -839,7 +959,13 @@ def plain_path():
 def kernel_launches() -> dict:
     return dict(flash_attention=flash_attention.launches,
                 decode_attention=decode_attention.launches,
-                moe_router=moe_router.launches, lstm_cell=lstm_cell.launches)
+                moe_router=moe_router.launches, lstm_cell=lstm_cell.launches,
+                mamba_scan=mamba_scan.launches)
+
+
+def reset_launches() -> None:
+    flash_attention.launches = decode_attention.launches = 0
+    moe_router.launches = lstm_cell.launches = mamba_scan.launches = 0
 
 
 def lm_prompts(vocab: int) -> list[np.ndarray]:
@@ -858,8 +984,7 @@ def serve_engine(model: Model, params, prompts) -> dict:
     for i, p in enumerate(prompts):
         eng.submit(Request(req_id=i, tokens=p, max_new=MAX_NEW))
     torch.cuda.synchronize()
-    flash_attention.launches = decode_attention.launches = 0
-    moe_router.launches = lstm_cell.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     with routed_by(log):
         done = eng.run()
@@ -871,7 +996,8 @@ def serve_engine(model: Model, params, prompts) -> dict:
     decoded = sum(len(r.out) - 1 for r in done)
     want = dict(flash_attention=cfg.n_layers * len(prompts),
                 decode_attention=LAUNCHES_PER_CALL * cfg.n_layers * decoded,
-                moe_router=n_moe * (len(prompts) + decoded), lstm_cell=0)
+                moe_router=n_moe * (len(prompts) + decoded), lstm_cell=0,
+                mamba_scan=0)
     if len(done) != len(prompts) or launches != want:
         raise AssertionError(f"engine: {len(done)} requests done, launches "
                              f"{launches}, expected {want}")
@@ -1115,29 +1241,32 @@ def lm_timing(arch: str) -> dict:
 
 def profile_window(label: str, fn, reps: int) -> dict:
     """Device time of ``reps`` calls of ``fn`` under torch.profiler: busy
-    ms per call (every kernel and copy) and the top device ops."""
+    ms per call (every kernel and copy) and the top device ops, summed
+    from the raw kineto events (parsing them into ``key_averages`` takes
+    minutes for a training step's ~750 k kernels)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    ops = [(e.key, e.self_device_time_total, e.count)
-           for e in prof.key_averages()
-           if str(e.device_type).endswith("CUDA")
-           and e.self_device_time_total > 0]
-    busy_us = sum(t for _, t, _ in ops)
-    top = sorted(ops, key=lambda o: -o[1])[:6]
+    ops: dict[str, list] = {}
+    for e in prof.profiler.kineto_results.events():
+        if str(e.device_type()).endswith("CUDA") and e.duration_ns() > 0:
+            o = ops.setdefault(e.name(), [0, 0])
+            o[0] += e.duration_ns()
+            o[1] += 1
+    top = sorted(ops.items(), key=lambda kv: -kv[1][0])[:6]
     ours = {}
     for name in OUR_KERNELS:
-        hits = [(t, c) for k, t, c in ops if f"::{name}<" in k]
+        hits = [v for k, v in ops.items() if f"::{name}<" in k]
         if hits:
-            ours[name] = dict(ms=sum(t for t, _ in hits) / 1e3 / reps,
+            ours[name] = dict(ms=sum(t for t, _ in hits) / 1e6 / reps,
                               calls=sum(c for _, c in hits) / reps)
-    out = dict(device_busy_ms=busy_us / 1e3 / reps,
-               device_ops=sum(c for *_, c in ops) / reps,
-               top=[dict(op=k[:60], ms=t / 1e3 / reps, calls=c / reps)
-                    for k, t, c in top], kernels=ours)
+    out = dict(device_busy_ms=sum(t for t, _ in ops.values()) / 1e6 / reps,
+               device_ops=sum(c for _, c in ops.values()) / reps,
+               top=[dict(op=k[:120], ms=t / 1e6 / reps, calls=c / reps)
+                    for k, (t, c) in top], kernels=ours)
     print(f"[profile] {label}: device busy {out['device_busy_ms']:.4f} ms "
           f"per call over {out['device_ops']:.0f} kernels and copies; top: "
           + "; ".join(f"{t['op']} {t['ms']:.4f} ms x{t['calls']:.0f}"
@@ -1159,6 +1288,246 @@ def profile_decode(model, params, caches, tok, pos, reps: int = 8) -> dict:
 
     return profile_window(f"decode from position {pos}, per token", step,
                           reps)
+
+
+# ----------------------------- phases 9 and 10 -----------------------------
+
+@contextlib.contextmanager
+def plain_scan():
+    """The model's selective scan through the plain PyTorch version, on
+    the card, differentiated by autograd (the kernel's wrapper is not
+    called)."""
+    saved = backend.mamba_scan
+    backend.mamba_scan = mamba_scan_ref
+    try:
+        yield
+    finally:
+        backend.mamba_scan = saved
+
+
+def _ssm_trainer(n_layers: int, dtype: str | None = None):
+    full = get_config(SSM_ARCH)
+    cfg = dataclasses.replace(full, n_layers=n_layers,
+                              param_dtype=dtype or full.param_dtype)
+    model = Model(cfg)
+    return cfg, model, Trainer(model, mesh=None,
+                               opt_cfg=Opt.OptConfig(**SSM_OPT),
+                               device=DEVICE)
+
+
+def clone(tree: dict) -> dict:
+    return {k: clone(v) if isinstance(v, dict) else v.clone()
+            for k, v in tree.items()}
+
+
+def tree_rel(got: dict, want: dict) -> tuple[float, float]:
+    """||got - want|| / ||want|| over all leaves, and the worst leaf's."""
+    num = den = worst = 0.0
+    for g, w in zip(convert.leaves(got), convert.leaves(want)):
+        d2 = (g.double() - w.double()).square().sum().item()
+        w2 = w.double().square().sum().item()
+        num, den = num + d2, den + w2
+        worst = max(worst, (d2 / max(w2, 1e-300)) ** 0.5)
+    return (num / den) ** 0.5, worst
+
+
+def ssm_gate() -> dict:
+    """fp32 at full width, ``SSM_GATE_LAYERS`` layers.  The main path:
+    ``Trainer``'s steps through the kernel, launch counts set to 0 just
+    before and read just after.  Then, from the params before each of its
+    steps, the same loss through the plain scan (held to 1e-5 relative),
+    and step 1's gradients both ways (held to 1e-4 relative in norm).
+    Last, reported and not held, the plain path's own steps from the same
+    start: Adam's first steps divide each gradient by its own magnitude,
+    so where a gradient is near 0 the two paths' fp32 noise moves the
+    params apart, and the losses drift apart step by step."""
+    cfg, model, trainer = _ssm_trainer(SSM_GATE_LAYERS, "float32")
+    matmul = torch.backends.cuda.matmul
+    if (matmul.allow_tf32 or torch.backends.cudnn.allow_tf32
+            or matmul.allow_bf16_reduced_precision_reduction):
+        raise AssertionError("reduced-precision products are on")
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=SSM_GATE_SEQ,
+                                  global_batch=SSM_GATE_BATCH),
+                       device=DEVICE)
+    batches = [data.batch(i) for i in range(SSM_STEPS)]
+    torch.cuda.reset_peak_memory_stats()
+    params, state = trainer.init_state(SEED)
+    step = trainer.compile_step()
+    snaps, losses = [], []
+    torch.cuda.synchronize()
+    reset_launches()
+    for batch in batches:
+        snaps.append(clone(params))
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    del params, state
+    free_cuda()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _, g_kern = value_and_grad(model, snaps[0], batches[0])
+    before = kernel_launches()
+    with plain_scan():
+        with torch.no_grad():
+            plain = [float(model.loss_fn(p, b))
+                     for p, b in zip(snaps, batches)]
+        _, g_plain = value_and_grad(model, snaps[0], batches[0])
+        grad_rel, worst_leaf = tree_rel(g_kern, g_plain)
+        del g_kern, g_plain, snaps[1:]
+        free_cuda()
+        p, st = snaps[0], Opt.init(trainer.opt_cfg, snaps[0])
+        own = []
+        for batch in batches:
+            p, st, m = step(p, st, batch)
+            own.append(float(m["loss"]))
+        del p, st, snaps
+        free_cuda()
+    plain_launches = {k: v - before[k] for k, v in kernel_launches().items()}
+    rel = [abs(k - q) / abs(q) for k, q in zip(losses, plain)]
+    own_rel = [abs(k - q) / abs(q) for k, q in zip(losses, own)]
+    print(f"[ssm] {cfg.name} fp32, {cfg.n_layers} layers "
+          f"({cfg.param_count() / 1e9:.3f} B params), batches "
+          f"{SSM_GATE_BATCH} x {SSM_GATE_SEQ}: losses {losses}; the plain "
+          f"scan from the same params {plain}, max rel {max(rel):.3e} "
+          f"(bound 1e-5); step-1 gradients rel {grad_rel:.3e} (bound 1e-4; "
+          f"worst leaf {worst_leaf:.3e}); mamba_scan "
+          f"{launches['mamba_scan']} launches = 2 x {cfg.n_layers} layers x "
+          f"{SSM_STEPS} steps; peak {peak:.2f} GiB. Not held: the plain "
+          f"path's own steps {own}, rel {[f'{r:.3e}' for r in own_rel]}")
+    want = {k: 0 for k in launches}
+    want["mamba_scan"] = 2 * cfg.n_layers * SSM_STEPS
+    if launches != want:
+        raise AssertionError(f"kernel path launches {launches}, expected "
+                             f"{want}")
+    if any(plain_launches.values()):
+        raise AssertionError(f"the plain path launched {plain_launches}")
+    if not (np.isfinite(losses).all() and max(rel) <= 1e-5):
+        raise AssertionError(f"losses {losses} vs plain {plain}")
+    if not grad_rel <= 1e-4:
+        raise AssertionError(f"step-1 gradients differ by {grad_rel}")
+    return dict(n_layers=cfg.n_layers, losses=losses, plain_losses=plain,
+                max_loss_rel=max(rel), grad_rel=grad_rel,
+                worst_leaf_rel=worst_leaf, own_plain_losses=own,
+                own_plain_rel=own_rel, launches=launches, peak_gib=peak)
+
+
+@contextlib.contextmanager
+def timed_scan_backward():
+    """Yields a list that gets the host seconds of each call of the scan's
+    backward (the plain version re-run and differentiated), each call
+    between two synchronisations, inside whatever step runs meanwhile."""
+    fn = scan_ops._Scan
+    saved = fn.backward
+    times: list[float] = []
+
+    def backward(ctx, g):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = saved(ctx, g)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    fn.backward = staticmethod(backward)
+    try:
+        yield times
+    finally:
+        fn.backward = staticmethod(saved)
+
+
+def ssm_timing() -> dict:
+    """bf16, the config's own dtype, full width, ``SSM_LAYERS`` layers:
+    one warm step and ``SSM_STEPS`` timed, then one step taken by its
+    parts (forward, backward, optimizer) and one under the profiler."""
+    cfg, model, trainer = _ssm_trainer(SSM_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, state = trainer.init_state(SEED)
+    torch.cuda.synchronize()
+    print(f"[ssm] {cfg.name} bf16, {cfg.n_layers} layers: "
+          f"{cfg.param_count() / 1e9:.3f} B params, init "
+          f"{time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card "
+          f"(params and AdamW moments)")
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=SSM_SEQ,
+                                  global_batch=SSM_BATCH), device=DEVICE)
+    step = trainer.compile_step()
+    reset_launches()
+    losses, times = [], []
+    for i in range(1 + SSM_STEPS):
+        batch = data.batch(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = kernel_launches()
+    want = 2 * cfg.n_layers * (1 + SSM_STEPS)
+    if launches["mamba_scan"] != want or sum(launches.values()) != want:
+        raise AssertionError(f"launches {launches}, expected {want} scans")
+    if not (np.isfinite(losses).all() and max(losses) > min(losses)):
+        raise AssertionError(f"bf16 losses {losses}")
+    step_ms = float(np.median(times[1:]))
+    tokens = SSM_BATCH * SSM_SEQ
+
+    # one step by its parts, the scan's backward timed inside it
+    batch = data.batch(1 + SSM_STEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xs = [t.detach().requires_grad_() for t in convert.leaves(params)]
+    loss = model.loss_fn(convert.unflatten(params, xs), batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with timed_scan_backward() as scan_bwd:
+        grads = torch.autograd.grad(loss, xs)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    params, state, _ = Opt.update(trainer.opt_cfg,
+                                  convert.unflatten(params, grads), state,
+                                  params)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    del xs, grads, loss
+    split = dict(forward_ms=(t1 - t0) * 1e3, backward_ms=(t2 - t1) * 1e3,
+                 optimizer_ms=(t3 - t2) * 1e3)
+    if len(scan_bwd) != cfg.n_layers:
+        raise AssertionError(f"{len(scan_bwd)} scan backwards in a step")
+    bwd_ms = sum(scan_bwd) * 1e3
+    split_ms = (t3 - t0) * 1e3
+    batch = data.batch(2 + SSM_STEPS)
+
+    def one_step():
+        nonlocal params, state
+        params, state, m = step(params, state, batch)
+        float(m["loss"])
+
+    prof = profile_window(f"{cfg.name} bf16 training step", one_step, 1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out = dict(n_layers=cfg.n_layers, batch=SSM_BATCH, seq=SSM_SEQ,
+               step_ms=step_ms, step_ms_all=times, tok_per_s=tokens
+               / (step_ms / 1e3), losses=losses, launches=launches, **split,
+               split_step_ms=split_ms, scan_backward_ms=bwd_ms,
+               scan_backward_share=bwd_ms / split_ms,
+               device_busy_ms=prof["device_busy_ms"],
+               idle_share=1 - prof["device_busy_ms"] / step_ms,
+               device_ops=prof["device_ops"], top=prof["top"],
+               kernels=prof["kernels"], peak_gib=peak)
+    print(f"[ssm] {cfg.name} bf16, {cfg.n_layers} layers, {SSM_BATCH} x "
+          f"{SSM_SEQ} tokens per step: {step_ms:.1f} ms per step (warm "
+          f"median of {SSM_STEPS}; all {[round(t, 1) for t in times]}), "
+          f"{out['tok_per_s']:.1f} tokens/s; split forward "
+          f"{split['forward_ms']:.1f} / backward {split['backward_ms']:.1f} / "
+          f"optimizer {split['optimizer_ms']:.1f} ms; the plain scan backward "
+          f"{bwd_ms:.1f} ms of it ({cfg.n_layers} calls, "
+          f"{100 * out['scan_backward_share']:.1f}%); device busy "
+          f"{prof['device_busy_ms']:.1f} ms per step (idle "
+          f"{100 * out['idle_share']:.1f}%); losses {losses}; mamba_scan "
+          f"{launches['mamba_scan']} launches = 2 x {cfg.n_layers} x "
+          f"{1 + SSM_STEPS} steps; peak {peak:.2f} GiB")
+    del params, state
+    free_cuda()
+    return out
 
 
 # --------------------------------- main ------------------------------------
@@ -1188,6 +1557,7 @@ def main() -> None:
         flash = check_flash()
         decode = check_decode()
         router = check_router()
+        scan = check_scan()
 
     n_hosts, max_tasks = PAPER["n_hosts"], PAPER["max_tasks"]
     with phase("decision slice"):
@@ -1226,6 +1596,16 @@ def main() -> None:
         moe_served = serve_entry.main(["--arch", MOE_ARCH, "--device",
                                        "cuda"])
         free_cuda()
+    with phase(f"{SSM_ARCH} fp32 training gate ({SSM_GATE_LAYERS} layers)"):
+        ssm_fp32 = ssm_gate()
+    with phase(f"{SSM_ARCH} bf16 training ({SSM_LAYERS} layers) and train"):
+        ssm_bf16 = ssm_timing()
+        trained = train_entry.main(["--arch", SSM_ARCH, "--reduced",
+                                    "--steps", "5", "--device", "cuda"])
+        if not np.isfinite([trained["first_loss"], trained["last_loss"]]
+                           ).all():
+            raise AssertionError(f"launch.train: {trained}")
+        free_cuda()
 
     headline = cell["timing"][-1]
     kernels = [dict(
@@ -1257,6 +1637,21 @@ def main() -> None:
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], shape=head["shape"],
             per_dtype=res["timing"]))
+    # the scan: launches from the fp32 training gate, times at the timed
+    # run's shape in bf16 (the config's own dtype); no PyTorch call
+    # computes the selective scan, so library_ms is null
+    head = [r for r in scan["timing"] if r["dtype"] == "bfloat16"
+            and r["shape"] == "B={} L={} D={} N={}".format(*SCAN_PATH[-1])][0]
+    kernels.append(dict(
+        name="mamba_scan", route="cuda", **SCAN,
+        launches=ssm_fp32["launches"]["mamba_scan"],
+        max_abs_err=scan["worst"][torch.float32],
+        max_abs_err_bf16=scan["worst"][torch.bfloat16],
+        max_rel_err=scan["worst_rel"][torch.float32],
+        ms=head["ms"], kernel_ms=head["ms"], plain_ms=head["plain_ms"],
+        bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+        library_ms=None, device_ms=head["device_ms"], shape=head["shape"],
+        per_dtype=scan["timing"]))
     print(json.dumps({"slice": slice_stats, "ms_per_interval": buckets}))
     print(json.dumps({"lm_fp32": {k: v for k, v in gate.items()
                                   if k != "flips"},
@@ -1264,6 +1659,8 @@ def main() -> None:
     print(json.dumps({"moe_fp32": {k: v for k, v in moe_gate.items()
                                    if k != "flips"},
                       "moe_bf16": moe_timing, "moe_serve": moe_served}))
+    print(json.dumps({"ssm_fp32": ssm_fp32, "ssm_bf16": ssm_bf16,
+                      "train": trained}))
     print(f"[time] total: {time.perf_counter() - t_start:.1f} s wall")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,7 +1,8 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig (exact + reduced).
 
 The same ids as the JAX package's registry.  The port runs the dense
-configurations and qwen3's MoE so far; asking for another arch raises
+configurations and qwen3's MoE (serving) and falcon-mamba's SSM
+(training) so far; asking for another arch raises
 ``NotImplementedError`` naming the ``ROADMAP.md`` item that ports it.
 """
 from __future__ import annotations
@@ -25,12 +26,8 @@ ARCHS = {
 }
 
 # archs with a config in the port
-PORTED = ("yi-6b", "demo-100m", "qwen3-moe-30b-a3b")
-# where each of the others waits (ROADMAP.md, Queue 1)
-_WAITS = {
-    "falcon-mamba-7b": "Queue 1 item 2 (the SSM training forward, "
-                       "mamba_scan kernel)",
-}
+PORTED = ("yi-6b", "demo-100m", "qwen3-moe-30b-a3b", "falcon-mamba-7b")
+# where the others wait (ROADMAP.md, Queue 1)
 _REST = "Queue 1 item 4.5 (the rest of the LM stack)"
 
 
@@ -40,7 +37,7 @@ def _mod(arch: str):
     if arch not in PORTED:
         raise NotImplementedError(
             f"{arch!r} is not ported yet: ROADMAP.md "
-            f"{_WAITS.get(arch, _REST)}")
+            f"{_REST}")
     return importlib.import_module(f"repro_torch.configs.{ARCHS[arch]}")
 
 

@@ -34,6 +34,33 @@ def _leaf(a, device) -> torch.Tensor:
     return torch.tensor(np.asarray(a, np.float32), device=device)
 
 
+def leaves(tree) -> list:
+    """The leaves of a params tree in ``jax.tree_util.tree_leaves``
+    order: dict keys sorted, lists in order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in leaves(v)]
+    return [tree]
+
+
+def unflatten(tree, values):
+    """``tree``'s structure, its dict keys in their own order, with its
+    leaves replaced by ``values`` in :func:`leaves` order (the inverse of
+    :func:`leaves`)."""
+    it = iter(values)
+
+    def fill(t):
+        if isinstance(t, dict):
+            got = {k: fill(t[k]) for k in sorted(t)}
+            return {k: got[k] for k in t}
+        if isinstance(t, (list, tuple)):
+            return [fill(v) for v in t]
+        return next(it)
+
+    return fill(tree)
+
+
 def from_jax(params_np, device: str | torch.device = "cuda") -> dict:
     """The port's params dict from the JAX pytree given as numpy arrays,
     contiguous, on ``device``: bfloat16 leaves stay bfloat16 (bit for

@@ -1,0 +1,85 @@
+"""Training driver: seeded params, the synthetic LM data, AdamW steps
+through ``Model.loss_fn`` on one device (the card unless ``--device
+cpu``).
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch falcon-mamba-7b --reduced --steps 30 --device cpu
+
+The JAX driver's flags, plus ``--device``.  Checkpointing (``--ckpt``,
+``--resume``, ``--kill-at``) and the straggler runtime
+(``--simulate-stragglers``) are not ported yet and raise, naming their
+ROADMAP.md item.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+from repro_torch.configs import get_config, get_reduced
+from repro_torch.models.lm import Model
+from repro_torch.train.data import DataConfig, SyntheticLM
+from repro_torch.train.optimizer import OptConfig
+from repro_torch.train.trainer import TrainConfig, Trainer
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="demo-100m")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--n-micro", type=int, default=1)
+    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--kill-at", type=int, default=None,
+                    help="fault drill: hard-exit mid-run at this step")
+    ap.add_argument("--simulate-stragglers", action="store_true")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    if args.ckpt or args.resume or args.kill_at is not None:
+        raise NotImplementedError(
+            "checkpointing (--ckpt, --resume, --kill-at) is not ported yet: "
+            "ROADMAP.md Queue 1 item 4.2 (the service, with "
+            "train/checkpoint.py)")
+    if args.simulate_stragglers:
+        raise NotImplementedError(
+            "the straggler runtime (--simulate-stragglers) is not ported "
+            "yet: ROADMAP.md Queue 1 item 4.3 (the pod runtime)")
+
+    cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    model = Model(cfg)
+    opt_cfg = OptConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 5),
+                        total_steps=args.steps)
+    trainer = Trainer(model, mesh=None, opt_cfg=opt_cfg,
+                      tcfg=TrainConfig(n_micro=args.n_micro),
+                      device=args.device)
+    params, opt_state = trainer.init_state(seed=0)
+    step_fn = trainer.compile_step()
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
+                                  global_batch=args.batch),
+                       device=args.device)
+
+    losses = []
+    t0 = time.time()
+    for step in range(args.steps):
+        params, opt_state, metrics = step_fn(params, opt_state,
+                                             data.batch(step))
+        loss = float(metrics["loss"])
+        losses.append(loss)
+        if step % args.log_every == 0:
+            print(f"[train] step {step} loss {loss:.4f} "
+                  f"lr {float(metrics['lr']):.2e} "
+                  f"({(time.time() - t0):.1f}s)")
+    out = {"first_loss": losses[0] if losses else None,
+           "last_loss": losses[-1] if losses else None,
+           "steps": len(losses)}
+    print(f"[train] done: {out}")
+    return out
+
+
+if __name__ == "__main__":
+    main()

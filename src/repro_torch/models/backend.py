@@ -2,8 +2,7 @@
 
 The device decides: a CUDA tensor goes to the hand-written kernel (which
 launches or raises), a CPU tensor to its plain version.  There is no
-switch to select one or the other.  Kernels the port does not have yet
-raise ``NotImplementedError``; they never run a plain version instead.
+switch to select one or the other.
 """
 from __future__ import annotations
 
@@ -11,6 +10,7 @@ from repro_torch.kernels.decode_attention import (decode_attention as
                                                   _decode_kernel)
 from repro_torch.kernels.flash_attention import (flash_attention as
                                                  _flash_kernel)
+from repro_torch.kernels.mamba_scan import mamba_scan as _scan_kernel
 from repro_torch.kernels.moe_router import moe_router as _router_kernel
 
 
@@ -25,9 +25,10 @@ def decode_attention(q, k, v, *, kv_len: int):
 
 
 def mamba_scan(u, delta, a, b, c, skip):
-    raise NotImplementedError(
-        "mamba_scan is not ported yet: ROADMAP.md Queue 1 item 2 (the SSM "
-        "training forward)")
+    """u, delta (B, L, D); a (D, N) fp32; b, c (B, L, N); skip (D,) fp32
+    -> y (B, L, D), differentiable (the backward runs the plain
+    version)."""
+    return _scan_kernel(u, delta, a, b, c, skip)
 
 
 def moe_router(logits, k: int):

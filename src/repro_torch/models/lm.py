@@ -1,36 +1,52 @@
 """Model assembly, the dense families (``dense`` and ``vlm``'s dense
-backbone) and ``moe`` (attention + routed MoE layers, on one device), in
-the JAX package's layout.
+backbone), ``moe`` (attention + routed MoE layers, on one device) and
+``ssm`` (Mamba-1 layers), in the JAX package's layout.
 
 Parameters are a dict pytree with each group's layers stacked along a
 leading axis (``params["g0"]["attn"]["wq"]`` is (L, d, H*hd)), exactly as
 the JAX package stacks them for ``lax.scan``, so params and caches
 convert leaf for leaf.  The port runs the layers in a Python loop over
-that axis: no scan, no remat.
+that axis, no scan.
 
-Two execution modes share the layer code: ``prefill`` (returns the
-layer-stacked caches) and ``decode_step`` (one token against them,
-written in place).  Training (``loss_fn``) comes with the training
-slice.
+Three execution modes share the layer code: ``loss_fn`` (training: the
+causal LM loss, each layer and the head under activation checkpointing
+as JAX's ``jax.checkpoint``), ``prefill`` (returns the layer-stacked
+caches) and ``decode_step`` (one token against them, written in place).
+The port trains the ``ssm`` family and serves ``dense`` and ``moe``;
+the other pairs raise ``NotImplementedError`` naming their ROADMAP.md
+item.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.convert import tree_map
 from repro_torch.core.predictor import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as Mb
 from repro_torch.models import moe as Moe
 from repro_torch.models.config import ModelConfig
+
+# where the unported (family, mode) pairs wait (ROADMAP.md, Queue 1)
+_SSM_SERVING = ("SSM serving (mamba_prefill/mamba_decode and the "
+                "engine's recurrent caches) is not ported yet: ROADMAP.md "
+                "Queue 1 item 2.1")
+_TRAINING = {
+    "dense": "training the dense family is not ported yet: ROADMAP.md "
+             "Queue 1 item 2.2 (an autograd Function for flash_attention)",
+    "moe": "training the moe family is not ported yet: ROADMAP.md Queue 1 "
+           "item 2.3 (the capacity dispatch and aux_load_balance_loss)",
+}
 
 
 @dataclasses.dataclass(frozen=True)
 class Group:
     """A run of identical layers, stacked (the JAX package's ``Group``,
     with the fields of the kinds the port runs)."""
-    kind: str          # dense | moe
+    kind: str          # dense | moe | ssm
     n: int             # number of layers
     causal: bool = True
     ff: int = 0        # dense ff dim (0 -> no dense mlp)
@@ -51,10 +67,11 @@ def _groups(cfg: ModelConfig) -> list[Group]:
                 "a dense prefix before the MoE layers is not ported yet: "
                 "ROADMAP.md Queue 1 item 4.5 (the rest of the LM stack)")
         return [Group("moe", cfg.n_layers, moe=True)]
-    waits = {"ssm": "Queue 1 item 2 (the SSM training forward)"}
+    if f == "ssm":
+        return [Group("ssm", cfg.n_layers)]
     raise NotImplementedError(
-        f"family {f!r} is not ported yet: ROADMAP.md "
-        f"{waits.get(f, 'Queue 1 item 4.5 (the rest of the LM stack)')}")
+        f"family {f!r} is not ported yet: ROADMAP.md Queue 1 item 4.5 (the "
+        f"rest of the LM stack)")
 
 
 def full_precision() -> None:
@@ -70,6 +87,33 @@ def layer(stack: dict, i: int) -> dict:
     """Layer ``i``'s params (views) from a layer-stacked group."""
     return {k: layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in stack.items()}
+
+
+def _unstacked(stack: dict, n: int) -> list[dict]:
+    """The ``n`` layers' params of a layer-stacked group as views, by one
+    ``unbind`` per leaf: autograd then gathers a leaf's layer gradients
+    into its stacked gradient once (indexing layer by layer would add a
+    full-size gradient per layer)."""
+    parts = tree_map(lambda t: t.unbind(0), stack)
+
+    def pick(tree, i):
+        return {k: pick(v, i) if isinstance(v, dict) else v[i]
+                for k, v in tree.items()}
+
+    return [pick(parts, i) for i in range(n)]
+
+
+def _head_loss(head_w, xs, labels):
+    """Mean NLL of the labels under fp32 logits (max-subtracted
+    log-sum-exp) plus 1e-4 * mean(lse^2).  The label logit is a gather:
+    it equals JAX's one-hot sum exactly, every other term being 0."""
+    logits = (xs @ head_w).float()
+    m = logits.amax(dim=-1, keepdim=True)
+    lse = m[..., 0] + torch.log(torch.exp(logits - m).sum(dim=-1))
+    label_logit = logits.gather(-1, labels[..., None].long())[..., 0]
+    nll = lse - label_logit
+    zloss = 1e-4 * (lse ** 2).mean()   # logit drift regularizer
+    return nll.mean() + zloss
 
 
 def _copy_into(dst: dict, src: dict) -> None:
@@ -124,6 +168,9 @@ class Model:
 
     def _layer_init(self, gen, g: Group, dev) -> dict:
         cfg = self.cfg
+        if g.kind == "ssm":
+            return {"ln1": L.norm_init(cfg.d_model, dev),
+                    "mamba": Mb.mamba_init(gen, cfg)}
         p = {"ln1": L.norm_init(cfg.d_model, dev),
              "attn": L.attn_init(gen, cfg),
              "ln2": L.norm_init(cfg.d_model, dev)}
@@ -158,6 +205,11 @@ class Model:
         x, c = self._attn_sublayer(p, x, cos, sin, mode, cache, pos, causal)
         return self._ff_sublayer(p, x), c
 
+    def _ssm_layer(self, p, x):
+        """The training mode of JAX's ``_ssm_layer``."""
+        h = L.rms_norm(p["ln1"], x, self.cfg.norm_eps)
+        return x + Mb.mamba_apply(p["mamba"], self.cfg, h)
+
     # ----------------------------- group loop ------------------------------
 
     def _run_group(self, gi: int, g: Group, params, x, cos, sin, mode,
@@ -166,6 +218,13 @@ class Model:
         stacked over layers, {"k", "v"}: (L, B, Hkv, S, hd); decode writes
         into ``caches`` in place and returns it."""
         p_stack = params[f"g{gi}"]
+        if mode == "train":
+            # remat per layer, as JAX's scan over jax.checkpoint: only the
+            # layer inputs live across the backward
+            for p_layer in _unstacked(p_stack, g.n):
+                x = checkpoint(self._ssm_layer, p_layer, x,
+                               use_reentrant=False)
+            return x, None
         if mode == "prefill":
             ks, vs = [], []
             for i in range(g.n):
@@ -193,9 +252,32 @@ class Model:
 
     # ------------------------------- modes ---------------------------------
 
+    def loss_fn(self, params, batch):
+        """Causal LM cross-entropy of batch["labels"] given
+        batch["tokens"], both (B, S) int: a 0-d fp32 tensor, to
+        differentiate with autograd.  Each layer and the head loss run
+        under ``checkpoint`` (recomputed in the backward, as JAX's
+        ``jax.checkpoint``), so the (tokens, vocab) fp32 logits do not
+        live across the backward."""
+        for g in self.groups:
+            if g.kind != "ssm":
+                raise NotImplementedError(_TRAINING[g.kind])
+        cfg = self.cfg
+        x = self._embed(params, batch)
+        for gi, g in enumerate(self.groups):
+            x, _ = self._run_group(gi, g, params, x, None, None, "train")
+        x = L.rms_norm(params["ln_f"], x, cfg.norm_eps)
+        return checkpoint(_head_loss, params["head"], x, batch["labels"],
+                          use_reentrant=False)
+
+    def _serving(self) -> None:
+        if any(g.kind == "ssm" for g in self.groups):
+            raise NotImplementedError(_SSM_SERVING)
+
     def prefill(self, params, batch):
         """batch["tokens"]: (B, S) int.  Returns (last-token logits
         (B, 1, V) fp32, caches list per group)."""
+        self._serving()
         cfg = self.cfg
         x = self._embed(params, batch)
         s = x.shape[1]
@@ -212,6 +294,7 @@ class Model:
         """tokens: (B, 1) int; pos: host int, the current position.
         Returns (logits (B, 1, V) fp32, caches), the caches updated in
         place."""
+        self._serving()
         cfg = self.cfg
         x = params["embed"][tokens].to(cfg.dtype)
         cos_t, sin_t = self._rope_at(pos, x.device)

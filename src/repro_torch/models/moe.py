@@ -122,5 +122,6 @@ def moe_apply(p: dict, cfg: ModelConfig, x, ep=None):
 
 
 def aux_load_balance_loss(p: dict, cfg: ModelConfig, x):
-    raise NotImplementedError(f"the load-balance loss (training) is not "
-                              f"ported yet: {_LATER}")
+    raise NotImplementedError("the load-balance loss (training) is not "
+                              "ported yet: ROADMAP.md Queue 1 item 2.3 "
+                              "(MoE training)")

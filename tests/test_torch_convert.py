@@ -54,8 +54,30 @@ def test_lm_params_convert_leaf_for_leaf():
 @pytest.mark.parametrize("arch", [a for a in PORTED if a != "yi-6b"])
 def test_every_ported_arch_converts_leaf_for_leaf(arch):
     """The other ported archs (yi-6b is the test above); the MoE router
-    stays fp32 beside bf16 experts."""
+    stays fp32 beside bf16 experts, and the Mamba layer's fp32 leaves
+    (dt_bias, a_log, skip) beside bf16 matrices."""
     tp = _converts_leaf_for_leaf(arch)
     if "moe" in tp["g0"]:
         assert tp["g0"]["moe"]["router"].dtype == torch.float32
         assert tp["g0"]["moe"]["wg"].dtype == torch.bfloat16
+    if "mamba" in tp["g0"]:
+        mb = tp["g0"]["mamba"]
+        assert {k for k, v in mb.items() if v.dtype == torch.float32} == \
+            {"dt_bias", "a_log", "skip"}
+        assert mb["in_proj"].dtype == torch.bfloat16
+
+
+def test_leaves_follow_jax_order_and_unflatten_inverts_them():
+    """``leaves`` flattens in ``jax.tree_util.tree_leaves`` order (dict
+    keys sorted) whatever the dict's insertion order; ``unflatten`` puts
+    values back leaf for leaf and keeps the tree's own key order."""
+    tree = {"z": np.float32(0), "a": [np.float32(1), {"y": np.float32(2),
+                                                      "b": np.float32(3)}],
+            "m": {"k": np.float32(4)}}
+    tp = convert.from_jax(tree, "cpu")
+    got = [float(t) for t in convert.leaves(tp)]
+    assert got == [float(x) for x in jax.tree_util.tree_leaves(tree)]
+    back = convert.unflatten(tp, [t * 10 for t in convert.leaves(tp)])
+    assert list(back) == ["z", "a", "m"]
+    assert list(back["a"][1]) == ["y", "b"]
+    assert [float(t) for t in convert.leaves(back)] == [10 * x for x in got]

@@ -1,6 +1,7 @@
 """On-card tests of the port: the CUDA kernels against their plain
-versions, the decision step's launches, and reduced LMs (dense and MoE)
-served on the card against the same model on the CPU.  They need an NVIDIA Hopper
+versions, the decision step's launches, reduced LMs (dense and MoE)
+served on the card against the same model on the CPU, and a reduced SSM
+trained on the card against the CPU.  They need an NVIDIA Hopper
 card and ``nvcc`` and skip elsewhere; run them on the card with
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -20,9 +21,13 @@ from repro_torch.kernels.decode_attention import (decode_attention,
 from repro_torch.kernels.flash_attention import (attention_ref,
                                                  flash_attention)
 from repro_torch.kernels.lstm_cell import lstm_cell, lstm_cell_ref
+from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_ref
 from repro_torch.kernels.moe_router import moe_router, moe_router_ref
 from repro_torch.models.lm import Model
 from repro_torch.serve.engine import Engine, EngineConfig, Request
+from repro_torch.train import optimizer as Opt
+from repro_torch.train.data import DataConfig, SyntheticLM
+from repro_torch.train.trainer import Trainer
 
 pytestmark = pytest.mark.cuda
 
@@ -191,3 +196,108 @@ def test_reduced_engine_on_the_card_matches_the_cpu(cuda, arch):
     n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
     assert launches[1] == (4 * cfg.n_layers, 4 * 5 * 2 * cfg.n_layers,
                            4 * 6 * n_moe)
+
+
+def _scan_inputs(b, l, d, n, dtype, device, seed):
+    """The JAX sweep's distributions: u, b, c normal, delta a softplus of
+    a normal, a = -exp(normal), skip normal; u, delta, b, c in ``dtype``,
+    a and skip fp32."""
+    g = torch.Generator().manual_seed(seed)
+    u = torch.randn(b, l, d, generator=g)
+    delta = torch.nn.functional.softplus(torch.randn(b, l, d, generator=g))
+    a = -torch.exp(torch.randn(d, n, generator=g))
+    bm, cm = (torch.randn(b, l, n, generator=g) for _ in range(2))
+    skip = torch.randn(d, generator=g)
+    return ([t.to(device, dtype) for t in (u, delta)] + [a.to(device)]
+            + [t.to(device, dtype) for t in (bm, cm)] + [skip.to(device)])
+
+
+# the JAX sweep (tests/test_kernels.py MAMBA_SWEEP), ragged shapes, and
+# falcon-mamba-7b's training shapes (B x L x d_inner x N)
+SCAN_SHAPES = [(1, 64, 128, 16), (2, 128, 64, 16), (1, 96, 256, 8),
+               (3, 77, 200, 5), (1, 1, 3, 1), (2, 33, 129, 32),
+               (2, 256, 8192, 16), (4, 512, 8192, 16)]
+
+
+@pytest.mark.parametrize("b,l,d,n", SCAN_SHAPES)
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 1e-5, 1e-5),
+                                             (torch.bfloat16, 1e-2, 1e-3)])
+def test_mamba_scan_kernel_matches_plain_version(cuda, b, l, d, n, dtype,
+                                                 rtol, atol):
+    """The states agree bit for bit; y's N-sum runs in another order, an
+    fp32 ulp of |y|, which moves bf16 y by at most one bf16 ulp."""
+    args = _scan_inputs(b, l, d, n, dtype, cuda, seed=b * l + d)
+    before = mamba_scan.launches
+    got = mamba_scan(*args)
+    torch.cuda.synchronize()
+    assert mamba_scan.launches == before + 1
+    assert got.dtype == dtype and got.shape == (b, l, d)
+    torch.testing.assert_close(got.float(), mamba_scan_ref(*args).float(),
+                               rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("b,l,d,n", [(1, 32, 64, 8), (2, 77, 200, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_scan_gradients_through_the_kernel(cuda, b, l, d, n, dtype):
+    """The Function's backward differentiates the plain version on the
+    saved inputs: the gradients equal autograd through the plain version,
+    in the inputs' dtypes."""
+    args = _scan_inputs(b, l, d, n, dtype, cuda, seed=l)
+    g = torch.randn(b, l, d, generator=torch.Generator().manual_seed(1)
+                    ).to(cuda, dtype)
+    xs = [t.clone().requires_grad_() for t in args]
+    ref = [t.clone().requires_grad_() for t in args]
+    before = mamba_scan.launches
+    got = torch.autograd.grad(mamba_scan(*xs), xs, g)
+    assert mamba_scan.launches == before + 1
+    want = torch.autograd.grad(mamba_scan_ref(*ref), ref, g)
+    for gt, w, x in zip(got, want, args):
+        assert gt.dtype == x.dtype
+        torch.testing.assert_close(gt, w, rtol=1e-6, atol=1e-6)
+
+
+def test_mamba_scan_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    u, delta, a, b, c, skip = _scan_inputs(1, 8, 16, 4, torch.float32, cuda,
+                                           seed=0)
+    before = mamba_scan.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        mamba_scan(u.transpose(1, 2).contiguous().transpose(1, 2), delta, a,
+                   b, c, skip)
+    with pytest.raises(TypeError):
+        mamba_scan(u, delta, a.bfloat16(), b, c, skip)
+    with pytest.raises(TypeError):
+        mamba_scan(u, delta.bfloat16(), a, b, c, skip)
+    with pytest.raises(TypeError):
+        mamba_scan(*(t.half() for t in (u, delta)), a, b.half(), c.half(),
+                   skip)
+    big = _scan_inputs(1, 4, 8, 33, torch.float32, cuda, seed=1)
+    with pytest.raises(ValueError, match="state size"):
+        mamba_scan(*big)
+    assert mamba_scan.launches == before
+
+
+def test_reduced_ssm_training_on_the_card_matches_the_cpu(cuda):
+    """Three AdamW steps of the reduced falcon-mamba in fp32 on the card
+    and on the CPU from the same params: each layer's scan launches twice
+    per step (forward, and its recompute in the backward)."""
+    cfg = dataclasses.replace(get_reduced("falcon-mamba-7b"),
+                              param_dtype="float32")
+    params = Model(cfg).init(0, "cpu")
+    losses, launches = [], []
+    for dev in ("cpu", cuda):
+        tr = Trainer(Model(cfg), mesh=None, device=dev)
+        # a copy: the step updates the params in place
+        p = convert.tree_map(lambda t: t.to(dev, copy=True), params)
+        state = Opt.init(tr.opt_cfg, p)
+        data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=24,
+                                      global_batch=2), device=dev)
+        step = tr.compile_step()
+        before = mamba_scan.launches
+        out = []
+        for i in range(3):
+            p, state, m = step(p, state, data.batch(i))
+            out.append(float(m["loss"]))
+        launches.append(mamba_scan.launches - before)
+        losses.append(out)
+    assert launches == [0, 2 * cfg.n_layers * 3]
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-5)

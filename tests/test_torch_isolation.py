@@ -1,7 +1,7 @@
 """The port stands alone: no file of ``src/repro_torch/`` and not
 ``chip_smoke.py`` imports ``jax`` or the JAX package ``repro``, and
-building and running the port's controller and its LM serving engine
-(dense and MoE) on the CPU loads neither."""
+building and running the port's controller, its LM serving engine
+(dense and MoE) and its SSM trainer on the CPU loads neither."""
 import ast
 import os
 import subprocess
@@ -35,7 +35,13 @@ def test_the_scan_sees_every_port_module():
             "src/repro_torch/kernels/flash_attention/ops.py",
             "src/repro_torch/kernels/decode_attention/ops.py",
             "src/repro_torch/models/moe.py",
-            "src/repro_torch/kernels/moe_router/ops.py"} <= names
+            "src/repro_torch/kernels/moe_router/ops.py",
+            "src/repro_torch/models/mamba.py",
+            "src/repro_torch/kernels/mamba_scan/ops.py",
+            "src/repro_torch/train/data.py",
+            "src/repro_torch/train/optimizer.py",
+            "src/repro_torch/train/trainer.py",
+            "src/repro_torch/launch/train.py"} <= names
     assert _imported_roots(ROOT / "src" / "repro" / "core" / "start.py") \
         >= {"repro", "numpy"}
 
@@ -67,6 +73,15 @@ def test_running_the_port_loads_no_jax():
         "        eng.submit(Request(req_id=i, tokens=np.arange(3 + i), "
         "max_new=4))\n"
         "    assert len(eng.run()) == 3\n"
+        "from repro_torch.train.data import DataConfig, SyntheticLM\n"
+        "from repro_torch.train.trainer import Trainer\n"
+        "cfg = get_reduced('falcon-mamba-7b')\n"
+        "tr = Trainer(Model(cfg), mesh=None, device='cpu')\n"
+        "p, s = tr.init_state(0)\n"
+        "data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=6, "
+        "global_batch=2), device='cpu')\n"
+        "p, s, m = tr.compile_step()(p, s, data.batch(0))\n"
+        "assert int(s.step) == 1 and bool(m['loss'].isfinite())\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n")

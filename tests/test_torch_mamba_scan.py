@@ -1,0 +1,149 @@
+"""The port's selective scan on the CPU (its plain version, reached
+through the kernel's wrapper and its ``torch.autograd.Function``)
+against the JAX package's ``mamba_scan_ref``, on the same numpy-seeded
+inputs.
+
+The JAX Pallas kernel cannot run on this jax (its ``pl.load`` is gone),
+so the oracle is its reference, as ROADMAP.md Queue 3 says.  Forward:
+``MAMBA_SWEEP`` of ``tests/test_kernels.py`` plus ragged shapes, fp32
+within the sweep's 1e-4 (observed <= 1e-6: only exp and the order of the
+N-sum differ) and bf16 within its 5e-2.  Gradients of all six inputs
+through the Function (whose backward differentiates the plain version,
+as the JAX custom VJP does) against ``jax.vjp`` of the reference, fp32,
+relative 1e-4 in norm.  The kernel itself is held against the plain
+version on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.mamba_scan.ref import mamba_scan_ref as jax_ref
+from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_ref
+
+# (b, l, d, n): tests/test_kernels.py MAMBA_SWEEP, then ragged shapes
+MAMBA_SWEEP = [(1, 64, 128, 16), (2, 128, 64, 16), (1, 96, 256, 8)]
+RAGGED = [(3, 77, 200, 5), (1, 1, 3, 1)]
+TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
+       "bfloat16": dict(rtol=5e-2, atol=5e-2)}
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: these tests run thousands of tiny ops, which
+    threads do not speed up, and beside the suite's parallel workers
+    extra threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _inputs(b, l, d, n, seed):
+    """u, delta (softplus of a normal), a = -exp(normal), b, c, skip: the
+    JAX sweep's distributions, drawn with numpy."""
+    rng = np.random.default_rng(seed)
+    u = rng.standard_normal((b, l, d)).astype(np.float32)
+    delta = np.logaddexp(rng.standard_normal((b, l, d)), 0).astype(
+        np.float32)
+    a = -np.exp(rng.standard_normal((d, n))).astype(np.float32)
+    bm = rng.standard_normal((b, l, n)).astype(np.float32)
+    cm = rng.standard_normal((b, l, n)).astype(np.float32)
+    skip = rng.standard_normal(d).astype(np.float32)
+    return u, delta, a, bm, cm, skip
+
+
+def _both(args, dtype):
+    """The inputs for JAX and for the port: u, delta, b, c in ``dtype``
+    (both round to nearest even), a and skip fp32."""
+    io = (0, 1, 3, 4)
+    jx = [jnp.asarray(x, dtype if i in io else "float32")
+          for i, x in enumerate(args)]
+    tx = [torch.tensor(x).to(getattr(torch, dtype) if i in io
+                             else torch.float32)
+          for i, x in enumerate(args)]
+    return jx, tx
+
+
+def _np(x):
+    return x.detach().float().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("b,l,d,n", MAMBA_SWEEP + RAGGED)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_scan_matches_jax_reference(b, l, d, n, dtype):
+    jx, tx = _both(_inputs(b, l, d, n, seed=b * l + d), dtype)
+    want = _np(jax_ref(*jx))
+    got = mamba_scan(*tx)
+    assert got.dtype == tx[0].dtype and got.shape == (b, l, d)
+    np.testing.assert_allclose(_np(got), want, **TOL[dtype])
+    # on the CPU the wrapper is the plain version, bit for bit
+    assert torch.equal(got, mamba_scan_ref(*tx))
+
+
+def test_plain_scan_takes_an_initial_state():
+    args = _inputs(2, 9, 16, 4, seed=7)
+    h0 = np.random.default_rng(8).standard_normal((2, 16, 4)).astype(
+        np.float32)
+    jx, tx = _both(args, "float32")
+    want = _np(jax_ref(*jx, h0=jnp.asarray(h0)))
+    np.testing.assert_allclose(_np(mamba_scan_ref(*tx, h0=torch.tensor(h0))),
+                               want, **TOL["float32"])
+
+
+@pytest.mark.parametrize("b,l,d,n", [(1, 32, 64, 8), (2, 17, 40, 16)])
+def test_function_gradients_match_jax_vjp(b, l, d, n):
+    """All six gradients of the autograd Function against ``jax.vjp`` of
+    the reference, fp32, relative 1e-4 in norm."""
+    args = _inputs(b, l, d, n, seed=l)
+    g = np.random.default_rng(l + 1).standard_normal((b, l, d)).astype(
+        np.float32)
+    jx, tx = _both(args, "float32")
+    _, vjp = jax.vjp(jax_ref, *jx)
+    want = vjp(jnp.asarray(g))
+    tx = [t.requires_grad_() for t in tx]
+    got = torch.autograd.grad(mamba_scan(*tx), tx, torch.tensor(g))
+    for name, gt, w in zip(("u", "delta", "a", "b", "c", "skip"), got, want):
+        w = np.asarray(w, np.float64)
+        err = np.linalg.norm(_np(gt) - w) / np.linalg.norm(w)
+        assert err <= 1e-4, (name, err)
+        assert gt.dtype == torch.float32
+
+
+def test_function_gradients_keep_the_input_dtypes():
+    args = _inputs(1, 8, 16, 4, seed=3)
+    _, tx = _both(args, "bfloat16")
+    tx = [t.requires_grad_() for t in tx]
+    y = mamba_scan(*tx)
+    got = torch.autograd.grad(y.float().sum(), tx)
+    assert [t.dtype for t in got] == [t.dtype for t in tx]
+    assert all(torch.isfinite(t.float()).all() for t in got)
+
+
+def test_only_the_inputs_asked_for_get_gradients():
+    _, tx = _both(_inputs(1, 8, 16, 4, seed=4), "float32")
+    u = tx[0].requires_grad_()
+    (gu,) = torch.autograd.grad(mamba_scan(u, *tx[1:]).sum(), [u])
+    assert gu.shape == u.shape
+
+
+def test_wrapper_refuses_what_it_does_not_take():
+    _, tx = _both(_inputs(1, 8, 16, 4, seed=5), "float32")
+    u, delta, a, b, c, skip = tx
+    before = mamba_scan.launches
+    with pytest.raises(ValueError, match="shapes"):
+        mamba_scan(u, delta, a, b[:, :4], c, skip)
+    with pytest.raises(ValueError, match="shapes"):
+        mamba_scan(u, delta, a, b, c, skip[:3])
+    with pytest.raises(ValueError):
+        mamba_scan(u[0], delta, a, b, c, skip)
+    with pytest.raises(TypeError):
+        mamba_scan(u, delta.to(torch.int32), a, b, c, skip)
+    meta = [t.to("meta") for t in tx]
+    with pytest.raises(ValueError, match="no kernel"):
+        mamba_scan(*meta)
+    with pytest.raises(ValueError, match="different devices"):
+        mamba_scan(meta[0], *tx[1:])
+    assert mamba_scan.launches == before

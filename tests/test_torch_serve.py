@@ -128,9 +128,11 @@ def test_jax_and_port_engines_give_equal_token_streams():
     _engines_give_equal_token_streams("yi-6b")
 
 
-@pytest.mark.parametrize("arch", [a for a in PORTED if a != "yi-6b"])
+@pytest.mark.parametrize("arch", [
+    a for a in PORTED if a != "yi-6b" and get_reduced(a).family != "ssm"])
 def test_every_ported_arch_gives_the_jax_engines_token_streams(arch):
-    """The other ported archs (yi-6b is the test above)."""
+    """The other ported archs the port serves (yi-6b is the test above;
+    SSM serving is not ported yet)."""
     _engines_give_equal_token_streams(arch)
 
 
