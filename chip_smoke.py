@@ -17,7 +17,8 @@ Phases:
    beside the plain version and the PyTorch yardstick
    (``torch.lstm_cell``, ``scaled_dot_product_attention``, and for the
    router ``softmax`` + ``topk`` + renormalisation, since no one call
-   computes it; no PyTorch call computes the selective scan);
+   computes it; no PyTorch call computes the selective scan); the
+   attention rows also print TFLOP/s and the share of the bound;
 4. the decision slice: ``STARTController`` at the paper's width (400
    hosts x 11 features, 10 tasks per job, horizon 5), fed seeded
    telemetry, in both triggers, on the card and on the CPU from the same
@@ -149,7 +150,11 @@ SOURCE = "src/repro_torch/kernels/lstm_cell/csrc/lstm_cell.cu"
 FLASH_SWEEP = [(1, 4, 4, 128, 64, True), (1, 4, 2, 256, 64, True),
                (2, 8, 1, 128, 128, True), (1, 2, 2, 192, 64, False),
                (1, 4, 2, 100, 128, True)]
-FLASH_PATH = [(1, 32, 4, s, 128, True) for s in (12, 512, 2048)]
+FLASH_PATH = [(1, 32, 4, s, 128, True) for s in (12, 512, 2048, 3000)]
+# timed: bf16 (the tensor-core kernel) at both long prefills, fp32 (the
+# CUDA-core kernel) at 2048
+FLASH_TIMED = {(2048, torch.bfloat16), (2048, torch.float32),
+               (3000, torch.bfloat16)}
 # (b, h, hkv, s, d, kv_len): the JAX decode sweep (DECODE_SWEEP), then
 # yi-6b's decode shapes against a 4096-long cache
 DECODE_SWEEP = [(1, 4, 4, 512, 64, 512), (2, 8, 2, 1024, 128, 700),
@@ -216,8 +221,9 @@ SSM_STEPS = 3
 # OptConfig's default lr (3e-4) and launch.train's warmup rule (5 steps)
 SSM_OPT = dict(warmup_steps=5, total_steps=100)
 # the port's kernels by their names in a profiler trace
-OUR_KERNELS = ("flash_attention_kernel", "decode_partial_kernel",
-               "decode_combine_kernel", "router_kernel", "scan_kernel")
+OUR_KERNELS = ("flash_wgmma_kernel", "flash_attention_kernel",
+               "decode_partial_kernel", "decode_combine_kernel",
+               "router_kernel", "scan_kernel")
 
 
 # --------------------------------- phase 1 ---------------------------------
@@ -377,13 +383,16 @@ def _timing(name, label, kernel, plain, library, dtype, work,
     p2, k2 = time_auto(plain), time_auto(kernel)
     lib_ms = time_auto(library)
     bound_ms, bound_by = attn_bound(*work, dtype)
-    row = dict(shape=label, dtype=str(dtype)[6:], ms=min(k1, k2),
+    ms = min(k1, k2)
+    row = dict(shape=label, dtype=str(dtype)[6:], ms=ms,
                plain_ms=min(p1, p2), library_ms=lib_ms, bound_ms=bound_ms,
-               bound_by=bound_by)
-    print(f"[kernel] {name} {label} {row['dtype']}: kernel {row['ms']:.5f} "
-          f"ms (runs {k1:.5f}, {k2:.5f}), plain {row['plain_ms']:.5f} ms, "
-          f"{library_name} {lib_ms:.5f} ms, bound {bound_ms:.6f} ms "
-          f"({bound_by})")
+               bound_by=bound_by, tflop_s=work[0] / ms / 1e9,
+               bound_share=bound_ms / ms)
+    print(f"[kernel] {name} {label} {row['dtype']}: kernel {ms:.5f} "
+          f"ms (runs {k1:.5f}, {k2:.5f}), {row['tflop_s']:.1f} TFLOP/s, "
+          f"{row['bound_share']:.1%} of the bound; plain "
+          f"{row['plain_ms']:.5f} ms, {library_name} {lib_ms:.5f} ms, bound "
+          f"{bound_ms:.6f} ms ({bound_by})")
     return row
 
 
@@ -401,7 +410,8 @@ def check_flash() -> dict:
             want = attention_ref(q, k, v, causal=causal)
             _compare("flash_attention", flash_attention(q, k, v, causal),
                      want, dtype, worst, label)
-            if (b, h, hkv, s, d, causal) != FLASH_PATH[-1]:
+            if (b, h, hkv, s, d, causal) not in FLASH_PATH \
+                    or (s, dtype) not in FLASH_TIMED:
                 continue
             lib = sdpa(q, k, v, is_causal=causal, enable_gqa=True)
             torch.testing.assert_close(lib.float(), want.float(),
@@ -1619,11 +1629,13 @@ def main() -> None:
         device_ms=buckets[f"milestone/{TIMED_BUCKETS[-1]}"][
             "kernel_device_ms"],
         per_shape=cell["timing"])]
-    # attention: launches from yi-6b's fp32 gate, the router's from
-    # qwen3's; times at the path's largest shape, attention in bf16 (the
-    # config's own dtype), the router in fp32 (its logits are fp32)
+    # launches: flash from yi-6b's bf16 serving run (the tensor-core
+    # kernel, the one timed), decode from yi-6b's fp32 gate, the router
+    # from qwen3's; times at the path's longest timed shape, attention in
+    # bf16 (the config's own dtype; flash at S = 2048, its first bf16
+    # row), the router in fp32 (its logits are fp32)
     for name, meta, res, runs in (
-            ("flash_attention", FLASH, flash, gate),
+            ("flash_attention", FLASH, flash, timing),
             ("decode_attention", DECODE, decode, gate),
             ("moe_router", ROUTER, router, moe_gate)):
         want = "float32" if name == "moe_router" else "bfloat16"

@@ -1,8 +1,10 @@
-"""Wrapper of the flash attention kernel (``csrc/flash_attention.cu``).
+"""Wrapper of the flash attention kernels (``csrc/flash_attention.cu``):
+bf16 on the tensor cores (wgmma fed by TMA), fp32 on CUDA cores.
 
-On CUDA tensors it launches the kernel on the current stream, or raises;
-on CPU tensors it runs the plain version (:func:`attention_ref`).  It
-never pads: the kernel masks the ragged edge of the sequence.
+On CUDA tensors it launches the kernel of their dtype on the current
+stream, or raises; on CPU tensors it runs the plain version
+(:func:`attention_ref`).  It never pads: the kernels mask the ragged edge
+of the sequence.
 Inference only — inputs that require grad are refused until the kernel
 has a ``torch.autograd.Function`` (training).
 """
@@ -20,7 +22,7 @@ _SYMBOLS = {torch.float32: "flash_attention_f32",
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 HEAD_DIMS = (16, 32, 64, 128)     # the kernel's instantiations
-_MAX_GRID_Y = 65535               # batch * heads is the grid's y
+_MAX_GRID_Y = 65535               # the fp32 kernel's grid y is batch * heads
 
 
 def _launcher(dtype: torch.dtype):

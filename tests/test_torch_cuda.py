@@ -84,7 +84,12 @@ def _qkv(shapes, dtype, seed, device):
 @pytest.mark.parametrize("b,h,hkv,s,d,causal", [
     (1, 4, 4, 128, 64, True), (2, 8, 1, 128, 128, True),
     (1, 2, 2, 192, 64, False), (1, 4, 2, 100, 128, True),
-    (1, 4, 2, 37, 16, True), (1, 32, 4, 300, 128, True)])
+    (1, 4, 2, 37, 16, True), (1, 32, 4, 300, 128, True),
+    # one tile of the bf16 kernel; each head dim at a ragged length; B = 2
+    # non-causal GQA; yi-6b's longest prefill
+    (1, 1, 1, 64, 128, True), (1, 4, 2, 100, 32, True),
+    (1, 4, 2, 150, 64, True), (2, 8, 2, 200, 64, False),
+    (1, 32, 4, 3000, 128, True)])
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
                                         (torch.bfloat16, 2e-2)])
 def test_flash_attention_kernel_matches_plain_version(cuda, b, h, hkv, s, d,
@@ -95,6 +100,20 @@ def test_flash_attention_kernel_matches_plain_version(cuda, b, h, hkv, s, d,
     got = flash_attention(q, k, v, causal)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
+    torch.testing.assert_close(got.float(),
+                               attention_ref(q, k, v, causal=causal).float(),
+                               rtol=atol, atol=atol)
+
+
+@pytest.mark.parametrize("sq,sk", [(100, 300), (300, 100), (1, 129)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 2e-2)])
+def test_flash_attention_kernel_takes_unequal_query_and_key_lengths(
+        cuda, sq, sk, causal, dtype, atol):
+    q, k, v = _qkv([(1, 4, sq, 64), (1, 2, sk, 64), (1, 2, sk, 64)], dtype,
+                   sq + sk, cuda)
+    got = flash_attention(q, k, v, causal)
     torch.testing.assert_close(got.float(),
                                attention_ref(q, k, v, causal=causal).float(),
                                rtol=atol, atol=atol)

@@ -1,8 +1,8 @@
 """The port's flash attention (on the CPU: its plain version, which the
 wrapper runs for CPU tensors) against the JAX package's Pallas kernel in
-interpret mode and its ``attention_ref``, over the JAX sweep's shapes,
-with the same inputs made by numpy from a seed (the sweep's tolerances:
-2e-5 fp32, 2e-2 bf16)."""
+interpret mode and its ``attention_ref``, over the JAX sweep's shapes and
+yi-6b's head layout, with the same inputs made by numpy from a seed (the
+sweep's tolerances: 2e-5 fp32, 2e-2 bf16)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,6 +14,9 @@ from repro_torch.kernels.flash_attention import (attention_ref,
                                                  flash_attention)
 from test_kernels import FLASH_SWEEP
 
+# yi-6b's head layout (H = 32, Hkv = 4, D = 128) at a ragged causal
+# prefill: the shape the on-card tests hold the kernels to
+PATH = [(1, 32, 4, 300, 128, True)]
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
 
@@ -35,7 +38,7 @@ def _np(x):
         else np.asarray(x, np.float32)
 
 
-@pytest.mark.parametrize("b,h,hkv,s,d,causal", FLASH_SWEEP)
+@pytest.mark.parametrize("b,h,hkv,s,d,causal", FLASH_SWEEP + PATH)
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_flash_attention_matches_jax(b, h, hkv, s, d, causal, dtype):
     (jq, tq), (jk, tk), (jv, tv) = _inputs(
