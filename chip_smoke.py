@@ -10,15 +10,17 @@ Phases:
    off, the card's name and power limit;
 2. build: every CUDA kernel of the port (``lstm_cell``,
    ``flash_attention``, ``decode_attention``, ``moe_router``,
-   ``mamba_scan``), from the sources in the checkout, one ``nvcc`` per
-   source, all started together;
+   ``mamba_scan`` with its backward), from the sources in the checkout,
+   one ``nvcc`` per source, all started together;
 3. kernel vs plain: each kernel against its plain PyTorch version on the
    card, at the JAX test sweep's shapes and its path's shapes, and timed
    beside the plain version and the PyTorch yardstick
    (``torch.lstm_cell``, ``scaled_dot_product_attention``, and for the
    router ``softmax`` + ``topk`` + renormalisation, since no one call
-   computes it; no PyTorch call computes the selective scan); the
-   attention rows also print TFLOP/s and the share of the bound;
+   computes it; no PyTorch call computes the selective scan or its
+   gradient); the scan's backward kernel also against autograd through
+   the plain scan, and timed beside it; the attention rows also print
+   TFLOP/s and the share of the bound;
 4. the decision slice: ``STARTController`` at the paper's width (400
    hosts x 11 features, 10 tasks per job, horizon 5), fed seeded
    telemetry, in both triggers, on the card and on the CPU from the same
@@ -53,13 +55,15 @@ Phases:
 9. SSM training, fp32: falcon-mamba-7b at full width, 8 of its 64
    layers (seeded weights), three AdamW steps of ``Trainer`` on
    ``SyntheticLM`` batches of 2 x 256 tokens, every layer's forward and
-   its recompute in the backward launching ``mamba_scan``; then from the
-   params before each step the same loss through the plain scan, within
-   1e-5 relative, and step 1's gradients within 1e-4 relative in norm;
+   its recompute in the backward launching ``mamba_scan`` and its
+   backward ``mamba_scan_bwd``; then from the params before each step the
+   same loss through the plain scan (autograd of the plain version),
+   within 1e-5 relative, and step 1's gradients within 1e-4 relative in
+   norm;
 10. SSM training, bf16: falcon-mamba-7b at full width, 32 of its 64
    layers, batches of 4 x 512 tokens, one warm step and three timed (ms
    per step, tokens/s), one step by its parts (forward / backward /
-   optimizer, and the plain scan backward's share timed inside it),
+   optimizer, and the scan backward's share timed inside it),
    profiler device busy per step, peak memory; and
    ``repro_torch.launch.train`` once, reduced, on the card;
 11. summary: one JSON line of kernel numbers, the card's line, and last
@@ -101,7 +105,8 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.lstm_cell import (  # noqa: E402
     lstm_cell, lstm_cell_ref)
 from repro_torch.kernels.mamba_scan import (  # noqa: E402
-    mamba_scan, mamba_scan_ref)
+    mamba_scan, mamba_scan_bwd, mamba_scan_bwd_ref, mamba_scan_ref,
+    scan_states_ref)
 from repro_torch.kernels.mamba_scan import ops as scan_ops  # noqa: E402
 from repro_torch.kernels.moe_router import (  # noqa: E402
     moe_router, moe_router_ref)
@@ -201,13 +206,25 @@ SCAN_SWEEP = [(1, 64, 128, 16), (2, 128, 64, 16), (1, 96, 256, 8),
 SCAN_PATH = [(2, 256, 8192, 16), (4, 512, 8192, 16)]
 # fp32: 1e-5 of max(1, |y|): the states agree bit for bit and y's N-sum
 # runs in another order, which moves y by an ulp of |y|, and |y| grows
-# with L (an fp32 ulp is 1.5e-5 at |y| = 128); bf16: that fp32 y rounds
-# to a bf16 value at most one ulp (2^-7 = 0.78% of |y|) away, so 1e-2 of
-# |y|, plus 1e-3 for fp32 sums that cancel to near 0
+# with L (an fp32 ulp is 1.5e-5 at |y| = 128); bf16: the fp32 y (its
+# states from ex2.approx, ~1e-6 of themselves off) rounds to a bf16 value
+# at most one ulp (2^-7 = 0.78% of |y|) away, so 1e-2 of |y|, plus 1e-3
+# for fp32 sums that cancel to near 0
 SCAN_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
             torch.bfloat16: dict(rtol=1e-2, atol=1e-3)}
 SCAN = dict(source="src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
             replaces="src/repro/kernels/mamba_scan/mamba_scan.py:31")
+# the backward has no Pallas kernel: it replaces the custom VJP's _bwd,
+# jax.vjp of the plain version
+SCAN_BWD = dict(source=SCAN["source"],
+                replaces="src/repro/kernels/mamba_scan/ops.py:44")
+# gradients of the backward kernel against a plain version, per input,
+# relative to the plain one's norm and to its largest element.  fp32: 1e-5
+# (the states agree bit for bit; the sums over d, n, t and b run in
+# another order).  bf16: du, ddelta, dB, dC are rounded to bf16 from fp32
+# sums in another order, from ex2.approx states, so an element may land
+# one bf16 ulp (2^-8 of itself) away: 2^-7 of the largest, 1e-3 in norm.
+GRAD_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-3, 2**-7)}
 # special-function (ex2) results: 16 per clock per SM (NVIDIA's CUDA C++
 # Programming Guide, compute capability 9.0) x 132 SMs x 1.98 GHz boost
 SFU_PER_S = 16 * 132 * 1.98e9
@@ -223,7 +240,8 @@ SSM_OPT = dict(warmup_steps=5, total_steps=100)
 # the port's kernels by their names in a profiler trace
 OUR_KERNELS = ("flash_wgmma_kernel", "flash_attention_kernel",
                "decode_partial_kernel", "decode_combine_kernel",
-               "router_kernel", "scan_kernel")
+               "router_kernel", "scan_kernel", "scan_bwd_kernel",
+               "scan_bwd_reduce_kernel")
 
 
 # --------------------------------- phase 1 ---------------------------------
@@ -622,6 +640,117 @@ def check_scan() -> dict:
     return {"worst": worst, "worst_rel": worst_rel, "timing": rows}
 
 
+def scan_bwd_bound(b, l, d, n, elem) -> tuple[float, str]:
+    """Least time for one scan backward: u, delta, g, b, c and the saved
+    chunk states read once, du, ddelta, db, dc, da and dskip written once,
+    over HBM; or its operations, the larger of its fp32 multiplies and adds
+    (19 per state per step, 8 per channel per step) over the fp32 peak and
+    its b*l*d*n exponentials (the chunks stepped again) over the
+    special-function rate."""
+    chunks = -(-l // scan_ops.CHUNK)
+    nbytes = (elem * (5 * b * l * d + 4 * b * l * n)
+              + 4 * (b * chunks * d * n + 2 * d * n + 2 * d))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(b * l * d * (19 * n + 8) / FP32_FLOP_PER_S,
+                b * l * d * n / SFU_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _grad_errors(name, label, got, want, dtype) -> tuple[float, float]:
+    """Holds each gradient to GRAD_TOL; returns the largest absolute error
+    and the largest error relative to its plain gradient's largest
+    element."""
+    rel, max_rel = GRAD_TOL[dtype]
+    worst = worst_abs = 0.0
+    for x, g, w in zip(("u", "delta", "a", "b", "c", "skip"), got, want):
+        g, w = g.double(), w.double()
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{name} {label}: non-finite d{x}")
+        norm = (g - w).norm().item() / max(w.norm().item(), 1e-300)
+        top = (g - w).abs().max().item() / max(w.abs().max().item(), 1e-300)
+        if not (norm <= rel and top <= max_rel):
+            raise AssertionError(f"{name} {label}: d{x} differs by {norm:.3e}"
+                                 f" in norm, {top:.3e} of its largest")
+        worst = max(worst, top)
+        worst_abs = max(worst_abs, (g - w).abs().max().item())
+    return worst_abs, worst
+
+
+def check_scan_bwd() -> dict:
+    """The forward kernel's chunk states against ``scan_states_ref``, then
+    the backward kernels from them against the plain backward (same
+    states) and against autograd through the plain scan; timed at the
+    path's shapes beside both."""
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    worst_rel = dict(worst)
+    rows = []
+    for i, (b, l, d, n) in enumerate(SCAN_SWEEP + SCAN_PATH):
+        label = f"B={b} L={l} D={d} N={n}"
+        for dtype in (torch.float32, torch.bfloat16):
+            args = scan_inputs(b, l, d, n, dtype, seed=500 + i)
+            g = torch.randn(b, l, d, generator=torch.Generator().manual_seed(
+                600 + i)).to("cuda", dtype)
+            _, states = scan_ops._launch(*args, keep_states=True)
+            want_states = scan_states_ref(*args[:4])
+            if dtype == torch.float32:
+                if not torch.equal(states, want_states):
+                    raise AssertionError(f"mamba_scan {label}: fp32 chunk "
+                                         f"states differ from the plain ones")
+            else:
+                torch.testing.assert_close(states, want_states, rtol=1e-4,
+                                           atol=1e-4)
+            got = mamba_scan_bwd(*args, g, states)
+            torch.cuda.synchronize()
+            a1, e1 = _grad_errors("mamba_scan_bwd", label, got,
+                                  mamba_scan_bwd_ref(*args, g, states), dtype)
+            xs = [t.clone().requires_grad_() for t in args]
+            auto = torch.autograd.grad(mamba_scan_ref(*xs), xs, g)
+            a2, e2 = _grad_errors("mamba_scan_bwd (autograd)", label, got,
+                                  auto, dtype)
+            del xs, auto
+            worst[dtype] = max(worst[dtype], a1, a2)
+            worst_rel[dtype] = max(worst_rel[dtype], e1, e2)
+            print(f"[kernel] mamba_scan_bwd {label} {str(dtype)[6:]}: ok, "
+                  f"largest error / largest gradient {e1:.3e} against the "
+                  f"plain backward, {e2:.3e} against autograd")
+            if (b, l, d, n) not in SCAN_PATH:
+                continue
+
+            def plain_autograd(args=args, g=g):
+                xs = [t.clone().requires_grad_() for t in args]
+                return torch.autograd.grad(mamba_scan_ref(*xs), xs, g)
+
+            k1 = time_auto(lambda: mamba_scan_bwd(*args, g, states))
+            p1 = time_auto(lambda: mamba_scan_bwd_ref(*args, g, states))
+            p2 = time_auto(lambda: mamba_scan_bwd_ref(*args, g, states))
+            k2 = time_auto(lambda: mamba_scan_bwd(*args, g, states))
+            auto_ms = time_auto(plain_autograd)
+            bound_ms, bound_by = scan_bwd_bound(b, l, d, n,
+                                                args[0].element_size())
+            prof = profile_window(f"mamba_scan_bwd {label} {str(dtype)[6:]}",
+                                  lambda: mamba_scan_bwd(*args, g, states),
+                                  10)
+            dev = {k: prof["kernels"].get(k, {}).get("ms")
+                   for k in ("scan_bwd_kernel", "scan_bwd_reduce_kernel")}
+            row = dict(shape=label, dtype=str(dtype)[6:], ms=min(k1, k2),
+                       plain_ms=min(p1, p2), autograd_ms=auto_ms,
+                       library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                       device_ms=dev)
+            rows.append(row)
+            print(f"[kernel] mamba_scan_bwd {label} {row['dtype']}: kernels "
+                  f"{row['ms']:.5f} ms per call (runs {k1:.5f}, {k2:.5f}; "
+                  f"device per launch {dev}), plain backward "
+                  f"{row['plain_ms']:.3f} ms, autograd through the plain scan "
+                  f"(forward re-run and backward) {auto_ms:.3f} ms, no "
+                  f"PyTorch call computes it, bound {bound_ms:.6f} ms "
+                  f"({bound_by})")
+    print(f"[kernel] mamba_scan_bwd largest error / largest gradient fp32 "
+          f"{worst_rel[torch.float32]:.3e} (bound 1e-5), bf16 "
+          f"{worst_rel[torch.bfloat16]:.3e} (bound 2^-7); max abs err fp32 "
+          f"{worst[torch.float32]:.3e}, bf16 {worst[torch.bfloat16]:.3e}")
+    return {"worst": worst, "worst_rel": worst_rel, "timing": rows}
+
+
 # --------------------------------- phase 4 ---------------------------------
 
 class Telemetry:
@@ -970,12 +1099,14 @@ def kernel_launches() -> dict:
     return dict(flash_attention=flash_attention.launches,
                 decode_attention=decode_attention.launches,
                 moe_router=moe_router.launches, lstm_cell=lstm_cell.launches,
-                mamba_scan=mamba_scan.launches)
+                mamba_scan=mamba_scan.launches,
+                mamba_scan_bwd=mamba_scan_bwd.launches)
 
 
 def reset_launches() -> None:
     flash_attention.launches = decode_attention.launches = 0
     moe_router.launches = lstm_cell.launches = mamba_scan.launches = 0
+    mamba_scan_bwd.launches = 0
 
 
 def lm_prompts(vocab: int) -> list[np.ndarray]:
@@ -1007,7 +1138,7 @@ def serve_engine(model: Model, params, prompts) -> dict:
     want = dict(flash_attention=cfg.n_layers * len(prompts),
                 decode_attention=LAUNCHES_PER_CALL * cfg.n_layers * decoded,
                 moe_router=n_moe * (len(prompts) + decoded), lstm_cell=0,
-                mamba_scan=0)
+                mamba_scan=0, mamba_scan_bwd=0)
     if len(done) != len(prompts) or launches != want:
         raise AssertionError(f"engine: {len(done)} requests done, launches "
                              f"{launches}, expected {want}")
@@ -1305,7 +1436,7 @@ def profile_decode(model, params, caches, tok, pos, reps: int = 8) -> dict:
 @contextlib.contextmanager
 def plain_scan():
     """The model's selective scan through the plain PyTorch version, on
-    the card, differentiated by autograd (the kernel's wrapper is not
+    the card, differentiated by autograd (neither kernel's wrapper is
     called)."""
     saved = backend.mamba_scan
     backend.mamba_scan = mamba_scan_ref
@@ -1401,11 +1532,15 @@ def ssm_gate() -> dict:
           f"scan from the same params {plain}, max rel {max(rel):.3e} "
           f"(bound 1e-5); step-1 gradients rel {grad_rel:.3e} (bound 1e-4; "
           f"worst leaf {worst_leaf:.3e}); mamba_scan "
-          f"{launches['mamba_scan']} launches = 2 x {cfg.n_layers} layers x "
+          f"{launches['mamba_scan']} and mamba_scan_bwd "
+          f"{launches['mamba_scan_bwd']} launches = 2 x {cfg.n_layers} "
+          f"layers x "
           f"{SSM_STEPS} steps; peak {peak:.2f} GiB. Not held: the plain "
           f"path's own steps {own}, rel {[f'{r:.3e}' for r in own_rel]}")
     want = {k: 0 for k in launches}
     want["mamba_scan"] = 2 * cfg.n_layers * SSM_STEPS
+    want["mamba_scan_bwd"] = (scan_ops.BWD_LAUNCHES_PER_CALL * cfg.n_layers
+                              * SSM_STEPS)
     if launches != want:
         raise AssertionError(f"kernel path launches {launches}, expected "
                              f"{want}")
@@ -1424,8 +1559,8 @@ def ssm_gate() -> dict:
 @contextlib.contextmanager
 def timed_scan_backward():
     """Yields a list that gets the host seconds of each call of the scan's
-    backward (the plain version re-run and differentiated), each call
-    between two synchronisations, inside whatever step runs meanwhile."""
+    backward (the backward kernels), each call between two
+    synchronisations, inside whatever step runs meanwhile."""
     fn = scan_ops._Scan
     saved = fn.backward
     times: list[float] = []
@@ -1474,8 +1609,12 @@ def ssm_timing() -> dict:
         times.append((time.perf_counter() - t0) * 1e3)
     launches = kernel_launches()
     want = 2 * cfg.n_layers * (1 + SSM_STEPS)
-    if launches["mamba_scan"] != want or sum(launches.values()) != want:
-        raise AssertionError(f"launches {launches}, expected {want} scans")
+    want_bwd = scan_ops.BWD_LAUNCHES_PER_CALL * cfg.n_layers * (1 + SSM_STEPS)
+    if (launches["mamba_scan"] != want
+            or launches["mamba_scan_bwd"] != want_bwd
+            or sum(launches.values()) != want + want_bwd):
+        raise AssertionError(f"launches {launches}, expected {want} scans "
+                             f"and {want_bwd} scan backward launches")
     if not (np.isfinite(losses).all() and max(losses) > min(losses)):
         raise AssertionError(f"bf16 losses {losses}")
     step_ms = float(np.median(times[1:]))
@@ -1528,12 +1667,13 @@ def ssm_timing() -> dict:
           f"median of {SSM_STEPS}; all {[round(t, 1) for t in times]}), "
           f"{out['tok_per_s']:.1f} tokens/s; split forward "
           f"{split['forward_ms']:.1f} / backward {split['backward_ms']:.1f} / "
-          f"optimizer {split['optimizer_ms']:.1f} ms; the plain scan backward "
+          f"optimizer {split['optimizer_ms']:.1f} ms; the scan backward "
           f"{bwd_ms:.1f} ms of it ({cfg.n_layers} calls, "
           f"{100 * out['scan_backward_share']:.1f}%); device busy "
           f"{prof['device_busy_ms']:.1f} ms per step (idle "
           f"{100 * out['idle_share']:.1f}%); losses {losses}; mamba_scan "
-          f"{launches['mamba_scan']} launches = 2 x {cfg.n_layers} x "
+          f"{launches['mamba_scan']} and mamba_scan_bwd "
+          f"{launches['mamba_scan_bwd']} launches = 2 x {cfg.n_layers} x "
           f"{1 + SSM_STEPS} steps; peak {peak:.2f} GiB")
     del params, state
     free_cuda()
@@ -1568,6 +1708,7 @@ def main() -> None:
         decode = check_decode()
         router = check_router()
         scan = check_scan()
+        scan_bwd = check_scan_bwd()
 
     n_hosts, max_tasks = PAPER["n_hosts"], PAPER["max_tasks"]
     with phase("decision slice"):
@@ -1664,6 +1805,22 @@ def main() -> None:
         bound_ms=head["bound_ms"], bound_by=head["bound_by"],
         library_ms=None, device_ms=head["device_ms"], shape=head["shape"],
         per_dtype=scan["timing"]))
+    # its backward: launches from the fp32 training gate (two per call),
+    # times at the timed run's shape in bf16; no PyTorch call computes the
+    # scan's gradient, so library_ms is null
+    head = [r for r in scan_bwd["timing"] if r["dtype"] == "bfloat16"
+            and r["shape"] == "B={} L={} D={} N={}".format(*SCAN_PATH[-1])][0]
+    kernels.append(dict(
+        name="mamba_scan_bwd", route="cuda", **SCAN_BWD,
+        launches=ssm_fp32["launches"]["mamba_scan_bwd"],
+        max_abs_err=scan_bwd["worst"][torch.float32],
+        max_abs_err_bf16=scan_bwd["worst"][torch.bfloat16],
+        max_rel_err=scan_bwd["worst_rel"][torch.float32],
+        ms=head["ms"], kernel_ms=head["ms"], plain_ms=head["plain_ms"],
+        autograd_ms=head["autograd_ms"], bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"], library_ms=None,
+        device_ms=head["device_ms"], shape=head["shape"],
+        per_dtype=scan_bwd["timing"]))
     print(json.dumps({"slice": slice_stats, "ms_per_interval": buckets}))
     print(json.dumps({"lm_fp32": {k: v for k, v in gate.items()
                                   if k != "flips"},

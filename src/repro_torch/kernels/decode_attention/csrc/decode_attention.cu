@@ -39,6 +39,7 @@
 namespace {
 
 constexpr int kKeys = 128;       // keys per block of the first launch
+constexpr int kMaxGridY = 65535;
 constexpr int kMaxGroup = 16;    // query heads per KV head
 constexpr float kNegInf = -1e30f;
 
@@ -97,7 +98,7 @@ __global__ void __launch_bounds__(kKeys)
 decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, float* __restrict__ part_o,
                       float* __restrict__ part_ml, int group, int seq,
-                      int kv_len, int n_splits, float sm_scale) {
+                      int kv_len, int n_splits, float sm_scale, int bk0) {
   constexpr int kParts = kKeys / D;   // key subsets of the P @ V threads
   constexpr int kPad = Tiles<T, D>::kPad;
   constexpr int kPerWord = 16 / sizeof(T);
@@ -109,7 +110,7 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __shared__ float ps[kMaxGroup * kKeys];
 
   const int split = blockIdx.x;
-  const int bk = blockIdx.y;          // b * Hkv + KV head
+  const int bk = bk0 + blockIdx.y;    // b * Hkv + KV head
   const int t = threadIdx.x;
   const int k0 = split * kKeys;
   const int n_keys = min(kKeys, kv_len - k0);
@@ -247,17 +248,23 @@ int launch_d(const void* q, const void* k, const void* v, void* o,
              float* part_o, float* part_ml, int batch, int n_kv, int group,
              int seq, int kv_len, float sm_scale, void* stream) {
   const int n_splits = (kv_len + kKeys - 1) / kKeys;
-  const dim3 grid((unsigned)n_splits, (unsigned)(batch * n_kv));
   const size_t smem = Tiles<T, D>::kBytes;     // above 48 KB: opt in
   int rc = (int)cudaFuncSetAttribute(
       decode_partial_kernel<T, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (rc != 0) return rc;
-  decode_partial_kernel<T, D><<<grid, kKeys, smem, (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, part_o, part_ml, group, seq,
-      kv_len, n_splits, sm_scale);
-  rc = (int)cudaGetLastError();
-  if (rc != 0) return rc;
+  // b * Hkv on grid y, in slices of at most 65535, a launch each
+  const int rows = batch * n_kv;
+  for (int bk0 = 0; bk0 < rows; bk0 += kMaxGridY) {
+    const dim3 grid((unsigned)n_splits,
+                    (unsigned)min(kMaxGridY, rows - bk0));
+    decode_partial_kernel<T, D><<<grid, kKeys, smem,
+                                  (cudaStream_t)stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, part_o, part_ml, group, seq,
+        kv_len, n_splits, sm_scale, bk0);
+    rc = (int)cudaGetLastError();
+    if (rc != 0) return rc;
+  }
   decode_combine_kernel<T><<<batch * n_kv * group, D, 0,
                              (cudaStream_t)stream>>>(
       part_o, part_ml, (T*)o, group, n_splits, D);
@@ -290,8 +297,9 @@ int launch(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// Each launches the two kernels and returns cudaGetLastError() after the
-// second (0 = both launched).  part_o holds B * Hkv * n_splits * G * D and
+// Each launches the partials (once per 65535 of batch * n_kv, 1 at the
+// path's shapes) and their combine, and returns cudaGetLastError() after
+// the last (0 = all launched).  part_o holds B * Hkv * n_splits * G * D and
 // part_ml B * Hkv * n_splits * G * 2 floats, n_splits = ceil(kv_len / 128).
 // The caller guarantees 0 < kv_len <= seq, 1 <= group <= 16, head_dim in
 // {16, 32, 64, 128}, contiguous 16-byte-aligned tensors of one dtype.

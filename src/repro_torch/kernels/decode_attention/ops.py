@@ -21,8 +21,8 @@ _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
 HEAD_DIMS = (16, 32, 64, 128)     # the kernel's instantiations
 MAX_GROUP = 16                    # query heads per KV head
 KEYS_PER_SPLIT = 128              # keys per block of the first launch
-LAUNCHES_PER_CALL = 2             # partials + combine
-_MAX_GRID_Y = 65535               # batch * KV heads is the grid's y
+LAUNCHES_PER_CALL = 2             # partials + combine, B * Hkv <= 65535
+_MAX_GRID_Y = 65535               # a partials launch per 65535 of B * Hkv
 
 
 def _launcher(dtype: torch.dtype):
@@ -61,7 +61,8 @@ def decode_attention(q, k, v, kv_len: int | None = None,
     """One token against a cache: q (B, H, D); k, v (B, Hkv, S, D); keys
     at positions >= ``kv_len`` (a host int, default S) are masked.
     Returns (B, H, D) in q's dtype.  ``decode_attention.launches`` counts
-    kernel launches, two per CUDA call (CPU calls do not count)."""
+    kernel launches, two per CUDA call up to B * Hkv = 65535 and one more
+    per further 65535 (CPU calls do not count)."""
     kv_len = k.shape[2] if kv_len is None else kv_len
     _check(q, k, v, kv_len)
     if q.device.type == "cpu":
@@ -86,9 +87,6 @@ def decode_attention(q, k, v, kv_len: int | None = None,
     out = torch.empty_like(q)
     if b == 0:
         return out
-    if b * hkv > _MAX_GRID_Y:
-        raise ValueError(f"decode_attention kernel: B*Hkv = {b * hkv} "
-                         f"exceeds its grid ({_MAX_GRID_Y})")
     n_splits = -(-kv_len // KEYS_PER_SPLIT)
     part_o = torch.empty(b * hkv * n_splits * group * d, device=q.device,
                          dtype=torch.float32)
@@ -102,7 +100,7 @@ def decode_attention(q, k, v, kv_len: int | None = None,
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {rc}")
-    decode_attention.launches += LAUNCHES_PER_CALL
+    decode_attention.launches += -(-(b * hkv) // _MAX_GRID_Y) + 1
     return out
 
 

@@ -51,7 +51,8 @@
 // IEEE fp32, and the tensor cores take fp32 only as TF32 (10-bit
 // mantissa).  fp32 FMAs, no tensor cores:
 //
-//   * one block per (b, h, 64-query tile), 4 threads per query row; a
+//   * one block per (b, h, 64-query tile), b * H + h on grid y in slices
+//     of at most 65535 (a launch per slice), 4 threads per query row; a
 //     thread owns D/16 float4 chunks of the row (chunks interleaved across
 //     the 4 threads, so a warp's shared-memory reads hit 4 neighbouring
 //     16-byte words and broadcast across its 8 rows);
@@ -76,6 +77,7 @@ constexpr int kRowThreads = 4;                   // threads per query row
 constexpr int kThreads = kBlockQ * kRowThreads;  // 256
 constexpr int kBlockK = 32;                      // keys per staged tile
 constexpr float kNegInf = -1e30f;                // the Pallas kernel's
+constexpr int kMaxGridY = 65535;
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -90,13 +92,13 @@ flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
                        int n_heads, int group, int sq, int sk,
-                       float sm_scale, int causal) {
+                       float sm_scale, int causal, int bh0) {
   constexpr int kChunks = D / (4 * kRowThreads);  // a thread's float4s
   __shared__ __align__(16) float ks[kBlockK * D];
   __shared__ __align__(16) float vs[kBlockK * D];
 
   const int q0 = blockIdx.x * kBlockQ;
-  const int bh = blockIdx.y;                      // b * n_heads + h
+  const int bh = bh0 + blockIdx.y;                // b * n_heads + h
   const int b = bh / n_heads;
   const int h = bh - b * n_heads;
   const size_t kv_base =
@@ -207,12 +209,17 @@ template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
                int batch, int n_heads, int group, int sq, int sk,
                float sm_scale, int causal, void* stream) {
-  const dim3 grid((unsigned)((sq + kBlockQ - 1) / kBlockQ),
-                  (unsigned)(batch * n_heads));
-  flash_attention_kernel<D><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, n_heads,
-      group, sq, sk, sm_scale, causal);
-  return (int)cudaGetLastError();
+  const int rows = batch * n_heads;
+  for (int bh0 = 0; bh0 < rows; bh0 += kMaxGridY) {
+    const dim3 grid((unsigned)((sq + kBlockQ - 1) / kBlockQ),
+                    (unsigned)min(kMaxGridY, rows - bh0));
+    flash_attention_kernel<D><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)q, (const float*)k, (const float*)v, (float*)o,
+        n_heads, group, sq, sk, sm_scale, causal, bh0);
+    const int rc = (int)cudaGetLastError();
+    if (rc != 0) return rc;
+  }
+  return 0;
 }
 
 // ---------------------- bf16: tensor cores (wgmma) ----------------------
@@ -713,8 +720,9 @@ Launcher launcher(int head_dim, bool bf16) {
 // cudaErrorNotSupported when the driver has no cuTensorMapEncodeTiled and
 // on cudaErrorInvalidValue when a TMA map cannot be encoded.  The
 // caller guarantees sq, sk > 0, head_dim in {16, 32, 64, 128}, n_heads a
-// multiple of group, batch * n_heads < 65536, contiguous 16-byte-aligned
-// tensors of one dtype.
+// multiple of group, contiguous 16-byte-aligned tensors of one dtype.  The
+// fp32 one launches once per 65535 of batch * n_heads; the bf16 one once,
+// its launch failing past 65535 tiles of 128 queries (its grid y).
 extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, void* o, int batch,
                                    int n_heads, int group, int sq, int sk,

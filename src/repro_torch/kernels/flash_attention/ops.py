@@ -22,7 +22,8 @@ _SYMBOLS = {torch.float32: "flash_attention_f32",
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 HEAD_DIMS = (16, 32, 64, 128)     # the kernel's instantiations
-_MAX_GRID_Y = 65535               # the fp32 kernel's grid y is batch * heads
+_MAX_GRID_Y = 65535               # fp32: a launch per 65535 of B * H;
+                                  # bf16: its query tiles (of 128) on y
 
 
 def _launcher(dtype: torch.dtype):
@@ -84,9 +85,9 @@ def flash_attention(q, k, v, causal: bool = True,
         return out
     if sk == 0:
         raise ValueError("flash_attention needs at least one key")
-    if b * h > _MAX_GRID_Y:
-        raise ValueError(f"flash_attention kernel: B*H = {b * h} exceeds "
-                         f"its grid ({_MAX_GRID_Y})")
+    if q.dtype == torch.bfloat16 and -(-sq // 128) > _MAX_GRID_Y:
+        raise ValueError(f"flash_attention kernel: Sq = {sq} exceeds its "
+                         f"grid")
     scale = sm_scale if sm_scale is not None else d ** -0.5
     rc = _launcher(q.dtype)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
@@ -95,7 +96,8 @@ def flash_attention(q, k, v, causal: bool = True,
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc}")
-    flash_attention.launches += 1
+    flash_attention.launches += (1 if q.dtype == torch.bfloat16
+                                 else -(-(b * h) // _MAX_GRID_Y))
     return out
 
 

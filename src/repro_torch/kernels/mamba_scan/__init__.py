@@ -1,4 +1,7 @@
-from repro_torch.kernels.mamba_scan.ops import mamba_scan
-from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
+from repro_torch.kernels.mamba_scan.ops import mamba_scan, mamba_scan_bwd
+from repro_torch.kernels.mamba_scan.ref import (CHUNK, mamba_scan_bwd_ref,
+                                                mamba_scan_ref,
+                                                scan_states_ref)
 
-__all__ = ["mamba_scan", "mamba_scan_ref"]
+__all__ = ["CHUNK", "mamba_scan", "mamba_scan_bwd", "mamba_scan_bwd_ref",
+           "mamba_scan_ref", "scan_states_ref"]

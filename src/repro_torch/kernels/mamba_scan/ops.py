@@ -1,13 +1,15 @@
-"""Wrapper of the Mamba-1 selective-scan kernel (``csrc/mamba_scan.cu``),
-with its gradient.
+"""Wrappers of the Mamba-1 selective-scan kernels (``csrc/mamba_scan.cu``),
+forward and backward, joined by a ``torch.autograd.Function``.
 
-On CUDA tensors the forward launches the kernel on the current stream,
-or raises; on CPU tensors it runs the plain version
-(:func:`mamba_scan_ref`).  It takes any L and D and never pads: the
-kernel masks the ragged edges.  The gradient is the JAX package's
-(``kernels/mamba_scan/ops.py``'s custom VJP): the backward re-runs the
-plain version on the saved inputs and differentiates it, so there is no
-backward kernel.  That backward is a Python loop over L steps.
+On CUDA tensors each launches its kernel on the current stream, or
+raises; on CPU tensors the forward runs :func:`mamba_scan_ref` and the
+backward :func:`mamba_scan_bwd_ref`.  They take any L and D and never
+pad: the kernels mask the ragged edges.  When a backward will follow,
+the forward kernel also keeps the state entering every chunk of
+``CHUNK`` steps, from which the backward kernel steps each chunk again
+before sweeping it in reverse.  The gradients are the JAX package's
+(``jax.vjp`` of the reference in its custom VJP); there the reference is
+differentiated, here both directions are kernels.
 """
 from __future__ import annotations
 
@@ -16,21 +18,26 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
+from repro_torch.kernels.mamba_scan.ref import (CHUNK, mamba_scan_bwd_ref,
+                                                mamba_scan_ref)
 
 _SYMBOLS = {torch.float32: "mamba_scan_f32",
             torch.bfloat16: "mamba_scan_bf16"}
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-MAX_STATE = 32                # the kernel keeps N fp32 states in registers
-_MAX_BATCH = 65535            # gridDim.y
+_BWD_SYMBOLS = {torch.float32: "mamba_scan_bwd_f32",
+                torch.bfloat16: "mamba_scan_bwd_bf16"}
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 4
+                 + [ctypes.c_void_p])
+MAX_STATE = 32                # the kernels keep N fp32 states in registers
+BWD_LAUNCHES_PER_CALL = 2     # the sweep, then the sum of its partials
 _MAX_INT = 2**31 - 1
 
 
-def _launcher(dtype: torch.dtype):
-    fn = getattr(_build.library("mamba_scan"), _SYMBOLS[dtype])
+def _function(symbol: str, argtypes, restype=ctypes.c_int):
+    fn = getattr(_build.library("mamba_scan"), symbol)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        fn.restype = restype
     return fn
 
 
@@ -54,7 +61,7 @@ def _check(u, delta, a, b, c, skip) -> None:
 
 
 def _check_kernel(u, delta, a, b, c, skip) -> None:
-    """What the CUDA kernel takes beyond what the plain version does."""
+    """What the CUDA kernels take beyond what the plain versions do."""
     if u.get_device() != torch.cuda.current_device():
         raise ValueError("mamba_scan inputs must lie on the current device")
     io = (u, delta, b, c)
@@ -67,70 +74,116 @@ def _check_kernel(u, delta, a, b, c, skip) -> None:
                         f"got {a.dtype} and {skip.dtype}")
     if not all(t.is_contiguous() for t in (u, delta, a, b, c, skip)):
         raise ValueError("mamba_scan inputs must be contiguous")
-    bsz, ell, d = u.shape
     n = a.shape[1]
     if not 0 < n <= MAX_STATE:
         raise ValueError(f"mamba_scan kernel: state size N = {n} is outside "
                          f"1..{MAX_STATE}")
-    if bsz > _MAX_BATCH or u.numel() > _MAX_INT or b.numel() > _MAX_INT:
+    # the kernels index with 32-bit ints and launch one block per 16 or
+    # more channels of a batch row
+    if u.numel() > _MAX_INT or b.numel() > _MAX_INT \
+            or u.shape[0] * -(-u.shape[2] // 16) > _MAX_INT:
         raise ValueError(f"mamba_scan kernel: shape {tuple(u.shape)} "
                          f"exceeds its grid")
 
 
-def _launch(u, delta, a, b, c, skip):
-    y = torch.empty_like(u)
-    if y.numel() == 0:
-        return y
+def _launch(u, delta, a, b, c, skip, keep_states: bool):
+    """y, and the states entering each chunk (or None)."""
     bsz, ell, d = u.shape
-    rc = _launcher(u.dtype)(
+    n = a.shape[1]
+    y = torch.empty_like(u)
+    states = (torch.empty(bsz, -(-ell // CHUNK), d, n, device=u.device,
+                          dtype=torch.float32) if keep_states else None)
+    if y.numel() == 0:
+        return y, states
+    rc = _function(_SYMBOLS[u.dtype], _ARGTYPES)(
         u.data_ptr(), delta.data_ptr(), a.data_ptr(), b.data_ptr(),
-        c.data_ptr(), skip.data_ptr(), y.data_ptr(), bsz, ell, d,
-        a.shape[1], torch.cuda.current_stream().cuda_stream)
+        c.data_ptr(), skip.data_ptr(), y.data_ptr(),
+        None if states is None else states.data_ptr(), bsz, ell, d, n,
+        torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"mamba_scan kernel launch failed: CUDA error "
                            f"{rc}")
     mamba_scan.launches += 1
-    return y
+    return y, states
+
+
+def mamba_scan_bwd(u, delta, a, b, c, skip, g, states):
+    """The backward kernels on CUDA tensors: the six gradients of
+    :func:`mamba_scan` for the output gradient g (B, L, D, u's dtype,
+    contiguous), each in its input's dtype, from the inputs and the
+    ``states`` their forward kept.  ``mamba_scan_bwd.launches`` counts
+    kernel launches, two per call."""
+    bsz, ell, d = u.shape
+    n = a.shape[1]
+    if g.shape != u.shape or g.dtype != u.dtype or not g.is_contiguous() \
+            or g.device != u.device:
+        raise ValueError(f"mamba_scan_bwd: g {tuple(g.shape)} {g.dtype} "
+                         f"must be a contiguous {tuple(u.shape)} {u.dtype} "
+                         f"on {u.device}")
+    want = (bsz, -(-ell // CHUNK), d, n)
+    if states is None or tuple(states.shape) != want \
+            or states.dtype != torch.float32 or not states.is_contiguous() \
+            or states.device != u.device:
+        raise ValueError(f"mamba_scan_bwd needs the forward's states "
+                         f"{want} float32")
+    grads = tuple(torch.empty_like(t) for t in (u, delta, a, b, c, skip))
+    if u.numel() == 0:
+        return tuple(t.zero_() for t in grads)
+    ws = _function("mamba_scan_bwd_workspace", [ctypes.c_int] * 4,
+                   ctypes.c_longlong)(bsz, ell, d, n)
+    work = torch.empty(ws, device=u.device, dtype=torch.float32)
+    du, ddelta, da, db, dc, dskip = grads
+    rc = _function(_BWD_SYMBOLS[u.dtype], _BWD_ARGTYPES)(
+        *(t.data_ptr() for t in (u, delta, a, b, c, skip, g, states, du,
+                                 ddelta, da, db, dc, dskip, work)),
+        bsz, ell, d, n, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"mamba_scan backward kernel launch failed: CUDA "
+                           f"error {rc}")
+    mamba_scan_bwd.launches += BWD_LAUNCHES_PER_CALL
+    return grads
 
 
 class _Scan(torch.autograd.Function):
-    """Forward: the kernel (CUDA) or the plain version (CPU), saving the
-    six inputs.  Backward: the plain version re-run on them under
-    autograd, as the JAX package's ``_bwd``; the gradients come in the
-    inputs' dtypes."""
+    """Forward: the kernel (CUDA), keeping the chunk states when asked,
+    or the plain version (CPU).  Backward: the backward kernel (CUDA) or
+    its plain version (CPU), the gradients in the inputs' dtypes."""
 
     @staticmethod
-    def forward(ctx, u, delta, a, b, c, skip):
-        ctx.save_for_backward(u, delta, a, b, c, skip)
+    def forward(ctx, u, delta, a, b, c, skip, keep_states):
         if u.device.type == "cpu":
-            return mamba_scan_ref(u, delta, a, b, c, skip)
-        return _launch(u, delta, a, b, c, skip)
+            y, states = mamba_scan_ref(u, delta, a, b, c, skip), None
+        else:
+            y, states = _launch(u, delta, a, b, c, skip, keep_states)
+        ctx.save_for_backward(u, delta, a, b, c, skip, states)
+        return y
 
     @staticmethod
     def backward(ctx, g):
-        need = ctx.needs_input_grad
-        with torch.enable_grad():
-            xs = [t.detach().requires_grad_(w)
-                  for t, w in zip(ctx.saved_tensors, need)]
-            y = mamba_scan_ref(*xs)
-            wrt = [x for x in xs if x.requires_grad]
-            got = iter(torch.autograd.grad(y, wrt, g, allow_unused=True,
-                                           materialize_grads=True))
-        return tuple(next(got) if w else None for w in need)
+        *xs, states = ctx.saved_tensors
+        if g.device.type == "cpu":
+            grads = mamba_scan_bwd_ref(*xs, g, states)
+        else:
+            grads = mamba_scan_bwd(*xs, g.contiguous(), states)
+        return tuple(gr if w else None
+                     for gr, w in zip(grads, ctx.needs_input_grad)) + (None,)
 
 
 def mamba_scan(u, delta, a, b, c, skip):
     """u, delta: (B, L, D); a: (D, N); b, c: (B, L, N); skip: (D,) ->
     y (B, L, D) in u's dtype, with the fp32 recurrence of
     :func:`mamba_scan_ref`.  Differentiable in all six inputs.
-    ``mamba_scan.launches`` counts kernel launches (CPU calls and the
-    backward's plain re-run do not count)."""
+    ``mamba_scan.launches`` counts forward kernel launches and
+    ``mamba_scan_bwd.launches`` backward ones (CPU calls do not count)."""
     _check(u, delta, a, b, c, skip)
     if u.device.type == "cuda":
         _check_kernel(u, delta, a, b, c, skip)
     elif u.device.type != "cpu":
         raise ValueError(f"mamba_scan has no kernel for {u.device}")
-    return _Scan.apply(u, delta, a, b, c, skip)
+    keep = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (u, delta, a, b, c, skip))
+    return _Scan.apply(u, delta, a, b, c, skip, keep)
 
 
 mamba_scan.launches = 0
+mamba_scan_bwd.launches = 0

@@ -26,8 +26,8 @@ def decode_attention(q, k, v, *, kv_len: int):
 
 def mamba_scan(u, delta, a, b, c, skip):
     """u, delta (B, L, D); a (D, N) fp32; b, c (B, L, N); skip (D,) fp32
-    -> y (B, L, D), differentiable (the backward runs the plain
-    version)."""
+    -> y (B, L, D), differentiable (on the card the backward is a
+    kernel too)."""
     return _scan_kernel(u, delta, a, b, c, skip)
 
 

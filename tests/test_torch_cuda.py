@@ -21,7 +21,10 @@ from repro_torch.kernels.decode_attention import (decode_attention,
 from repro_torch.kernels.flash_attention import (attention_ref,
                                                  flash_attention)
 from repro_torch.kernels.lstm_cell import lstm_cell, lstm_cell_ref
-from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_ref
+from repro_torch.kernels.mamba_scan import (mamba_scan, mamba_scan_bwd,
+                                            mamba_scan_bwd_ref,
+                                            mamba_scan_ref, scan_states_ref)
+from repro_torch.kernels.mamba_scan import ops as scan_ops
 from repro_torch.kernels.moe_router import moe_router, moe_router_ref
 from repro_torch.models.lm import Model
 from repro_torch.serve.engine import Engine, EngineConfig, Request
@@ -105,6 +108,24 @@ def test_flash_attention_kernel_matches_plain_version(cuda, b, h, hkv, s, d,
                                rtol=atol, atol=atol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_takes_batch_heads_past_the_grid_limit(
+        cuda, dtype):
+    """B * H = 65600 > 65535: the fp32 kernel launches once per 65535
+    rows of B * H on grid y, the bf16 one has B * H on x."""
+    q, k, v = _qkv([(4100, 16, 20, 16), (4100, 4, 20, 16),
+                    (4100, 4, 20, 16)], dtype, 5, cuda)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + (
+        2 if dtype == torch.float32 else 1)
+    atol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(),
+                               attention_ref(q, k, v, causal=True).float(),
+                               rtol=atol, atol=atol)
+
+
 @pytest.mark.parametrize("sq,sk", [(100, 300), (300, 100), (1, 129)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
@@ -140,6 +161,23 @@ def test_decode_attention_kernel_matches_plain_version(cuda, b, h, hkv, s,
     assert decode_attention.launches == before + 2
     torch.testing.assert_close(got.float(), want.float(), rtol=atol,
                                atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_takes_batch_heads_past_the_grid_limit(
+        cuda, dtype):
+    """B * Hkv = 66000 > 65535: two partials launches (one per 65535 rows
+    on grid y), then the combine."""
+    q, k, v = _qkv([(33000, 4, 16), (33000, 2, 40, 16), (33000, 2, 40, 16)],
+                   dtype, 6, cuda)
+    before = decode_attention.launches
+    got = decode_attention(q, k, v, kv_len=33)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 3
+    atol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(
+        got.float(), decode_attention_ref(q, k, v, kv_len=33).float(),
+        rtol=atol, atol=atol)
 
 
 @pytest.mark.parametrize("t,e,k", [(256, 8, 2), (512, 128, 8),
@@ -243,8 +281,9 @@ SCAN_SHAPES = [(1, 64, 128, 16), (2, 128, 64, 16), (1, 96, 256, 8),
                                              (torch.bfloat16, 1e-2, 1e-3)])
 def test_mamba_scan_kernel_matches_plain_version(cuda, b, l, d, n, dtype,
                                                  rtol, atol):
-    """The states agree bit for bit; y's N-sum runs in another order, an
-    fp32 ulp of |y|, which moves bf16 y by at most one bf16 ulp."""
+    """fp32: the states agree bit for bit and y's N-sum runs in another
+    order, an fp32 ulp of |y|.  bf16: ex2.approx moves the fp32 states by
+    ~1e-6 of themselves, and y rounds to at most one bf16 ulp away."""
     args = _scan_inputs(b, l, d, n, dtype, cuda, seed=b * l + d)
     before = mamba_scan.launches
     got = mamba_scan(*args)
@@ -255,24 +294,104 @@ def test_mamba_scan_kernel_matches_plain_version(cuda, b, l, d, n, dtype,
                                rtol=rtol, atol=atol)
 
 
+# Gradients of the backward kernel against a plain version, per input,
+# relative to the plain version's norm and to its largest element.  fp32:
+# 1e-5 of both (observed <= 1e-6: the states agree bit for bit, the sums
+# over d, n, t and b run in another order).  bf16: du, ddelta, dB and dC
+# are rounded to bf16 from fp32 sums that differ in order, and the states
+# come from ex2.approx, so an element can land one bf16 ulp (2^-8 of
+# itself) from the plain version's: 2^-7 of the largest element, and 1e-3
+# in norm (observed <= 1.7e-3 and 5e-5).
+GRAD_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-3, 2**-7)}
+
+
+def _assert_grads_close(got, want, dtype):
+    rel, max_rel = GRAD_TOL[dtype]
+    for name, g, w in zip(("u", "delta", "a", "b", "c", "skip"), got, want):
+        g, w = g.double(), w.double()
+        assert (g - w).norm() <= rel * w.norm(), name
+        assert (g - w).abs().max() <= max_rel * w.abs().max(), name
+
+
 @pytest.mark.parametrize("b,l,d,n", [(1, 32, 64, 8), (2, 77, 200, 16)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_mamba_scan_gradients_through_the_kernel(cuda, b, l, d, n, dtype):
-    """The Function's backward differentiates the plain version on the
-    saved inputs: the gradients equal autograd through the plain version,
-    in the inputs' dtypes."""
+    """Through the Function: the forward kernel (keeping its chunk
+    states) once and the backward kernels once (two launches); the
+    gradients, in the inputs' dtypes, match autograd through the plain
+    version."""
     args = _scan_inputs(b, l, d, n, dtype, cuda, seed=l)
     g = torch.randn(b, l, d, generator=torch.Generator().manual_seed(1)
                     ).to(cuda, dtype)
     xs = [t.clone().requires_grad_() for t in args]
     ref = [t.clone().requires_grad_() for t in args]
-    before = mamba_scan.launches
+    before = mamba_scan.launches, mamba_scan_bwd.launches
     got = torch.autograd.grad(mamba_scan(*xs), xs, g)
-    assert mamba_scan.launches == before + 1
+    torch.cuda.synchronize()
+    assert (mamba_scan.launches, mamba_scan_bwd.launches) == (
+        before[0] + 1, before[1] + scan_ops.BWD_LAUNCHES_PER_CALL)
     want = torch.autograd.grad(mamba_scan_ref(*ref), ref, g)
-    for gt, w, x in zip(got, want, args):
-        assert gt.dtype == x.dtype
-        torch.testing.assert_close(gt, w, rtol=1e-6, atol=1e-6)
+    assert [t.dtype for t in got] == [t.dtype for t in args]
+    _assert_grads_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("b,l,d,n", SCAN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_scan_backward_kernel_matches_plain_versions(cuda, b, l, d, n,
+                                                           dtype):
+    """The chunk states the forward kernel keeps against
+    ``scan_states_ref`` (fp32 bit for bit; bf16 within 1e-4, the drift of
+    ex2.approx), then the backward kernel from them against the plain
+    backward from the same states and against autograd through the plain
+    scan."""
+    args = _scan_inputs(b, l, d, n, dtype, cuda, seed=b + l + d)
+    g = torch.randn(b, l, d, generator=torch.Generator().manual_seed(2)
+                    ).to(cuda, dtype)
+    _, states = scan_ops._launch(*args, keep_states=True)
+    want_states = scan_states_ref(*args[:4])
+    if dtype == torch.float32:
+        assert torch.equal(states, want_states)
+    else:
+        torch.testing.assert_close(states, want_states, rtol=1e-4,
+                                   atol=1e-4)
+    got = mamba_scan_bwd(*args, g, states)
+    torch.cuda.synchronize()
+    _assert_grads_close(got, mamba_scan_bwd_ref(*args, g, states), dtype)
+    xs = [t.clone().requires_grad_() for t in args]
+    _assert_grads_close(
+        got, torch.autograd.grad(mamba_scan_ref(*xs), xs, g), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_scan_takes_batches_past_the_grid_limit(cuda, dtype):
+    """B = 70000 > 65535: the grids are flat over (batch row, channel
+    block)."""
+    args = _scan_inputs(70000, 3, 5, 4, dtype, cuda, seed=3)
+    g = torch.randn(70000, 3, 5, generator=torch.Generator().manual_seed(3)
+                    ).to(cuda, dtype)
+    y, states = scan_ops._launch(*args, keep_states=True)
+    tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
+           else dict(rtol=1e-2, atol=1e-3))
+    torch.testing.assert_close(y.float(), mamba_scan_ref(*args).float(),
+                               **tol)
+    _assert_grads_close(mamba_scan_bwd(*args, g, states),
+                        mamba_scan_bwd_ref(*args, g, states), dtype)
+
+
+def test_mamba_scan_backward_on_the_card_never_runs_the_plain_scan(
+        cuda, monkeypatch):
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain scan ran on the card")
+
+    for name in ("mamba_scan_ref", "mamba_scan_bwd_ref"):
+        monkeypatch.setattr(scan_ops, name, plain)
+    args = _scan_inputs(2, 40, 64, 16, torch.float32, cuda, seed=4)
+    xs = [t.requires_grad_() for t in args]
+    before = mamba_scan_bwd.launches
+    grads = torch.autograd.grad(mamba_scan(*xs).sum(), xs)
+    torch.cuda.synchronize()
+    assert mamba_scan_bwd.launches == before + scan_ops.BWD_LAUNCHES_PER_CALL
+    assert all(torch.isfinite(t).all() for t in grads)
 
 
 def test_mamba_scan_wrapper_refuses_what_the_kernel_does_not_take(cuda):
@@ -297,8 +416,9 @@ def test_mamba_scan_wrapper_refuses_what_the_kernel_does_not_take(cuda):
 
 def test_reduced_ssm_training_on_the_card_matches_the_cpu(cuda):
     """Three AdamW steps of the reduced falcon-mamba in fp32 on the card
-    and on the CPU from the same params: each layer's scan launches twice
-    per step (forward, and its recompute in the backward)."""
+    and on the CPU from the same params: each layer's forward scan
+    launches twice per step (forward, and its recompute in the backward)
+    and its backward kernels once (two launches)."""
     cfg = dataclasses.replace(get_reduced("falcon-mamba-7b"),
                               param_dtype="float32")
     params = Model(cfg).init(0, "cpu")
@@ -311,12 +431,14 @@ def test_reduced_ssm_training_on_the_card_matches_the_cpu(cuda):
         data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=24,
                                       global_batch=2), device=dev)
         step = tr.compile_step()
-        before = mamba_scan.launches
+        before = mamba_scan.launches, mamba_scan_bwd.launches
         out = []
         for i in range(3):
             p, state, m = step(p, state, data.batch(i))
             out.append(float(m["loss"]))
-        launches.append(mamba_scan.launches - before)
+        launches.append((mamba_scan.launches - before[0],
+                         mamba_scan_bwd.launches - before[1]))
         losses.append(out)
-    assert launches == [0, 2 * cfg.n_layers * 3]
+    per_step = 2 * cfg.n_layers * 3
+    assert launches == [(0, 0), (per_step, per_step)]
     np.testing.assert_allclose(losses[1], losses[0], rtol=1e-5)

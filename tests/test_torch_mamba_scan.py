@@ -1,5 +1,5 @@
-"""The port's selective scan on the CPU (its plain version, reached
-through the kernel's wrapper and its ``torch.autograd.Function``)
+"""The port's selective scan on the CPU (its plain versions, reached
+through the kernels' wrapper and its ``torch.autograd.Function``)
 against the JAX package's ``mamba_scan_ref``, on the same numpy-seeded
 inputs.
 
@@ -7,11 +7,16 @@ The JAX Pallas kernel cannot run on this jax (its ``pl.load`` is gone),
 so the oracle is its reference, as ROADMAP.md Queue 3 says.  Forward:
 ``MAMBA_SWEEP`` of ``tests/test_kernels.py`` plus ragged shapes, fp32
 within the sweep's 1e-4 (observed <= 1e-6: only exp and the order of the
-N-sum differ) and bf16 within its 5e-2.  Gradients of all six inputs
-through the Function (whose backward differentiates the plain version,
-as the JAX custom VJP does) against ``jax.vjp`` of the reference, fp32,
-relative 1e-4 in norm.  The kernel itself is held against the plain
-version on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+N-sum differ) and bf16 within its 5e-2.  Backward: the plain version of
+the backward kernel (``mamba_scan_bwd_ref``: chunk states, each chunk
+stepped again, then swept in reverse) against ``jax.vjp`` of the
+reference at the same shapes and at chunk lengths that do and do not
+divide L, fp32 relative 1e-5 in norm (observed <= 3e-7: the sums run in
+another order) and bf16 within the sweep's 5e-2; and against autograd of
+the port's plain scan.  Gradients of all six inputs through the Function
+against ``jax.vjp``, fp32, relative 1e-4 in norm.  The kernels
+themselves are held against the plain versions on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
 import jax
 import jax.numpy as jnp
@@ -20,7 +25,9 @@ import pytest
 import torch
 
 from repro.kernels.mamba_scan.ref import mamba_scan_ref as jax_ref
-from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_ref
+from repro_torch.kernels.mamba_scan import (CHUNK, mamba_scan,
+                                            mamba_scan_bwd_ref,
+                                            mamba_scan_ref, scan_states_ref)
 
 # (b, l, d, n): tests/test_kernels.py MAMBA_SWEEP, then ragged shapes
 MAMBA_SWEEP = [(1, 64, 128, 16), (2, 128, 64, 16), (1, 96, 256, 8)]
@@ -91,6 +98,78 @@ def test_plain_scan_takes_an_initial_state():
     want = _np(jax_ref(*jx, h0=jnp.asarray(h0)))
     np.testing.assert_allclose(_np(mamba_scan_ref(*tx, h0=torch.tensor(h0))),
                                want, **TOL["float32"])
+
+
+def test_chunk_states_restart_the_plain_scan():
+    """Each kept state, as h0 of the plain scan over the rest of the
+    sequence, gives the same y bit for bit."""
+    _, tx = _both(_inputs(2, 45, 24, 6, seed=9), "float32")
+    u, delta, a, b, c, skip = tx
+    states = scan_states_ref(u, delta, a, b, chunk=10)
+    assert states.shape == (2, 5, 24, 6) and not states[:, 0].any()
+    y = mamba_scan_ref(*tx)
+    for k in range(1, 5):
+        t0 = 10 * k
+        rest = mamba_scan_ref(u[:, t0:], delta[:, t0:], a, b[:, t0:],
+                              c[:, t0:], skip, h0=states[:, k])
+        assert torch.equal(rest, y[:, t0:])
+
+
+def _gradient_inputs(b, l, d, n, dtype, seed):
+    args = _inputs(b, l, d, n, seed=seed)
+    g = np.random.default_rng(seed + 1).standard_normal((b, l, d)).astype(
+        np.float32)
+    jx, tx = _both(args, dtype)
+    return jx, tx, jnp.asarray(g, dtype), torch.tensor(g).to(
+        getattr(torch, dtype))
+
+
+def _within_norm(got, want, rel, names=("u", "delta", "a", "b", "c",
+                                         "skip")):
+    for name, gt, w in zip(names, got, want):
+        gt, w = _np(gt).astype(np.float64), _np(w).astype(np.float64)
+        err = np.linalg.norm(gt - w)
+        assert err <= rel * np.linalg.norm(w), (name, err)
+
+
+@pytest.mark.parametrize("b,l,d,n", MAMBA_SWEEP + RAGGED)
+@pytest.mark.parametrize("chunk", [7, CHUNK])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_backward_matches_jax_vjp(b, l, d, n, chunk, dtype):
+    """All six gradients of the plain backward against ``jax.vjp`` of the
+    JAX reference, in the inputs' dtypes.  Chunks of 7 divide L = 77 and
+    not 64, 96 or 128; chunks of 32 the reverse."""
+    jx, tx, jg, tg = _gradient_inputs(b, l, d, n, dtype, seed=b * l + d)
+    _, vjp = jax.vjp(jax_ref, *jx)
+    want = vjp(jg)
+    got = mamba_scan_bwd_ref(*tx, tg, chunk=chunk)
+    assert [t.dtype for t in got] == [t.dtype for t in tx]
+    if dtype == "float32":
+        _within_norm(got, want, 1e-5)
+    else:
+        for gt, w in zip(got, want):
+            np.testing.assert_allclose(_np(gt), _np(w), **TOL[dtype])
+
+
+@pytest.mark.parametrize("b,l,d,n,chunk", [(2, 40, 24, 6, 8),
+                                           (1, 33, 16, 16, 32),
+                                           (3, 5, 8, 3, 2)])
+def test_plain_backward_matches_autograd_of_the_plain_scan(b, l, d, n,
+                                                           chunk):
+    _, tx, _, tg = _gradient_inputs(b, l, d, n, "float32", seed=l)
+    xs = [t.clone().requires_grad_() for t in tx]
+    want = torch.autograd.grad(mamba_scan_ref(*xs), xs, tg)
+    states = scan_states_ref(*tx[:4], chunk=chunk)
+    _within_norm(mamba_scan_bwd_ref(*tx, tg, states, chunk=chunk), want,
+                 1e-5)
+
+
+def test_function_backward_on_the_cpu_is_the_plain_backward():
+    _, tx, _, tg = _gradient_inputs(2, 40, 24, 6, "float32", seed=11)
+    xs = [t.clone().requires_grad_() for t in tx]
+    got = torch.autograd.grad(mamba_scan(*xs), xs, tg)
+    for gt, w in zip(got, mamba_scan_bwd_ref(*tx, tg)):
+        assert torch.equal(gt, w)
 
 
 @pytest.mark.parametrize("b,l,d,n", [(1, 32, 64, 8), (2, 17, 40, 16)])
