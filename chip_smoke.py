@@ -20,7 +20,12 @@ Phases:
    computes it; no PyTorch call computes the selective scan or its
    gradient); the scan's backward kernel also against autograd through
    the plain scan, and timed beside it; the attention rows also print
-   TFLOP/s and the share of the bound;
+   TFLOP/s and the share of the bound; decode attention and the router
+   also print their profiler device time per launch at the path's shapes,
+   beside the floor of a launch (``torch.cuda._sleep(0)``, a kernel that
+   spins 0 cycles); bf16 decode attention must also lie within half a
+   bf16 ulp of the fp32 plain version, which a control with P rounded to
+   one bf16 must fail;
 4. the decision slice: ``STARTController`` at the paper's width (400
    hosts x 11 features, 10 tasks per job, horizon 5), fed seeded
    telemetry, in both triggers, on the card and on the CPU from the same
@@ -32,7 +37,7 @@ Phases:
    ``Engine(n_slots=4, max_len=4096)`` serving 6 seeded requests
    (prompts of 12 to 3000 tokens, 16 new tokens each); every prefill
    launches ``flash_attention`` once per layer and every decoded token
-   ``decode_attention`` (two kernels) once per layer; the same token
+   ``decode_attention`` (one kernel) once per layer; the same token
    streams re-run under teacher forcing through the plain attention
    functions agree within 1e-4 on every step's logits, with equal greedy
    tokens except where the plain path's top-2 margin is under 1e-4;
@@ -100,6 +105,8 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, decode_attention_ref)
 from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
     LAUNCHES_PER_CALL)
+from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
+    BF16_EXCESS, bf16_rounding_excess)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_ref, flash_attention)
 from repro_torch.kernels.lstm_cell import (  # noqa: E402
@@ -164,10 +171,15 @@ FLASH_TIMED = {(2048, torch.bfloat16), (2048, torch.float32),
 # yi-6b's decode shapes against a 4096-long cache
 DECODE_SWEEP = [(1, 4, 4, 512, 64, 512), (2, 8, 2, 1024, 128, 700),
                 (1, 16, 2, 512, 128, 512), (1, 4, 1, 300, 64, 300)]
-DECODE_PATH = [(1, 32, 4, 4096, 128, n) for n in (1, 513, 4096)]
+DECODE_PATH = [(1, 32, 4, 4096, 128, n) for n in (1, 28, 513, 3016, 4096)]
+DECODE_PROFILED = (28, 513, 3016, 4096)   # device time per launch
 # fp32: max abs; bf16: the sweep's allclose tolerance
 ATTN_TOL = {torch.float32: dict(rtol=0.0, atol=2e-5),
             torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+# bf16 decode is held tighter as well: within half a bf16 ulp of the fp32
+# plain version on the same inputs, plus BF16_EXCESS (2^-16) of the
+# largest |output| (bf16_rounding_excess).  At every path shape past one
+# key a control with P rounded to one bf16 before P.V must fail it.
 BF16_FLOP_PER_S = 989e12     # dense tensor-core peak
 FLASH = dict(source="src/repro_torch/kernels/flash_attention/csrc/"
              "flash_attention.cu",
@@ -239,9 +251,8 @@ SSM_STEPS = 3
 SSM_OPT = dict(warmup_steps=5, total_steps=100)
 # the port's kernels by their names in a profiler trace
 OUR_KERNELS = ("flash_wgmma_kernel", "flash_attention_kernel",
-               "decode_partial_kernel", "decode_combine_kernel",
-               "router_kernel", "scan_kernel", "scan_bwd_kernel",
-               "scan_bwd_reduce_kernel")
+               "decode_kernel", "router_kernel", "scan_kernel",
+               "scan_bwd_kernel", "scan_bwd_reduce_kernel")
 
 
 # --------------------------------- phase 1 ---------------------------------
@@ -447,10 +458,69 @@ def check_flash() -> dict:
     return {"worst": worst, "timing": rows}
 
 
-def check_decode() -> dict:
+def _device_ops(fn, reps: int) -> dict[str, list]:
+    """Kernel (and copy) name -> [device ns, count] over ``reps`` calls of
+    ``fn`` under torch.profiler, from the raw kineto events (parsing them
+    into ``key_averages`` takes minutes for a training step's ~750 k
+    kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ops: dict[str, list] = {}
+    for e in prof.profiler.kineto_results.events():
+        if str(e.device_type()).endswith("CUDA") and e.duration_ns() > 0:
+            o = ops.setdefault(e.name(), [0, 0])
+            o[0] += e.duration_ns()
+            o[1] += 1
+    return ops
+
+
+def launch_us(fn, name: str, reps: int = 20) -> float:
+    """Mean profiler device time, in us, of one launch of the kernels
+    whose name holds ``name``, over ``reps`` warm calls of ``fn``.  A
+    window whose trace came back without them (the profiler drops a
+    window's device events now and then) is taken again, up to 3 times."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        hits = [v for k, v in _device_ops(fn, reps).items() if name in k]
+        count = sum(c for _, c in hits)
+        if count:
+            return sum(t for t, _ in hits) / count / 1e3
+    raise AssertionError(f"no launch of {name} in 3 profiles")
+
+
+def floor_us() -> float:
+    """The floor of a launch: ``torch.cuda._sleep(0)``, a one-thread
+    kernel that spins 0 cycles."""
+    us = launch_us(lambda: torch.cuda._sleep(0), "spin_kernel", reps=40)
+    print(f"[kernel] floor of a launch (torch.cuda._sleep(0)): {us:.3f} us "
+          f"device")
+    return us
+
+
+def single_bf16_p(q, k, v, kv_len):
+    """The bf16 gate's control: decode with P rounded to one bf16 before
+    P.V (a tensor-core kernel that keeps no low term of P)."""
+    b, h, d = q.shape
+    hkv = k.shape[1]
+    qg = q.reshape(b, hkv, h // hkv, d).float()
+    sc = torch.einsum("bhgd,bhkd->bhgk", qg,
+                      k[:, :, :kv_len].float()) * d ** -0.5
+    p = torch.exp(sc - sc.amax(-1, keepdim=True))
+    o = torch.einsum("bhgk,bhkd->bhgd", p.bfloat16().float(),
+                     v[:, :, :kv_len].float()) / p.sum(-1, keepdim=True)
+    return o.reshape(b, h, d).bfloat16()
+
+
+def check_decode(floor: float) -> dict:
     sdpa = torch.nn.functional.scaled_dot_product_attention
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    rows = []
+    excess, control = -float("inf"), float("inf")   # bf16 gate readings
+    rows, device = [], {}
     for i, (b, h, hkv, s, d, n) in enumerate(DECODE_SWEEP + DECODE_PATH):
         label = f"B={b} H={h} Hkv={hkv} S={s} D={d} kv_len={n}"
         for dtype in (torch.float32, torch.bfloat16):
@@ -458,12 +528,58 @@ def check_decode() -> dict:
             q, k, v = (torch.randn(sh, generator=g).to("cuda", dtype)
                        for sh in ((b, h, d), (b, hkv, s, d), (b, hkv, s, d)))
             want = decode_attention_ref(q, k, v, kv_len=n)
+            want32 = decode_attention_ref(q.float(), k.float(), v.float(),
+                                          kv_len=n)
+            if dtype == torch.bfloat16 and n > 1 \
+                    and (b, h, hkv, s, d, n) in DECODE_PATH:
+                c = bf16_rounding_excess(single_bf16_p(q, k, v, n), want32)
+                if not c > BF16_EXCESS:
+                    raise AssertionError(
+                        f"decode_attention {label}: the bf16 gate passes a "
+                        f"single-bf16 P ({c:.3e} <= {BF16_EXCESS:.3e})")
+                control = min(control, c)
             k[:, :, n:] = float("nan")     # past kv_len: never read
             v[:, :, n:] = float("nan")
-            _compare("decode_attention", decode_attention(q, k, v, kv_len=n),
-                     want, dtype, worst, label)
-            if (b, h, hkv, s, d, n) != DECODE_PATH[-1]:
+            got = decode_attention(q, k, v, kv_len=n)
+            _compare("decode_attention", got, want, dtype, worst, label)
+            if dtype == torch.bfloat16:
+                e = bf16_rounding_excess(got, want32)
+                if not e <= BF16_EXCESS:
+                    raise AssertionError(
+                        f"decode_attention {label}: bf16 output {e:.3e} of "
+                        f"max|o| past half an ulp of the fp32 result "
+                        f"(bound {BF16_EXCESS:.3e})")
+                excess = max(excess, e)
+            if (b, h, hkv, s, d, n) not in DECODE_PATH \
+                    or n not in DECODE_PROFILED:
                 continue
+            us = launch_us(lambda: decode_attention(q, k, v, kv_len=n),
+                           "::decode_kernel<")
+            bound_ms, bound_by = attn_bound(
+                *decode_work(b, h, hkv, d, n, q.element_size()), dtype)
+            device[f"{str(dtype)[6:]} kv_len={n}"] = us
+            print(f"[kernel] decode_attention {label} {str(dtype)[6:]}: "
+                  f"{us:.3f} us device per launch ({us / floor:.2f}x the "
+                  f"floor), bound {bound_ms * 1e3:.3f} us ({bound_by}, "
+                  f"{bound_ms * 1e3 / us:.1%} of it)")
+            if n != DECODE_PATH[-1][-1]:
+                continue
+            # on the serving path the cache comes cold from memory: 8
+            # caches in turn, more than the 50 MB L2 in bf16
+            caches = [(k.clone(), v.clone()) for _ in range(8)]
+            turn = iter(range(10**9))
+
+            def cold(q=q, n=n, caches=caches, turn=turn):
+                kc, vc = caches[next(turn) % len(caches)]
+                return decode_attention(q, kc, vc, kv_len=n)
+
+            device[f"{str(dtype)[6:]} kv_len={n} cold"] = us_cold = \
+                launch_us(cold, "::decode_kernel<", reps=32)
+            print(f"[kernel] decode_attention {label} {str(dtype)[6:]}: "
+                  f"{us_cold:.3f} us device per launch with the cache cold "
+                  f"(8 caches of {2 * k.numel() * k.element_size() / 1e6:.1f}"
+                  f" MB in turn)")
+            del caches
 
             def lib(q=q, k=k, v=v, n=n):
                 return sdpa(q[:, :, None], k[:, :, :n], v[:, :, :n],
@@ -479,7 +595,11 @@ def check_decode() -> dict:
     print(f"[kernel] decode_attention max abs err fp32 "
           f"{worst[torch.float32]:.3e} (bound 2e-5), bf16 "
           f"{worst[torch.bfloat16]:.3e} (bound 2e-2)")
-    return {"worst": worst, "timing": rows}
+    print(f"[kernel] decode_attention bf16 past half an ulp of the fp32 "
+          f"result, share of max|o|: kernel {excess:.3e}, single-bf16-P "
+          f"control {control:.3e} at least (bound {BF16_EXCESS:.3e})")
+    return {"worst": worst, "timing": rows, "device_us": device,
+            "bf16_excess": excess, "bf16_control_excess": control}
 
 
 def router_work(t, e, k, elem) -> tuple[float, float]:
@@ -521,9 +641,9 @@ def _compare_routing(label, got, want, worst, dtype) -> None:
     worst[dtype] = max(worst[dtype], err)
 
 
-def check_router() -> dict:
+def check_router(floor: float) -> dict:
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    rows = []
+    rows, device = [], {}
     for i, (t, e, k) in enumerate(ROUTER_SWEEP + ROUTER_PATH):
         label = f"T={t} E={e} k={k}"
         for dtype in (torch.float32, torch.bfloat16):
@@ -532,7 +652,16 @@ def check_router() -> dict:
             want = moe_router_ref(logits, k)
             _compare_routing(label, moe_router(logits, k), want, worst, dtype)
             print(f"[kernel] moe_router {label} {str(dtype)[6:]}: ok")
-            if (t, e, k) != ROUTER_PATH[-1] or dtype != torch.float32:
+            if (t, e, k) not in ROUTER_PATH or dtype != torch.float32:
+                continue
+            us = launch_us(lambda: moe_router(logits, k), "::router_kernel<")
+            bound_ms, bound_by = attn_bound(
+                *router_work(t, e, k, logits.element_size()), dtype)
+            device[f"T={t}"] = us
+            print(f"[kernel] moe_router {label} fp32: {us:.3f} us device per "
+                  f"launch ({us / floor:.2f}x the floor), bound "
+                  f"{bound_ms * 1e3:.4f} us ({bound_by})")
+            if (t, e, k) != ROUTER_PATH[-1]:
                 continue
             _compare_routing(f"{label} (library)", router_library(logits, k),
                              want, {dtype: 0.0}, dtype)
@@ -561,10 +690,31 @@ def check_router() -> dict:
             worst[dtype] = max(worst[dtype], (w - wr).abs().max().item())
         print(f"[kernel] moe_router exact ties E={e} k={k}: lower index "
               f"first, as the plain version")
+    # probabilities that underflow to 0, k above the nonzero ones: the
+    # lowest unchosen index among the zeros comes next
+    rows_u = torch.full((4, 128), -200.0)
+    rows_u[0, 5] = 0.0
+    rows_u[1, [70, 3]] = 0.0
+    rows_u[2, [9, 100, 127]] = torch.tensor([0.0, -1.0, -2.0])
+    rows_u[3] = -300.0
+    rows_u[3, 64] = 0.0
+    want_u = [[5, 0, 1, 2, 3, 4, 6, 7], [3, 70, 0, 1, 2, 4, 5, 6],
+              [9, 100, 127, 0, 1, 2, 3, 4], [64, 0, 1, 2, 3, 4, 5, 6]]
+    for dtype in (torch.float32, torch.bfloat16):
+        x = rows_u.to("cuda", dtype)
+        w, idx = moe_router(x, 8)
+        wr, ir = moe_router_ref(x, 8)
+        torch.cuda.synchronize()
+        if not (torch.equal(idx, ir) and idx.tolist() == want_u):
+            raise AssertionError(f"moe_router underflowed zeros: "
+                                 f"{idx.tolist()} vs {ir.tolist()}")
+        worst[dtype] = max(worst[dtype], (w - wr).abs().max().item())
+    print("[kernel] moe_router underflowed zeros: the lowest unchosen index "
+          "first, as the plain version")
     print(f"[kernel] moe_router max abs weight err fp32 "
           f"{worst[torch.float32]:.3e}, bf16 inputs "
           f"{worst[torch.bfloat16]:.3e} (bound {ROUTER_ATOL})")
-    return {"worst": worst, "timing": rows}
+    return {"worst": worst, "timing": rows, "device_us": device}
 
 
 def scan_inputs(b, l, d, n, dtype, seed):
@@ -1382,21 +1532,8 @@ def lm_timing(arch: str) -> dict:
 
 def profile_window(label: str, fn, reps: int) -> dict:
     """Device time of ``reps`` calls of ``fn`` under torch.profiler: busy
-    ms per call (every kernel and copy) and the top device ops, summed
-    from the raw kineto events (parsing them into ``key_averages`` takes
-    minutes for a training step's ~750 k kernels)."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ops: dict[str, list] = {}
-    for e in prof.profiler.kineto_results.events():
-        if str(e.device_type()).endswith("CUDA") and e.duration_ns() > 0:
-            o = ops.setdefault(e.name(), [0, 0])
-            o[0] += e.duration_ns()
-            o[1] += 1
+    ms per call (every kernel and copy) and the top device ops."""
+    ops = _device_ops(fn, reps)
     top = sorted(ops.items(), key=lambda kv: -kv[1][0])[:6]
     ours = {}
     for name in OUR_KERNELS:
@@ -1705,8 +1842,9 @@ def main() -> None:
     with phase("kernels vs plain"):
         cell = check_kernel()
         flash = check_flash()
-        decode = check_decode()
-        router = check_router()
+        floor = floor_us()
+        decode = check_decode(floor)
+        router = check_router(floor)
         scan = check_scan()
         scan_bwd = check_scan_bwd()
 
@@ -1789,7 +1927,12 @@ def main() -> None:
             ms=head["ms"], kernel_ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], shape=head["shape"],
-            per_dtype=res["timing"]))
+            per_dtype=res["timing"],
+            **({"device_us": res["device_us"], "floor_us": floor}
+               if "device_us" in res else {}),
+            **{key: res[key] for key in ("bf16_excess",
+                                         "bf16_control_excess")
+               if key in res}))
     # the scan: launches from the fp32 training gate, times at the timed
     # run's shape in bf16 (the config's own dtype); no PyTorch call
     # computes the selective scan, so library_ms is null

@@ -1,9 +1,12 @@
-"""Wrapper of the decode attention kernels (``csrc/decode_attention.cu``).
+"""Wrapper of the decode attention kernel (``csrc/decode_attention.cu``).
 
-On CUDA tensors it launches the two kernels (split partials, then their
-combine) on the current stream, or raises; on CPU tensors it runs the
-plain version (:func:`decode_attention_ref`).  It never pads: the kernel
-reads only the first ``kv_len`` keys of the cache.  Inference only.
+On CUDA tensors it launches the kernel once on the current stream, or
+raises; on CPU tensors it runs the plain version
+(:func:`decode_attention_ref`).  The keys of each (b, KV head) are split
+over the blocks of one thread block cluster by :func:`decode_split`,
+from the card's SM count; the blocks merge through shared memory, so the
+call needs no scratch memory.  It never pads: the kernel reads only the
+first ``kv_len`` keys of the cache.  Inference only.
 """
 from __future__ import annotations
 
@@ -16,18 +19,44 @@ from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 _SYMBOLS = {torch.float32: "decode_attention_f32",
             torch.bfloat16: "decode_attention_bf16"}
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.c_void_p]
 HEAD_DIMS = (16, 32, 64, 128)     # the kernel's instantiations
 MAX_GROUP = 16                    # query heads per KV head
-KEYS_PER_SPLIT = 128              # keys per block of the first launch
-LAUNCHES_PER_CALL = 2             # partials + combine, B * Hkv <= 65535
-_MAX_GRID_Y = 65535               # a partials launch per 65535 of B * Hkv
+LAUNCHES_PER_CALL = 1             # B * Hkv <= 65535
+_MAX_GRID_Y = 65535               # a launch per 65535 of B * Hkv
+_n_sm: dict[int, int] = {}        # device index -> SM count
+# the split of one (b, KV head)'s keys over the blocks of a thread block
+# cluster; the kernel exports both (decode_attention_limits) and the
+# first launch checks them
+KEYS_PER_STEP = 64                # rows of the kernel's TMA box
+MAX_SPLITS = 16                   # blocks of one cluster
+
+
+def decode_split(batch_heads: int, kv_len: int, n_sm: int) -> tuple[int, int]:
+    """(n_splits, split_keys): how many blocks share the keys of one
+    (b, KV head), and how many keys each takes (a multiple of the TMA
+    box's 64 rows; the last split ragged).  Enough blocks that the
+    B * Hkv clusters give every SM one, at most 16 (a cluster) and at most
+    one per 64 keys; every split holds at least one key."""
+    want = n_sm // batch_heads if batch_heads < n_sm else 1
+    n = max(1, min(MAX_SPLITS, want, -(-kv_len // KEYS_PER_STEP)))
+    split_keys = -(-kv_len // n)
+    split_keys = -(-split_keys // KEYS_PER_STEP) * KEYS_PER_STEP
+    return -(-kv_len // split_keys), split_keys
 
 
 def _launcher(dtype: torch.dtype):
-    fn = getattr(_build.library("decode_attention"), _SYMBOLS[dtype])
+    lib = _build.library("decode_attention")
+    fn = getattr(lib, _SYMBOLS[dtype])
     if fn.argtypes is None:
+        box, splits = ctypes.c_int(), ctypes.c_int()
+        lib.decode_attention_limits(ctypes.byref(box), ctypes.byref(splits))
+        if (box.value, splits.value) != (KEYS_PER_STEP, MAX_SPLITS):
+            raise RuntimeError(
+                f"decode_attention kernel has a {box.value}-row box and "
+                f"clusters of {splits.value}; decode_split assumes "
+                f"{KEYS_PER_STEP} and {MAX_SPLITS}")
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
     return fn
@@ -61,7 +90,7 @@ def decode_attention(q, k, v, kv_len: int | None = None,
     """One token against a cache: q (B, H, D); k, v (B, Hkv, S, D); keys
     at positions >= ``kv_len`` (a host int, default S) are masked.
     Returns (B, H, D) in q's dtype.  ``decode_attention.launches`` counts
-    kernel launches, two per CUDA call up to B * Hkv = 65535 and one more
+    kernel launches, one per CUDA call up to B * Hkv = 65535 and one more
     per further 65535 (CPU calls do not count)."""
     kv_len = k.shape[2] if kv_len is None else kv_len
     _check(q, k, v, kv_len)
@@ -87,21 +116,30 @@ def decode_attention(q, k, v, kv_len: int | None = None,
     out = torch.empty_like(q)
     if b == 0:
         return out
-    n_splits = -(-kv_len // KEYS_PER_SPLIT)
-    part_o = torch.empty(b * hkv * n_splits * group * d, device=q.device,
-                         dtype=torch.float32)
-    part_ml = torch.empty(b * hkv * n_splits * group * 2, device=q.device,
-                          dtype=torch.float32)
+    dev = q.get_device()
+    if dev not in _n_sm:
+        _n_sm[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    n_splits, split_keys = decode_split(b * hkv, kv_len, _n_sm[dev])
+    _launch(q, k, v, out, kv_len, sm_scale, n_splits, split_keys)
+    return out
+
+
+def _launch(q, k, v, out, kv_len: int, sm_scale: float | None,
+            n_splits: int, split_keys: int) -> None:
+    """The kernel on checked CUDA tensors, with the split given (the
+    on-card tests also force splits that hold no key)."""
+    b, h, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
     scale = sm_scale if sm_scale is not None else d ** -0.5
     rc = _launcher(q.dtype)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        part_o.data_ptr(), part_ml.data_ptr(), b, hkv, group, s, kv_len, d,
-        scale, torch.cuda.current_stream().cuda_stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hkv,
+        h // hkv, s, kv_len, d, n_splits, split_keys, scale,
+        torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {rc}")
-    decode_attention.launches += -(-(b * hkv) // _MAX_GRID_Y) + 1
-    return out
+    decode_attention.launches += -(-(b * hkv) // _MAX_GRID_Y)
 
 
 decode_attention.launches = 0

@@ -26,3 +26,65 @@ def decode_attention_ref(q, k, v, *, sm_scale: float | None = None,
     p = p / torch.clamp_min(p.sum(-1, keepdim=True), 1e-30)
     out = torch.einsum("bhgk,bhkd->bhgd", p, v.float())
     return out.reshape(b, h, -1).to(q.dtype)
+
+
+# bf16 outputs: the kernel rounds its fp32 result once, so each element
+# lies within half a bf16 ulp of the fp32 plain version on the same
+# inputs, plus this share of the largest |output| for fp32 sums taken in
+# another order.  A P rounded to one bf16 before P.V lands ~1e-3 of the
+# largest |output| past half an ulp at every kv_len >= 28.
+BF16_EXCESS = 2.0 ** -16
+
+
+def bf16_rounding_excess(got, want32) -> float:
+    """max(|got - want32| - half a bf16 ulp of |want32|) / max|want32|:
+    how far a bf16 output lies past the rounding of the fp32 result
+    ``want32``; at most :data:`BF16_EXCESS` for a kernel that keeps P in
+    fp32 (or as exact bf16 terms)."""
+    want32 = want32.float()
+    mag = want32.abs()
+    _, e = torch.frexp(mag)          # mag in [2^(e-1), 2^e): ulp 2^(e-8)
+    half_ulp = torch.where(mag == 0, torch.zeros_like(mag),
+                           torch.ldexp(torch.ones_like(mag), e - 9))
+    excess = ((got.float() - want32).abs() - half_ulp).max().item()
+    return excess / max(mag.max().item(), 1e-30)
+
+
+def decode_attention_split_ref(q, k, v, *, kv_len: int, n_splits: int,
+                               split_keys: int,
+                               sm_scale: float | None = None):
+    """The kernel's split and merge, in plain PyTorch: split s takes the
+    keys [s * split_keys, min(kv_len, (s + 1) * split_keys)) and keeps
+    (m, l, acc) = (max score, sum exp(s - m), sum exp(s - m) v); the splits
+    merge in split order, each weighed by exp(m_s - max m).  A split with
+    no key has m = -1e30, l = 0, acc = 0 and weighs 0.  The wrapper's
+    split is ``ops.decode_split``'s."""
+    b, h, dq = q.shape
+    _, hkv, _, _ = k.shape
+    g = h // hkv
+    sm_scale = sm_scale if sm_scale is not None else dq ** -0.5
+    qg = q.reshape(b, hkv, g, dq).float()
+    parts = []
+    for s in range(n_splits):
+        lo, hi = s * split_keys, min(kv_len, (s + 1) * split_keys)
+        if hi <= lo:
+            parts.append((torch.full((b, hkv, g), NEG_INF),
+                          torch.zeros(b, hkv, g),
+                          torch.zeros(b, hkv, g, v.shape[-1])))
+            continue
+        sc = torch.einsum("bhgd,bhkd->bhgk", qg,
+                          k[:, :, lo:hi].float()) * sm_scale
+        m = sc.amax(-1)
+        p = torch.exp(sc - m[..., None])
+        parts.append((m, p.sum(-1),
+                      torch.einsum("bhgk,bhkd->bhgd", p,
+                                   v[:, :, lo:hi].float())))
+    mx = torch.stack([m for m, _, _ in parts]).amax(0)
+    den = torch.zeros_like(mx)
+    out = torch.zeros(b, hkv, g, v.shape[-1])
+    for m, l_s, acc in parts:
+        f = torch.exp(m - mx)
+        den = den + l_s * f
+        out = out + acc * f[..., None]
+    out = out / torch.clamp_min(den, 1e-30)[..., None]
+    return out.reshape(b, h, -1).to(q.dtype)

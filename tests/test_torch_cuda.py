@@ -18,6 +18,9 @@ from repro_torch.configs import get_reduced
 from repro_torch.core.predictor import StragglerPredictor
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_ref)
+from repro_torch.kernels.decode_attention import ops as decode_ops
+from repro_torch.kernels.decode_attention.ref import (
+    BF16_EXCESS, bf16_rounding_excess, decode_attention_split_ref)
 from repro_torch.kernels.flash_attention import (attention_ref,
                                                  flash_attention)
 from repro_torch.kernels.lstm_cell import lstm_cell, lstm_cell_ref
@@ -84,6 +87,13 @@ def _qkv(shapes, dtype, seed, device):
     return [torch.randn(s, generator=g).to(device, dtype) for s in shapes]
 
 
+def _decode_fp32(q, k, v, kvlen):
+    """The plain decode in fp32 on the same inputs: a bf16 output must be
+    its rounding (bf16_rounding_excess <= BF16_EXCESS)."""
+    return decode_attention_ref(q.float(), k.float(), v.float(),
+                                kv_len=kvlen)
+
+
 @pytest.mark.parametrize("b,h,hkv,s,d,causal", [
     (1, 4, 4, 128, 64, True), (2, 8, 1, 128, 128, True),
     (1, 2, 2, 192, 64, False), (1, 4, 2, 100, 128, True),
@@ -144,7 +154,9 @@ def test_flash_attention_kernel_takes_unequal_query_and_key_lengths(
     (1, 4, 4, 512, 64, 512), (2, 8, 2, 1024, 128, 700),
     (1, 16, 2, 512, 128, 512), (1, 4, 1, 300, 64, 300),
     (1, 32, 4, 4096, 128, 1), (1, 32, 4, 4096, 128, 513),
-    (1, 4, 2, 40, 16, 17)])
+    (1, 4, 2, 40, 16, 17), (1, 32, 4, 4096, 128, 28),
+    (1, 32, 4, 4096, 128, 3016), (1, 32, 4, 4096, 128, 4096),
+    (3, 32, 2, 100, 32, 77), (1, 64, 4, 600, 128, 600)])
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
                                         (torch.bfloat16, 2e-2)])
 def test_decode_attention_kernel_matches_plain_version(cuda, b, h, hkv, s,
@@ -153,31 +165,68 @@ def test_decode_attention_kernel_matches_plain_version(cuda, b, h, hkv, s,
     q, k, v = _qkv([(b, h, d), (b, hkv, s, d), (b, hkv, s, d)], dtype,
                    s + kvlen, cuda)
     want = decode_attention_ref(q, k, v, kv_len=kvlen)
+    want32 = _decode_fp32(q, k, v, kvlen)
     k[:, :, kvlen:] = float("nan")       # never read
     v[:, :, kvlen:] = float("nan")
     before = decode_attention.launches
     got = decode_attention(q, k, v, kv_len=kvlen)
     torch.cuda.synchronize()
-    assert decode_attention.launches == before + 2
+    assert decode_attention.launches == before + 1
     torch.testing.assert_close(got.float(), want.float(), rtol=atol,
                                atol=atol)
+    if dtype == torch.bfloat16:
+        assert bf16_rounding_excess(got, want32) <= BF16_EXCESS
+    # one launch, no atomics: the same bits from run to run
+    assert torch.equal(decode_attention(q, k, v, kv_len=kvlen), got)
+
+
+@pytest.mark.parametrize("kvlen,n_splits,split_keys", [
+    (100, 16, 8), (100, 4, 64), (1, 16, 8), (4096, 16, 256),
+    (3016, 16, 192), (37, 3, 16), (600, 9, 72)])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 2e-2)])
+def test_decode_attention_kernel_takes_any_split(cuda, kvlen, n_splits,
+                                                 split_keys, dtype, atol):
+    """Forced splits, some with no valid key (they weigh 0), against the
+    plain split-and-merge and the plain version."""
+    q, k, v = _qkv([(1, 32, 128), (1, 4, 4096, 128), (1, 4, 4096, 128)],
+                   dtype, kvlen + n_splits, cuda)
+    want = decode_attention_ref(q, k, v, kv_len=kvlen)
+    want32 = _decode_fp32(q, k, v, kvlen)
+    split = decode_attention_split_ref(q.cpu(), k.cpu(), v.cpu(),
+                                       kv_len=kvlen, n_splits=n_splits,
+                                       split_keys=split_keys)
+    k[:, :, kvlen:] = float("nan")
+    v[:, :, kvlen:] = float("nan")
+    got = torch.empty_like(q)
+    decode_ops._launch(q, k, v, got, kvlen, None, n_splits, split_keys)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    for w in (want, split.to(cuda)):
+        torch.testing.assert_close(got.float(), w.float(), rtol=atol,
+                                   atol=atol)
+    if dtype == torch.bfloat16:
+        assert bf16_rounding_excess(got, want32) <= BF16_EXCESS
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_attention_kernel_takes_batch_heads_past_the_grid_limit(
         cuda, dtype):
-    """B * Hkv = 66000 > 65535: two partials launches (one per 65535 rows
-    on grid y), then the combine."""
+    """B * Hkv = 66000 > 65535: two launches, one per 65535 rows on grid
+    y."""
     q, k, v = _qkv([(33000, 4, 16), (33000, 2, 40, 16), (33000, 2, 40, 16)],
                    dtype, 6, cuda)
     before = decode_attention.launches
     got = decode_attention(q, k, v, kv_len=33)
     torch.cuda.synchronize()
-    assert decode_attention.launches == before + 3
+    assert decode_attention.launches == before + 2
     atol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(
         got.float(), decode_attention_ref(q, k, v, kv_len=33).float(),
         rtol=atol, atol=atol)
+    if dtype == torch.bfloat16:
+        assert bf16_rounding_excess(
+            got, _decode_fp32(q, k, v, 33)) <= BF16_EXCESS
 
 
 @pytest.mark.parametrize("t,e,k", [(256, 8, 2), (512, 128, 8),
@@ -210,6 +259,28 @@ def test_moe_router_kernel_takes_the_lower_index_on_ties(cuda):
     assert idx[2].tolist() == [3, 7, 11, 15, 19, 23, 27, 31]
     torch.testing.assert_close(w[0].cpu(), torch.full((8,), 0.125),
                                rtol=0.0, atol=1e-7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_router_kernel_ranks_underflowed_zeros_by_index(cuda, dtype):
+    """Probabilities that underflow to 0, with k above the number of
+    nonzero ones: the lowest unchosen index among the zeros comes next, as
+    in the plain version."""
+    rows = torch.full((4, 128), -200.0)
+    rows[0, 5] = 0.0                       # one nonzero p
+    rows[1, [70, 3]] = 0.0                 # two, tied
+    rows[2, [9, 100, 127]] = torch.tensor([0.0, -1.0, -2.0])
+    rows[3, :] = -300.0                    # p = 1 at 64, 0 elsewhere
+    rows[3, 64] = 0.0
+    w, idx = moe_router(rows.to(cuda, dtype), 8)
+    wr, ir = moe_router_ref(rows.to(cuda, dtype), 8)
+    torch.cuda.synchronize()
+    assert idx[0].tolist() == [5, 0, 1, 2, 3, 4, 6, 7]
+    assert idx[1].tolist() == [3, 70, 0, 1, 2, 4, 5, 6]
+    assert idx[2].tolist() == [9, 100, 127, 0, 1, 2, 3, 4]
+    assert idx[3].tolist() == [64, 0, 1, 2, 3, 4, 5, 6]
+    assert torch.equal(idx, ir)
+    torch.testing.assert_close(w, wr, rtol=0.0, atol=1e-6)
 
 
 def test_moe_router_wrapper_refuses_what_the_kernel_does_not_take(cuda):
@@ -247,11 +318,11 @@ def test_reduced_engine_on_the_card_matches_the_cpu(cuda, arch):
                          moe_router.launches - r0))
     assert streams[0] == streams[1]
     assert launches[0] == (0, 0, 0)
-    # one flash launch per layer per prefill, two decode launches per
-    # layer per decoded token (5 of the 6 tokens of each request), one
-    # router launch per MoE layer per prefill and per decoded token
+    # one flash launch per layer per prefill, one decode launch per layer
+    # per decoded token (5 of the 6 tokens of each request), one router
+    # launch per MoE layer per prefill and per decoded token
     n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
-    assert launches[1] == (4 * cfg.n_layers, 4 * 5 * 2 * cfg.n_layers,
+    assert launches[1] == (4 * cfg.n_layers, 4 * 5 * cfg.n_layers,
                            4 * 6 * n_moe)
 
 

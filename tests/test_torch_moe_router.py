@@ -4,7 +4,8 @@ kernel in interpret mode and its ``moe_router_ref``, over the JAX
 sweep's shapes and one token, with the same numpy-seeded logits.  Index
 sets must be equal and the weights, taken expert by expert, within
 rtol 1e-5 / atol 1e-6 (the JAX sweep's tolerance); every row sums to 1.
-Exact ties go to the lower expert index in all three."""
+Exact ties go to the lower expert index in all three, and so do
+probabilities that underflow to 0."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -76,6 +77,38 @@ def test_exact_ties_take_the_lower_index():
                                        rtol=1e-6)
         np.testing.assert_allclose(moe_router(tl, 4)[0].numpy(),
                                    np.asarray(jax_router(jl, 4)[0]),
+                                   rtol=1e-6, atol=1e-7)
+
+
+def _underflow_rows():
+    """Rows whose probabilities underflow to 0 past a few experts, and the
+    routing the reference gives them at k = 8: after the nonzero ones, the
+    lowest unchosen indices among the zeros."""
+    rows = np.full((4, 128), -200.0, np.float32)
+    rows[0, 5] = 0.0                           # one nonzero p
+    rows[1, [70, 3]] = 0.0                     # two, tied
+    rows[2, [9, 100, 127]] = [0.0, -1.0, -2.0]
+    rows[3] = -300.0                           # p = 1 at 64, 0 elsewhere
+    rows[3, 64] = 0.0
+    want = np.array([[5, 0, 1, 2, 3, 4, 6, 7], [3, 70, 0, 1, 2, 4, 5, 6],
+                     [9, 100, 127, 0, 1, 2, 3, 4],
+                     [64, 0, 1, 2, 3, 4, 5, 6]])
+    return rows, want
+
+
+@pytest.mark.parametrize("k", [8, 3])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_underflowed_zeros_take_the_lowest_unchosen_index(dtype, k):
+    rows, want = _underflow_rows()
+    jl = jnp.asarray(rows, DTYPES[dtype][0])
+    tl = torch.tensor(rows, dtype=DTYPES[dtype][1])
+    results = (moe_router(tl, k), moe_router_ref(tl, k), jax_router(jl, k),
+               jax_ref(jl, k))
+    for w, idx in results:
+        np.testing.assert_array_equal(np.asarray(idx), want[:, :k])
+        np.testing.assert_allclose(np.asarray(w).sum(-1), 1.0, rtol=1e-6)
+    for w, _ in results[1:]:
+        np.testing.assert_allclose(results[0][0].numpy(), np.asarray(w),
                                    rtol=1e-6, atol=1e-7)
 
 
