@@ -19,11 +19,13 @@ Phases:
    router ``softmax`` + ``topk`` + renormalisation, since no one call
    computes it; no PyTorch call computes the selective scan or its
    gradient); the scan's backward kernel also against autograd through
-   the plain scan, and timed beside it; the attention rows also print
-   TFLOP/s and the share of the bound; decode attention and the router
+   the plain scan, against a second call bit for bit, and timed beside
+   it; the attention rows also print TFLOP/s and the share of the bound;
+   the LSTM cell, decode attention, the router and the scan's backward
    also print their profiler device time per launch at the path's shapes,
-   beside the floor of a launch (``torch.cuda._sleep(0)``, a kernel that
-   spins 0 cycles); bf16 decode attention must also lie within half a
+   beside the bound and the floor of a launch (``torch.cuda._sleep(0)``,
+   a kernel that spins 0 cycles); bf16 decode attention must also lie
+   within half a
    bf16 ulp of the fp32 plain version, which a control with P rounded to
    one bf16 must fail;
 4. the decision slice: ``STARTController`` at the paper's width (400
@@ -32,7 +34,9 @@ Phases:
    weights: E_S agrees within the Tier-1 bound, actions agree, every
    LSTM cell of the card's run went through the kernel, one staged copy
    per warm interval; then the warm ms per interval for each batch
-   bucket;
+   bucket, and the device's busy ms per interval and the cell's device
+   time per launch (beside its bound and the floor) at 1, 16 and 256
+   jobs;
 5. LM serving, fp32: yi-6b at full width and depth (seeded weights),
    ``Engine(n_slots=4, max_len=4096)`` serving 6 seeded requests
    (prompts of 12 to 3000 tokens, 16 new tokens each); every prefill
@@ -150,6 +154,7 @@ HOST_TYPES = [(2, 6.0, 320.0, 1.0, 273.0, 3.0, 12),
 BACKLOG = [1, 2, 3, 5, 8, 16, 24, 64, 100, 256]
 INTERVALS_PER_STEP = 4
 TIMED_BUCKETS = [1, 2, 4, 8, 16, 32, 64, 128, 256]
+PROFILED_BUCKETS = (1, 16, 256)     # the cell's batch is the job bucket
 SEED = 0
 # the `start` policy's adaptive k (sim/techniques/start_tech.py): k_lo on
 # an idle cluster up to the paper's k = 1.5 at saturation
@@ -311,7 +316,11 @@ def cell_bound(bsz, n_in, hid, elem_bytes) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_kernel() -> dict:
+def check_kernel(floor: float) -> dict:
+    """The cell against its plain version at the sweep and path shapes,
+    then timed at the path's: per call by CUDA events beside the plain
+    version and ``torch.lstm_cell``, and by profiler device time per launch
+    beside its bound and ``floor``, the floor of a launch (us)."""
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for i, (bsz, n_in, hid) in enumerate(LSTM_SWEEP + PATH_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
@@ -347,14 +356,19 @@ def check_kernel() -> dict:
         lib_ms = time_ms(lambda: torch.lstm_cell(x, (h, c), w_ih, w_hh, b,
                                                   zero))
         bound_ms, bound_by = cell_bound(bsz, n_in, hid, 4)
+        dev_us = launch_us(lambda: lstm_cell(x, h, c, wx, wh, b),
+                           "lstm_cell_kernel", reps=40)
         row = dict(batch=bsz, n_in=n_in, hidden=hid, ms=min(k1, k2),
                    plain_ms=min(p1, p2), library_ms=lib_ms,
-                   bound_ms=bound_ms, bound_by=bound_by)
+                   bound_ms=bound_ms, bound_by=bound_by, device_us=dev_us,
+                   floor_us=floor)
         rows.append(row)
         print(f"[kernel] lstm_cell fp32 B={bsz}: kernel {row['ms']:.5f} ms "
               f"(runs {k1:.5f}, {k2:.5f}), plain {row['plain_ms']:.5f} ms, "
               f"torch.lstm_cell {lib_ms:.5f} ms, bound {bound_ms:.7f} ms "
-              f"({bound_by})")
+              f"({bound_by}); device {dev_us:.3f} us per launch, "
+              f"{bound_ms * 1e3:.4f} us bound, {floor:.3f} us floor of a "
+              f"launch")
     return {"worst": worst, "timing": rows}
 
 
@@ -826,11 +840,13 @@ def _grad_errors(name, label, got, want, dtype) -> tuple[float, float]:
     return worst_abs, worst
 
 
-def check_scan_bwd() -> dict:
+def check_scan_bwd(floor: float) -> dict:
     """The forward kernel's chunk states against ``scan_states_ref``, then
     the backward kernels from them against the plain backward (same
-    states) and against autograd through the plain scan; timed at the
-    path's shapes beside both."""
+    states) and against autograd through the plain scan, and a second call
+    against the first, bit for bit; timed at the path's shapes beside both,
+    each launch's device time beside the bound and ``floor``, the floor of
+    a launch (us)."""
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     worst_rel = dict(worst)
     rows = []
@@ -850,7 +866,12 @@ def check_scan_bwd() -> dict:
                 torch.testing.assert_close(states, want_states, rtol=1e-4,
                                            atol=1e-4)
             got = mamba_scan_bwd(*args, g, states)
+            again = mamba_scan_bwd(*args, g, states)
             torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                raise AssertionError(f"mamba_scan_bwd {label}: two calls "
+                                     f"gave different gradients")
+            del again
             a1, e1 = _grad_errors("mamba_scan_bwd", label, got,
                                   mamba_scan_bwd_ref(*args, g, states), dtype)
             xs = [t.clone().requires_grad_() for t in args]
@@ -862,7 +883,8 @@ def check_scan_bwd() -> dict:
             worst_rel[dtype] = max(worst_rel[dtype], e1, e2)
             print(f"[kernel] mamba_scan_bwd {label} {str(dtype)[6:]}: ok, "
                   f"largest error / largest gradient {e1:.3e} against the "
-                  f"plain backward, {e2:.3e} against autograd")
+                  f"plain backward, {e2:.3e} against autograd; a second "
+                  f"call equal bit for bit")
             if (b, l, d, n) not in SCAN_PATH:
                 continue
 
@@ -885,11 +907,16 @@ def check_scan_bwd() -> dict:
             row = dict(shape=label, dtype=str(dtype)[6:], ms=min(k1, k2),
                        plain_ms=min(p1, p2), autograd_ms=auto_ms,
                        library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
-                       device_ms=dev)
+                       device_ms=dev, floor_us=floor)
             rows.append(row)
+            print(f"[kernel] mamba_scan_bwd {label} {row['dtype']}: device "
+                  f"per launch {dev} ms, together "
+                  f"{sum(v or 0.0 for v in dev.values()):.5f} ms against the "
+                  f"bound {bound_ms:.5f} ms; floor of a launch {floor:.3f} "
+                  f"us")
             print(f"[kernel] mamba_scan_bwd {label} {row['dtype']}: kernels "
-                  f"{row['ms']:.5f} ms per call (runs {k1:.5f}, {k2:.5f}; "
-                  f"device per launch {dev}), plain backward "
+                  f"{row['ms']:.5f} ms per call (runs {k1:.5f}, {k2:.5f}), "
+                  f"plain backward "
                   f"{row['plain_ms']:.3f} ms, autograd through the plain scan "
                   f"(forward re-run and backward) {auto_ms:.3f} ms, no "
                   f"PyTorch call computes it, bound {bound_ms:.6f} ms "
@@ -1084,13 +1111,15 @@ def run_slice(dev_a: str, dev_b: str, n_hosts: int, max_tasks: int,
     return out
 
 
-def time_buckets(n_hosts: int, max_tasks: int, reps: int = 20) -> dict:
+def time_buckets(n_hosts: int, max_tasks: int, floor: float,
+                 reps: int = 20) -> dict:
     """Warm medians, in host ms per interval at a fixed active-job count
     per bucket, of the whole decision (``decide``), of its prediction
     (the predictor call, which ends in the E_S readback) and of its
     trigger and mitigation planning on the host; then, from a profiled
-    window at the smallest and largest bucket, the device's busy ms per
-    interval and the kernel's own device time per launch."""
+    window at buckets of 1, 16 and 256 jobs, the device's busy ms per
+    interval and the kernel's own device time per launch beside its bound
+    and ``floor``, the floor of a launch (us)."""
     out = {}
     for trigger in ("milestone", "per_task"):
         for nb in TIMED_BUCKETS:
@@ -1128,7 +1157,7 @@ def time_buckets(n_hosts: int, max_tasks: int, reps: int = 20) -> dict:
                   for nb in TIMED_BUCKETS))
     # profiled last: a profiler run may leave tracing costs behind
     for trigger in ("milestone", "per_task"):
-        for nb in (TIMED_BUCKETS[0], TIMED_BUCKETS[-1]):
+        for nb in PROFILED_BUCKETS:
             ctrl = STARTController(n_hosts=n_hosts, max_tasks=max_tasks,
                                    horizon=PAPER["horizon"], seed=SEED,
                                    trigger=trigger, device="cuda")
@@ -1136,14 +1165,17 @@ def time_buckets(n_hosts: int, max_tasks: int, reps: int = 20) -> dict:
             for _ in range(3):
                 decide(ctrl, tel_gen.step(nb))
             out[f"{trigger}/{nb}"].update(profile_intervals(ctrl, tel_gen,
-                                                            nb))
+                                                            nb, floor))
     return out
 
 
-def profile_intervals(ctrl, tel_gen, nb: int, reps: int = 10) -> dict:
+def profile_intervals(ctrl, tel_gen, nb: int, floor: float,
+                      reps: int = 10) -> dict:
     """Device time of ``reps`` decision intervals under torch.profiler:
     busy ms per interval (every kernel and copy) and the lstm_cell
-    kernel's device time per launch."""
+    kernel's device time per launch, beside its bound at a batch of
+    ``nb`` rows (the job bucket) and ``floor``, the floor of a launch
+    (us)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1158,14 +1190,17 @@ def profile_intervals(ctrl, tel_gen, nb: int, reps: int = 10) -> dict:
             if "lstm_cell_kernel" in e.key:
                 cell_us += e.self_device_time_total
                 cell_n += e.count
+    bound_ms, _ = cell_bound(nb, *PATH_SHAPES[0][1:], 4)
     out = dict(device_busy_ms=busy_us / 1e3 / reps if busy_us else None,
                device_ops_per_interval=n_dev / reps,
-               kernel_device_ms=cell_us / 1e3 / cell_n if cell_n else None)
+               kernel_device_ms=cell_us / 1e3 / cell_n if cell_n else None,
+               kernel_bound_ms=bound_ms, floor_us=floor)
     print(f"[profile] bucket {nb} {ctrl.trigger}: device busy "
           f"{out['device_busy_ms']} ms/interval over "
           f"{out['device_ops_per_interval']} kernels and copies, lstm_cell "
           f"{out['kernel_device_ms']} ms/launch on the device ({cell_n} "
-          f"launches)")
+          f"launches; bound {bound_ms * 1e3:.4f} us, floor of a launch "
+          f"{floor:.3f} us)")
     return out
 
 
@@ -1840,13 +1875,13 @@ def main() -> None:
                     print(f"[build] {name}: {line.strip()}")
 
     with phase("kernels vs plain"):
-        cell = check_kernel()
-        flash = check_flash()
         floor = floor_us()
+        cell = check_kernel(floor)
+        flash = check_flash()
         decode = check_decode(floor)
         router = check_router(floor)
         scan = check_scan()
-        scan_bwd = check_scan_bwd()
+        scan_bwd = check_scan_bwd(floor)
 
     n_hosts, max_tasks = PAPER["n_hosts"], PAPER["max_tasks"]
     with phase("decision slice"):
@@ -1870,7 +1905,7 @@ def main() -> None:
                                      f"intervals")
         print(f"[slice] lstm_cell launches {launches} = {layers * horizon} x "
               f"{fused} fused intervals; one staged copy per warm interval")
-        buckets = time_buckets(n_hosts, max_tasks)
+        buckets = time_buckets(n_hosts, max_tasks, floor)
 
     with phase(f"{LM_ARCH} fp32 gate"):
         gate = lm_gate(LM_ARCH)
@@ -1907,7 +1942,8 @@ def main() -> None:
         shape=[headline["batch"], headline["n_in"], headline["hidden"]],
         device_ms=buckets[f"milestone/{TIMED_BUCKETS[-1]}"][
             "kernel_device_ms"],
-        per_shape=cell["timing"])]
+        device_us={r["batch"]: r["device_us"] for r in cell["timing"]},
+        floor_us=floor, per_shape=cell["timing"])]
     # launches: flash from yi-6b's bf16 serving run (the tensor-core
     # kernel, the one timed), decode from yi-6b's fp32 gate, the router
     # from qwen3's; times at the path's longest timed shape, attention in
@@ -1962,7 +1998,7 @@ def main() -> None:
         ms=head["ms"], kernel_ms=head["ms"], plain_ms=head["plain_ms"],
         autograd_ms=head["autograd_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=None,
-        device_ms=head["device_ms"], shape=head["shape"],
+        device_ms=head["device_ms"], floor_us=floor, shape=head["shape"],
         per_dtype=scan_bwd["timing"]))
     print(json.dumps({"slice": slice_stats, "ms_per_interval": buckets}))
     print(json.dumps({"lm_fp32": {k: v for k, v in gate.items()

@@ -17,10 +17,12 @@ from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref
 
 _SYMBOLS = {torch.float32: "lstm_cell_f32", torch.bfloat16: "lstm_cell_bf16"}
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-# the kernel's launch geometry (csrc/lstm_cell.cu): 4H threads per block,
-# and 8 rows x (In + 5H) fp32 values of shared memory within 48 KB
-_MAX_THREADS = 1024
-_ROWS, _SMEM_BYTES = 8, 48 * 1024
+# the kernel's launch geometry (csrc/lstm_cell.cu): a block takes 8 hidden
+# units (32 gate columns) and up to 8 batch rows, a warp each, and stages
+# its slice of the weights and the bias and its rows of x and h in at most
+# 227 KB of shared memory
+_ROWS = 8
+_SMEM_BYTES = 232448
 
 
 def _launcher(dtype: torch.dtype):
@@ -55,16 +57,21 @@ def _check(x, h, c, wx, wh, b) -> tuple[int, int, int]:
     return bsz, n_in, hid
 
 
-def _check_launch(bsz: int, n_in: int, hid: int) -> None:
-    """Shapes the kernel's geometry takes (the plain version takes any)."""
-    if 4 * hid > _MAX_THREADS:
-        raise ValueError(f"lstm_cell kernel takes 4H <= {_MAX_THREADS}, "
-                         f"got H={hid}")
-    if 4 * _ROWS * (n_in + 5 * hid) > _SMEM_BYTES:
+def smem_bytes(n_in: int, hid: int, elem: int) -> int:
+    """Shared memory one block of the kernel takes (``smem_bytes`` in
+    csrc/lstm_cell.cu): the (In + H + 1) x 32 weight and bias slice in the
+    input dtype, then each of its 8 rows of x and h in fp32."""
+    k_all = n_in + hid
+    return ((k_all + 1) * 32 * elem + 15) // 16 * 16 \
+        + 4 * _ROWS * ((k_all + 3) // 4 * 4)
+
+
+def _check_launch(n_in: int, hid: int, elem: int) -> None:
+    """Shapes the kernel's geometry takes (the plain version takes any);
+    ``elem`` is the bytes of one input element."""
+    if smem_bytes(n_in, hid, elem) > _SMEM_BYTES:
         raise ValueError(f"lstm_cell kernel: In={n_in}, H={hid} exceed its "
                          f"{_SMEM_BYTES} bytes of shared memory")
-    if max(bsz * n_in, bsz * hid, n_in * 4 * hid) >= 2 ** 31:
-        raise ValueError("lstm_cell kernel takes 32-bit offsets")
 
 
 def lstm_cell(x, h, c, wx, wh, b):
@@ -85,7 +92,7 @@ def lstm_cell(x, h, c, wx, wh, b):
     c_out = torch.empty_like(c)
     if bsz == 0:
         return h_out, c_out
-    _check_launch(bsz, n_in, hid)
+    _check_launch(n_in, hid, x.element_size())
     rc = _launcher(x.dtype)(
         x.data_ptr(), h.data_ptr(), c.data_ptr(), wx.data_ptr(),
         wh.data_ptr(), b.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),

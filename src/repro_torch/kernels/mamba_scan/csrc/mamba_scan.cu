@@ -55,21 +55,28 @@
 // Backward design.  The sweep needs h_{t-1} in reverse order, and
 // h_{t-1} = (h_t - delta u B) / a_t is useless where a_t underflows.  So
 // for each chunk, last first, a block loads the chunk's entering state,
-// steps the chunk's 32 steps forward again (keeping h_{t-1} and a_t in
-// registers, with the forward's arithmetic, so the states are the
-// forward's bit for bit), then sweeps it backward.  Taking the saved
-// states costs 33.6 MB of writes in the forward and reads here; a
-// backward that found them itself would repeat the whole forward first.
-// One thread holds one state (b, d, n): a block is 512 threads, 512 / N'
-// channels (N' = N rounded up to 8, 16 or 32).  du and ddelta sum over n:
-// shuffles across the channel's lanes.  dB and dC sum over d: shuffles
-// across the warp's channels, then the block's warps in order in shared
-// memory, one partial per (block, t, n) to device memory; dA and dskip
+// steps the chunk forward again with the forward's arithmetic (so the
+// states are the forward's bit for bit), then sweeps it backward.  Taking
+// the saved states costs 33.6 MB of writes in the forward and reads here;
+// a backward that found them itself would repeat the whole forward first.
+// The threads lie as in the forward: a block holds 32 channels of one batch
+// row in 8 warps, warp g the states g * N/8 .. (g + 1) * N/8 - 1 of all 32
+// channels, so B_t and C_t are the same for all lanes of a warp.  du and
+// ddelta sum over n: adds in the thread, then the 8 groups in order
+// through shared memory every 16 steps.  dB and dC sum over d: every few
+// steps the warp sums 16 values of each lane over its 32 lanes by halving
+// exchanges (16 shuffles for 16 sums, warp_sum16), one partial per (block,
+// t, n) to device memory.  A thread keeps h_{t-1} and a_t of 16 / (N/8)
+// steps in registers, so that 2 blocks fit an SM: each chunk is stepped
+// again in such sub-chunks, last first, from the states a first pass over
+// the chunk kept (1.75 exponentials per state per step at N = 16).  While
+// a chunk is swept, the next one's u, delta, g and states copy into shared
+// memory by cp.async, and its B and C load into registers.  dA and dskip
 // sum over t in the thread and leave one partial per batch row.  A second
 // launch adds the partials in a fixed order (blocks, then batch rows) and
 // rounds dB and dC to their dtype: the gradients are the same from run to
-// run, with no atomics.  Its 10 shuffles per state per step are its
-// largest cost (see PERF.md).
+// run, with no atomics.  What holds the sweep (PERF.md): instruction
+// issue, at the cap of 128 registers that 2 blocks per SM allow.
 //
 // What bounds them: operations.  At the training shape the forward
 // moves 100.7 MB (u, delta, y; B, C, A and skip are small), 0.030 ms at
@@ -87,9 +94,9 @@
 namespace {
 
 constexpr int kChunk = 32;       // steps per staged chunk = state interval
-constexpr int kGroups = 8;       // forward: state groups (warps) per block
-constexpr int kChannels = 32;    // forward: channels per block
-constexpr int kBwdThreads = 512;
+constexpr int kGroups = 8;       // state groups (warps) per block
+constexpr int kChannels = 32;    // channels per block
+constexpr int kMaxDevices = 64;
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -245,18 +252,84 @@ __global__ void __launch_bounds__(kChannels * kGroups,
   }
 }
 
+// Backward geometry: a block holds kChannels channels of one batch row in
+// kGroups warps, as the forward does; warp g holds states g * kS .. (g +
+// 1) * kS - 1 of all 32 channels.  A thread keeps h_{t-1} and a_t of kSub
+// steps in registers (2 * kSub * kS = 32 floats), so a chunk is stepped
+// again in kSubs sub-chunks, last first, each from a state that a first
+// pass over the chunk kept.  dB and dC are summed over the warp's channels
+// every kPeriod steps, 16 values (2 kS per step) at a time; du and ddelta
+// over the groups every kSpan steps.
 template <int kN>
-__host__ __device__ constexpr int bwd_channels() { return kBwdThreads / kN; }
+struct Bwd {
+  static constexpr int kS = kN / kGroups;
+  static constexpr int kSub = 16 / kS;
+  static constexpr int kSubs = kChunk / kSub;
+  static constexpr int kPeriod = 8 / kS;
+  static constexpr int kSpan = kS == 4 ? 8 : 16;
+  static_assert(2 * kS * kPeriod == 16 && kSub % kPeriod == 0 &&
+                    kSpan % kSub == 0 && kSpan % kGroups == 0,
+                "geometry");
+};
 
-int bwd_channels(int n) {
-  return kBwdThreads / (n <= 8 ? 8 : (n <= 16 ? 16 : 32));
+// Sums each of v[0..15] over the warp's 32 lanes.  Each stage sends half
+// of a lane's values to the lane kOff away and keeps the sums of the other
+// half, so lane l ends with the sum of v[l / 2] (lanes 2i and 2i + 1 hold
+// the same bits): 16 shuffles for 16 sums, the adds in a fixed order.
+template <int kCount, int kOff>
+__device__ __forceinline__ void warp_sum16(float (&v)[16], int lane) {
+  if constexpr (kOff > 0) {
+    if constexpr (kCount > 1) {
+      constexpr int kHalf = kCount / 2;
+      const bool up = (lane & kOff) != 0;
+#pragma unroll
+      for (int i = 0; i < kHalf; ++i) {
+        const float send = up ? v[i] : v[i + kHalf];
+        const float keep = up ? v[i + kHalf] : v[i];
+        v[i] = keep + __shfl_xor_sync(0xffffffffu, send, kOff);
+      }
+      warp_sum16<kHalf, kOff / 2>(v, lane);
+    } else {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], kOff);
+      warp_sum16<1, kOff / 2>(v, lane);
+    }
+  }
 }
 
-// One thread per state (b, d, n < kN); kBwdThreads / kN channels of one
-// batch row per block.  Dynamic shared memory: the warps' dB and dC sums,
-// [warp][t][2][kN] floats.
+// 16-byte (or 4-byte) copy from device to shared memory, not waited on
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// Dynamic shared memory of the backward: the next chunk's u, delta and g
+// as they lie in device memory, and its entering states.
 template <typename T, int kN>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+struct BwdRaw {
+  T u[kChunk][kChannels], dt[kChunk][kChannels], g[kChunk][kChannels];
+  float st[kGroups * kChannels][kN / kGroups];
+};
+
+// One thread per (channel, group of kS states), as in the forward.  Per
+// chunk, last first: keep the state entering each sub-chunk, then per
+// sub-chunk, last first, step it again (keeping h_{t-1} and a_t) and sweep
+// it in reverse.  Meanwhile the next chunk's u, delta, g and states copy
+// into shared memory by cp.async (kAsync: rows of 16-byte pieces; else
+// plain loads once the chunk is done) and its B and C load into registers.
+// du and ddelta sum over n: in the thread, then over the groups through
+// shared memory every kSpan steps.  dB and dC sum over d: warp_sum16 over
+// the lanes, one partial per (block, t, n) to device memory.  dA and dskip
+// sum over t in the thread and leave one partial per batch row.
+template <typename T, int kN, bool kAsync>
+__global__ void __launch_bounds__(kChannels * kGroups, 2)
     scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ delta,
                     const float* __restrict__ a, const T* __restrict__ bm,
                     const T* __restrict__ cm, const float* __restrict__ skip,
@@ -266,153 +339,233 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
                     float* __restrict__ part_a,
                     float* __restrict__ part_skip, int len, int dim, int n,
                     int d_blocks) {
-  constexpr int kCh = bwd_channels<kN>();
-  constexpr int kWarps = kBwdThreads / 32;
-  constexpr int kUD = kChunk * kCh / kBwdThreads;  // per thread, chunk
-  constexpr int kBC = (kChunk * kN + kBwdThreads - 1) / kBwdThreads;
-  __shared__ float s_u[kChunk][kCh];
-  __shared__ float s_dt[kChunk][kCh];
-  __shared__ float s_g[kChunk][kCh];
-  __shared__ float s_du[kChunk][kCh];
-  __shared__ float s_dd[kChunk][kCh];
-  __shared__ float s_b[kChunk][kN];
-  __shared__ float s_c[kChunk][kN];
-  extern __shared__ float s_part[];               // [kWarps][kChunk][2][kN]
+  using G = Bwd<kN>;
+  constexpr int kS = G::kS, kSub = G::kSub, kSubs = G::kSubs;
+  constexpr int kP = G::kPeriod, kSpan = G::kSpan;
+  constexpr int kThreads = kChannels * kGroups;
+  constexpr int kUD = kChunk / kGroups;
+  constexpr int kBC = (kChunk * kN + kThreads - 1) / kThreads;
+  constexpr int kPiece = 16 / sizeof(T);           // elements per piece
+  constexpr int kPieces = kChunk * kChannels / kPiece;
+  __shared__ float s_u[kChunk][kChannels];
+  __shared__ float s_dt[kChunk][kChannels];
+  __shared__ float s_g[kChunk][kChannels];
+  __shared__ __align__(16) float s_bc[kChunk][kGroups][2 * kS];
+  // each group's sums over its states of lambda B and A q, per step
+  __shared__ float s_r[2][kGroups][kSpan][kChannels];
+  extern __shared__ __align__(16) char s_dyn[];
+  BwdRaw<T, kN>& raw = *reinterpret_cast<BwdRaw<T, kN>*>(s_dyn);
 
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int tid = threadIdx.x;
+  const int lane = tid % kChannels, grp = tid / kChannels, n0 = grp * kS;
   const int row = blockIdx.x / d_blocks;
   const int blk = blockIdx.x - row * d_blocks;
-  const int d0 = blk * kCh;
-  const int ch = tid / kN, k = tid % kN;
-  const int d = d0 + ch;
-  const bool live = d < dim && k < n;
+  const int d0 = blk * kChannels, d = d0 + lane;
+  const bool live = d < dim;
   const size_t row0 = (size_t)row * len;
   const int n_chunks = (len + kChunk - 1) / kChunk;
+  // after warp_sum16, lane l holds element l / 2 of a period's terms:
+  // step ws_j of the period, B or C (ws_q), state n0 + ws_s; even lanes
+  // store it
+  const int ws_e = lane >> 1, ws_s = ws_e % kS;
+  const int ws_j = ws_e / (2 * kS), ws_q = ws_e / kS % 2;
+  const bool ws_on = (lane & 1) == 0 && n0 + ws_s < n;
+  float* part = part_bc + ((size_t)row * d_blocks + blk) * len * 2 * n +
+                (size_t)ws_j * 2 * n + ws_q * n + n0 + ws_s;
 
-  const float av = live ? a[(size_t)d * n + k] : 0.f;
-  const float coef = Exp<T>::coef(av);
-  const float skv = d < dim ? skip[d] : 0.f;
+  float av[kS], coef[kS], lam[kS], a_next[kS], da[kS];
+#pragma unroll
+  for (int s = 0; s < kS; ++s) {
+    av[s] = live && n0 + s < n ? a[(size_t)d * n + n0 + s] : 0.f;
+    coef[s] = Exp<T>::coef(av[s]);
+    lam[s] = da[s] = 0.f;
+    a_next[s] = 1.f;
+  }
+  const float skv = live ? skip[d] : 0.f;
+  float dskip = 0.f;
 
-  float ru[kUD], rd[kUD], rg[kUD], rb[kBC], rc[kBC], rs;
-  auto fetch = [&](int kk) {
+  // a chunk's u, delta, g and states: copied into raw (kAsync), else loaded
+  // and stored to shared memory directly; then (stage) zero past L and D
+  auto copy = [&](int kk) {
+    const int t0 = kk * kChunk;
+    for (int i = tid; i < kPieces; i += kThreads) {
+      const int tt = i / (kChannels / kPiece);
+      const int c0 = i % (kChannels / kPiece) * kPiece;
+      if (t0 + tt < len && d0 + c0 < dim) {
+        const size_t off = (row0 + t0 + tt) * dim + d0 + c0;
+        cp_async16(&raw.u[tt][c0], u + off);
+        cp_async16(&raw.dt[tt][c0], delta + off);
+        cp_async16(&raw.g[tt][c0], g + off);
+      }
+    }
+    const float* sp = states + (((size_t)row * n_chunks + kk) * dim + d) * n;
+#pragma unroll
+    for (int s = 0; s < kS; ++s)
+      if (live && n0 + s < n) cp_async4(&raw.st[tid][s], sp + n0 + s);
+  };
+  float rs[kS];  // the chunk's entering states
+  auto stage = [&](int kk) {
     const int t0 = kk * kChunk;
 #pragma unroll
     for (int i = 0; i < kUD; ++i) {
-      const int e = tid + i * kBwdThreads;
-      const int t = t0 + e / kCh, dd = d0 + e % kCh;
-      const bool ok = t < len && dd < dim;
-      const size_t off = (row0 + t) * dim + dd;
-      ru[i] = ok ? to_f(u[off]) : 0.f;
-      rd[i] = ok ? to_f(delta[off]) : 0.f;
-      rg[i] = ok ? to_f(g[off]) : 0.f;
+      const int tt = grp + i * kGroups;
+      const bool ok = t0 + tt < len && live;
+      const size_t off = (row0 + t0 + tt) * dim + d;
+      s_u[tt][lane] = !ok ? 0.f : to_f(kAsync ? raw.u[tt][lane] : u[off]);
+      s_dt[tt][lane] = !ok ? 0.f
+                           : to_f(kAsync ? raw.dt[tt][lane] : delta[off]);
+      s_g[tt][lane] = !ok ? 0.f : to_f(kAsync ? raw.g[tt][lane] : g[off]);
     }
+    const float* sp = states + (((size_t)row * n_chunks + kk) * dim + d) * n;
+#pragma unroll
+    for (int s = 0; s < kS; ++s)
+      rs[s] = !(live && n0 + s < n) ? 0.f
+                                    : (kAsync ? raw.st[tid][s] : sp[n0 + s]);
+  };
+  // B and C, zero past L and N: into registers, then to shared memory
+  float rb[kBC], rc[kBC];
+  auto fetch_bc = [&](int kk) {
+    const int t0 = kk * kChunk;
 #pragma unroll
     for (int i = 0; i < kBC; ++i) {
-      const int e = tid + i * kBwdThreads;
-      const int t = t0 + e / kN, kn = e % kN;
-      const bool ok = e < kChunk * kN && t < len && kn < n;
-      const size_t off = (row0 + t) * n + kn;
+      const int e = tid + i * kThreads;
+      const int tt = e / kN, kn = e % kN;
+      const bool ok = e < kChunk * kN && t0 + tt < len && kn < n;
+      const size_t off = (row0 + t0 + tt) * n + kn;
       rb[i] = ok ? to_f(bm[off]) : 0.f;
       rc[i] = ok ? to_f(cm[off]) : 0.f;
     }
-    rs = live ? states[(((size_t)row * n_chunks + kk) * dim + d) * n + k]
-              : 0.f;
   };
-  auto commit = [&]() {
-#pragma unroll
-    for (int i = 0; i < kUD; ++i) {
-      const int e = tid + i * kBwdThreads;
-      s_u[e / kCh][e % kCh] = ru[i];
-      s_dt[e / kCh][e % kCh] = rd[i];
-      s_g[e / kCh][e % kCh] = rg[i];
-    }
+  auto commit_bc = [&]() {
 #pragma unroll
     for (int i = 0; i < kBC; ++i) {
-      const int e = tid + i * kBwdThreads;
+      const int e = tid + i * kThreads;
+      const int tt = e / kN, kn = e % kN;
       if (e < kChunk * kN) {
-        s_b[e / kN][e % kN] = rb[i];
-        s_c[e / kN][e % kN] = rc[i];
+        s_bc[tt][kn / kS][kn % kS] = rb[i];
+        s_bc[tt][kn / kS][kS + kn % kS] = rc[i];
       }
     }
   };
 
-  float lam = 0.f, a_next = 1.f, da = 0.f, dskip = 0.f;
-  float h_prev[kChunk], decay[kChunk];
-  fetch(n_chunks - 1);
-  commit();
-  __syncthreads();
-  for (int kk = n_chunks - 1; kk >= 0; --kk) {
-    const int t0 = kk * kChunk;
-    float h = rs;
-    if (kk > 0) fetch(kk - 1);
-    // the chunk forward again, from its entering state (zero past L)
-#pragma unroll
-    for (int tt = 0; tt < kChunk; ++tt) {
-      const float dt = s_dt[tt][ch];
-      decay[tt] = Exp<T>::decay(dt, coef);
-      h_prev[tt] = h;
-      h = step(decay[tt], h, __fmul_rn(dt, s_u[tt][ch]), s_b[tt][k]);
-    }
-    // and backward; h is h_t
-#pragma unroll
-    for (int tt = kChunk - 1; tt >= 0; --tt) {
-      const float dt = s_dt[tt][ch], uv = s_u[tt][ch], gv = s_g[tt][ch];
-      const float bv = s_b[tt][k];
-      lam = fmaf(a_next, lam, gv * s_c[tt][k]);
-      const float q = lam * decay[tt] * h_prev[tt];
-      da = fmaf(q, dt, da);
-      float r1 = lam * bv, r2 = av * q;
-      float pb = lam * (dt * uv), pc = gv * h;
-#pragma unroll
-      for (int off = kN / 2; off > 0; off /= 2) {   // over the states
-        r1 += __shfl_xor_sync(0xffffffffu, r1, off);
-        r2 += __shfl_xor_sync(0xffffffffu, r2, off);
-      }
-#pragma unroll
-      for (int off = kN; off < 32; off *= 2) {      // over the channels
-        pb += __shfl_xor_sync(0xffffffffu, pb, off);
-        pc += __shfl_xor_sync(0xffffffffu, pc, off);
-      }
-      if (lane < kN) {
-        float* sp = s_part + ((warp * kChunk + tt) * 2) * kN + lane;
-        sp[0] = pb;
-        sp[kN] = pc;
-      }
-      if (k == 0) {
-        s_du[tt][ch] = fmaf(dt, r1, skv * gv);
-        s_dd[tt][ch] = fmaf(uv, r1, r2);
-      }
-      dskip = fmaf(gv, uv, dskip);
-      a_next = decay[tt];
-      h = h_prev[tt];
-    }
-    __syncthreads();  // s_du, s_dd, s_part complete; s_u .. s_c free
-#pragma unroll
-    for (int i = 0; i < kUD; ++i) {
-      const int e = tid + i * kBwdThreads;
-      const int tt = e / kCh, dd = d0 + e % kCh;
-      if (t0 + tt < len && dd < dim) {
-        const size_t off = (row0 + t0 + tt) * dim + dd;
-        store(du_out + off, s_du[tt][e % kCh]);
-        store(dd_out + off, s_dd[tt][e % kCh]);
-      }
-    }
-    for (int e = tid; e < kChunk * 2 * kN; e += kBwdThreads) {
-      const int tt = e / (2 * kN), qk = e % (2 * kN);
-      const int q = qk / kN, kn = qk % kN;
-      if (t0 + tt < len && kn < n) {
-        float sum = 0.f;
-        for (int w = 0; w < kWarps; ++w)
-          sum += s_part[(w * kChunk + tt) * 2 * kN + qk];
-        part_bc[(((size_t)row * d_blocks + blk) * len + t0 + tt) * 2 * n +
-                q * n + kn] = sum;
-      }
-    }
-    if (kk > 0) commit();
+  if (kAsync) {
+    copy(n_chunks - 1);
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
     __syncthreads();
   }
-  if (live) part_a[((size_t)row * dim + d) * n + k] = da;
-  if (k == 0 && d < dim) part_skip[(size_t)row * dim + d] = dskip;
+  stage(n_chunks - 1);
+  fetch_bc(n_chunks - 1);
+  commit_bc();
+  for (int kk = n_chunks - 1; kk >= 0; --kk) {
+    const int t0 = kk * kChunk;
+    float ck[kSubs][kS];  // the state entering each sub-chunk
+#pragma unroll
+    for (int s = 0; s < kS; ++s) ck[0][s] = rs[s];
+    __syncthreads();      // the chunk is staged, raw is free
+    if (kk > 0) {
+      if (kAsync) copy(kk - 1);
+      fetch_bc(kk - 1);
+    }
+#pragma unroll
+    for (int sc = 1; sc < kSubs; ++sc) {
+#pragma unroll
+      for (int s = 0; s < kS; ++s) ck[sc][s] = ck[sc - 1][s];
+#pragma unroll
+      for (int j = 0; j < kSub; ++j) {
+        const int tt = (sc - 1) * kSub + j;
+        const float dt = s_dt[tt][lane];
+        const float du = __fmul_rn(dt, s_u[tt][lane]);
+        float bc[2 * kS];
+        load_row<2 * kS>(&s_bc[tt][grp][0], bc);
+#pragma unroll
+        for (int s = 0; s < kS; ++s)
+          ck[sc][s] = step(Exp<T>::decay(dt, coef[s]), ck[sc][s], du, bc[s]);
+      }
+    }
+#pragma unroll
+    for (int sc = kSubs - 1; sc >= 0; --sc) {
+      const int s0 = sc * kSub;
+      // the sub-chunk forward again (zero past L), then backward; h is h_t
+      float hp[kSub][kS], dec[kSub][kS], h[kS];
+#pragma unroll
+      for (int s = 0; s < kS; ++s) h[s] = ck[sc][s];
+#pragma unroll
+      for (int j = 0; j < kSub; ++j) {
+        const float dt = s_dt[s0 + j][lane];
+        const float du = __fmul_rn(dt, s_u[s0 + j][lane]);
+        float bc[2 * kS];
+        load_row<2 * kS>(&s_bc[s0 + j][grp][0], bc);
+#pragma unroll
+        for (int s = 0; s < kS; ++s) {
+          dec[j][s] = Exp<T>::decay(dt, coef[s]);
+          hp[j][s] = h[s];
+          h[s] = step(dec[j][s], h[s], du, bc[s]);
+        }
+      }
+      float v[16];  // dB and dC terms of one period: [step][B or C][state]
+#pragma unroll
+      for (int j = kSub - 1; j >= 0; --j) {
+        const int tt = s0 + j, p = j % kP;
+        const float dt = s_dt[tt][lane], uv = s_u[tt][lane];
+        const float gv = s_g[tt][lane], dtu = dt * uv;
+        float bc[2 * kS];
+        load_row<2 * kS>(&s_bc[tt][grp][0], bc);
+        float r1 = 0.f, r2 = 0.f;
+#pragma unroll
+        for (int s = 0; s < kS; ++s) {
+          lam[s] = fmaf(a_next[s], lam[s], gv * bc[kS + s]);
+          const float q = lam[s] * dec[j][s] * hp[j][s];
+          da[s] = fmaf(q, dt, da[s]);
+          r1 = fmaf(lam[s], bc[s], r1);
+          r2 = fmaf(av[s], q, r2);
+          v[2 * p * kS + s] = lam[s] * dtu;
+          v[(2 * p + 1) * kS + s] = gv * h[s];
+          a_next[s] = dec[j][s];
+          h[s] = hp[j][s];
+        }
+        s_r[0][grp][tt % kSpan][lane] = r1;
+        s_r[1][grp][tt % kSpan][lane] = r2;
+        dskip = fmaf(gv, uv, dskip);  // every group: no branch
+        if (p == 0) {  // steps tt .. tt + kP - 1 are in v
+          warp_sum16<16, 16>(v, lane);
+          if (ws_on && t0 + tt + ws_j < len)
+            part[(size_t)(t0 + tt) * 2 * n] = v[0];
+        }
+      }
+      if (s0 % kSpan == 0) {  // du and ddelta of steps s0 .. s0 + kSpan - 1
+        __syncthreads();      // s_r complete
+#pragma unroll
+        for (int i = 0; i < kSpan / kGroups; ++i) {
+          const int j = grp + i * kGroups, tt = s0 + j;
+          float r1 = 0.f, r2 = 0.f;
+#pragma unroll
+          for (int gg = 0; gg < kGroups; ++gg) {
+            r1 += s_r[0][gg][j][lane];
+            r2 += s_r[1][gg][j][lane];
+          }
+          if (t0 + tt < len && live) {
+            const size_t off = (row0 + t0 + tt) * dim + d;
+            store(du_out + off,
+                  fmaf(s_dt[tt][lane], r1, skv * s_g[tt][lane]));
+            store(dd_out + off, fmaf(s_u[tt][lane], r1, r2));
+          }
+        }
+        __syncthreads();  // s_r free; after step 0, the chunk's arrays
+      }
+    }
+    if (kk > 0) {
+      if (kAsync) {
+        asm volatile("cp.async.wait_all;\n" ::: "memory");
+        __syncthreads();  // every thread's pieces have landed
+      }
+      stage(kk - 1);
+      commit_bc();
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < kS; ++s)
+    if (live && n0 + s < n) part_a[((size_t)row * dim + d) * n + n0 + s] = da[s];
+  if (grp == 0 && live) part_skip[(size_t)row * dim + d] = dskip;
 }
 
 // dB, dC: the blocks' partials added in block order, rounded to T; dA,
@@ -430,6 +583,8 @@ __global__ void scan_bwd_reduce_kernel(
     const size_t b = i / per_row, r = i - b * per_row;
     const float* p = part_bc + b * d_blocks * per_row + r;
     float sum = 0.f;
+    // unrolled so that many loads are in flight; the adds stay in order
+#pragma unroll 16
     for (int blk = 0; blk < d_blocks; ++blk) sum += p[blk * per_row];
     const size_t t = r / (2 * n), q = (r / n) % 2, k = r % n;
     store((q == 0 ? db : dc) + (b * len + t) * n + k, sum);
@@ -478,27 +633,33 @@ int launch(const void* u, const void* delta, const void* a, const void* b,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int kN>
-int launch_bwd_n(const void* u, const void* delta, const void* a,
-                 const void* b, const void* c, const void* skip,
-                 const void* g, const void* states, void* du, void* ddelta,
-                 float* part_bc, float* part_a, float* part_skip, int batch,
-                 int len, int dim, int n, int d_blocks, cudaStream_t s) {
-  const int smem = (kBwdThreads / 32) * kChunk * 2 * kN * (int)sizeof(float);
-  const cudaError_t rc = cudaFuncSetAttribute(
-      scan_bwd_kernel<T, kN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (rc != cudaSuccess) return (int)rc;
-  scan_bwd_kernel<T, kN><<<(unsigned)(batch * d_blocks), kBwdThreads, smem,
-                           s>>>(
-      (const T*)u, (const T*)delta, (const float*)a, (const T*)b,
-      (const T*)c, (const float*)skip, (const T*)g, (const float*)states,
-      (T*)du, (T*)ddelta, part_bc, part_a, part_skip, len, dim, n, d_blocks);
+// Launches the sweep; with kAsync its dynamic shared memory (the next
+// chunk's raw inputs, past the 48 KB it holds statically) is opted in
+// once per device.
+template <typename T, int kN, bool kAsync, typename... Args>
+int launch_bwd_n(int batch, int d_blocks, cudaStream_t s, Args... args) {
+  auto kernel = scan_bwd_kernel<T, kN, kAsync>;
+  constexpr int smem = kAsync ? (int)sizeof(BwdRaw<T, kN>) : 0;
+  if (kAsync) {
+    static bool opted[kMaxDevices] = {};
+    int dev = 0;
+    int rc = (int)cudaGetDevice(&dev);
+    if (rc != 0) return rc;
+    if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+    if (!opted[dev]) {
+      rc = (int)cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (rc != 0) return rc;
+      opted[dev] = true;
+    }
+  }
+  kernel<<<(unsigned)(batch * d_blocks), kChannels * kGroups, smem, s>>>(
+      args...);
   return (int)cudaGetLastError();
 }
 
 long long bwd_workspace(int batch, int len, int dim, int n) {
-  const long long d_blocks = (dim + bwd_channels(n) - 1) / bwd_channels(n);
+  const long long d_blocks = (dim + kChannels - 1) / kChannels;
   return (long long)batch * (d_blocks * len * 2 * n + (long long)dim * n +
                              dim);
 }
@@ -510,23 +671,32 @@ int launch_bwd(const void* u, const void* delta, const void* a,
                void* da, void* db, void* dc, void* dskip, void* workspace,
                int batch, int len, int dim, int n, void* stream) {
   if (!shape_ok(batch, len, dim, n)) return (int)cudaErrorInvalidValue;
-  const int d_blocks = (dim + bwd_channels(n) - 1) / bwd_channels(n);
+  const int d_blocks = (dim + kChannels - 1) / kChannels;
   if ((long long)batch * d_blocks > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   float* part_bc = (float*)workspace;
   float* part_a = part_bc + (size_t)batch * d_blocks * len * 2 * n;
   float* part_skip = part_a + (size_t)batch * dim * n;
   const cudaStream_t s = (cudaStream_t)stream;
-#define BWD_ARGS                                                          \
-  u, delta, a, b, c, skip, g, states, du, ddelta, part_bc, part_a,       \
-      part_skip, batch, len, dim, n, d_blocks, s
+#define BWD_ARGS                                                           \
+  (const T*)u, (const T*)delta, (const float*)a, (const T*)b, (const T*)c, \
+      (const float*)skip, (const T*)g, (const float*)states, (T*)du,       \
+      (T*)ddelta, part_bc, part_a, part_skip, len, dim, n, d_blocks
+  // the next chunk copies in 16-byte pieces where rows of u, delta and g
+  // are 16-byte aligned; else it loads once the chunk is done
+  const bool async =
+      (size_t)dim * sizeof(T) % 16 == 0 &&
+      (((uintptr_t)u | (uintptr_t)delta | (uintptr_t)g) & 15) == 0;
   int rc;
   if (n <= 8)
-    rc = launch_bwd_n<T, 8>(BWD_ARGS);
+    rc = async ? launch_bwd_n<T, 8, true>(batch, d_blocks, s, BWD_ARGS)
+               : launch_bwd_n<T, 8, false>(batch, d_blocks, s, BWD_ARGS);
   else if (n <= 16)
-    rc = launch_bwd_n<T, 16>(BWD_ARGS);
+    rc = async ? launch_bwd_n<T, 16, true>(batch, d_blocks, s, BWD_ARGS)
+               : launch_bwd_n<T, 16, false>(batch, d_blocks, s, BWD_ARGS);
   else
-    rc = launch_bwd_n<T, 32>(BWD_ARGS);
+    rc = async ? launch_bwd_n<T, 32, true>(batch, d_blocks, s, BWD_ARGS)
+               : launch_bwd_n<T, 32, false>(batch, d_blocks, s, BWD_ARGS);
 #undef BWD_ARGS
   if (rc != 0) return rc;
   const long long total = (long long)batch * len * 2 * n +

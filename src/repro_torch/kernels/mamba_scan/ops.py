@@ -78,10 +78,10 @@ def _check_kernel(u, delta, a, b, c, skip) -> None:
     if not 0 < n <= MAX_STATE:
         raise ValueError(f"mamba_scan kernel: state size N = {n} is outside "
                          f"1..{MAX_STATE}")
-    # the kernels index with 32-bit ints and launch one block per 16 or
-    # more channels of a batch row
+    # the kernels index with 32-bit ints and launch one block per 32
+    # channels of a batch row
     if u.numel() > _MAX_INT or b.numel() > _MAX_INT \
-            or u.shape[0] * -(-u.shape[2] // 16) > _MAX_INT:
+            or u.shape[0] * -(-u.shape[2] // 32) > _MAX_INT:
         raise ValueError(f"mamba_scan kernel: shape {tuple(u.shape)} "
                          f"exceeds its grid")
 

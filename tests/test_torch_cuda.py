@@ -45,17 +45,30 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("bsz,nin,hid", [(1, 32, 32), (130, 32, 32),
-                                         (256, 32, 32), (64, 128, 64)])
-@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
-                                        (torch.bfloat16, 2e-2)])
-def test_lstm_cell_kernel_matches_plain_version(cuda, bsz, nin, hid, dtype,
-                                                atol):
+def _cell_args(bsz, nin, hid, dtype, device):
     g = torch.Generator().manual_seed(bsz)
     args = [torch.randn(s, generator=g) * k for s, k in (
         ((bsz, nin), 1.0), ((bsz, hid), 1.0), ((bsz, hid), 1.0),
         ((nin, 4 * hid), 0.2), ((hid, 4 * hid), 0.2), ((4 * hid,), 0.1))]
-    args = [a.to(cuda, dtype) for a in args]
+    return [a.to(device, dtype) for a in args]
+
+
+# fp32: 1e-5 absolute, the products' sums in another order than the plain
+# version's matmul (observed <= 8e-7); bf16: outputs within a bf16 ulp of
+# the plain version's rounding of the same fp32 math, 2e-2 (the JAX sweep's)
+CELL_TOL = [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)]
+
+
+# the path's job buckets (1, 16, 256), a ragged batch (7), the JAX sweep's
+# shapes (8, 130 at In = H = 32; 64 at In = 128, H = 64)
+@pytest.mark.parametrize("bsz,nin,hid", [(1, 32, 32), (7, 32, 32),
+                                         (8, 32, 32), (16, 32, 32),
+                                         (130, 32, 32), (256, 32, 32),
+                                         (64, 128, 64)])
+@pytest.mark.parametrize("dtype,atol", CELL_TOL)
+def test_lstm_cell_kernel_matches_plain_version(cuda, bsz, nin, hid, dtype,
+                                                atol):
+    args = _cell_args(bsz, nin, hid, dtype, cuda)
     before = lstm_cell.launches
     got = lstm_cell(*args)
     torch.cuda.synchronize()
@@ -63,6 +76,28 @@ def test_lstm_cell_kernel_matches_plain_version(cuda, bsz, nin, hid, dtype,
     for g_, w in zip(got, lstm_cell_ref(*args)):
         torch.testing.assert_close(g_.float(), w.float(), rtol=atol,
                                    atol=atol)
+
+
+@pytest.mark.parametrize("bsz,nin,hid", [(33, 5, 7), (3, 11, 32),
+                                         (9, 32, 257)])
+@pytest.mark.parametrize("dtype,atol", CELL_TOL)
+def test_lstm_cell_kernel_takes_unaligned_inputs(cuda, bsz, nin, hid, dtype,
+                                                 atol):
+    """H that is no multiple of 8, and every input a view one element past
+    a 16-byte boundary: the weights load by plain loads, not 16-byte
+    copies."""
+    args = _cell_args(bsz, nin, hid, dtype, cuda)
+    shifted = [torch.cat([t.new_zeros(1), t.reshape(-1)])[1:].view(t.shape)
+               for t in args]
+    assert all(t.data_ptr() % 16 for t in shifted)
+    before = lstm_cell.launches
+    for xs in (args, shifted):
+        got = lstm_cell(*xs)
+        torch.cuda.synchronize()
+        for g_, w in zip(got, lstm_cell_ref(*args)):
+            torch.testing.assert_close(g_.float(), w.float(), rtol=atol,
+                                       atol=atol)
+    assert lstm_cell.launches == before + 2
 
 
 def test_fused_interval_launches_the_kernel_for_every_cell(cuda):
@@ -340,11 +375,15 @@ def _scan_inputs(b, l, d, n, dtype, device, seed):
             + [t.to(device, dtype) for t in (bm, cm)] + [skip.to(device)])
 
 
-# the JAX sweep (tests/test_kernels.py MAMBA_SWEEP), ragged shapes, and
+# the JAX sweep (tests/test_kernels.py MAMBA_SWEEP), ragged shapes (L
+# no multiple of 32, D no multiple of the backward's 32 channels a block, N
+# = 1, 4, 5, 8, 16 and 32; rows of 50 or 129 elements are not 16-byte
+# aligned, so the backward loads its next chunk without cp.async), and
 # falcon-mamba-7b's training shapes (B x L x d_inner x N)
 SCAN_SHAPES = [(1, 64, 128, 16), (2, 128, 64, 16), (1, 96, 256, 8),
                (3, 77, 200, 5), (1, 1, 3, 1), (2, 33, 129, 32),
-               (2, 256, 8192, 16), (4, 512, 8192, 16)]
+               (2, 33, 129, 4), (1, 70, 100, 8), (1, 40, 50, 16),
+               (2, 64, 96, 32), (2, 256, 8192, 16), (4, 512, 8192, 16)]
 
 
 @pytest.mark.parametrize("b,l,d,n", SCAN_SHAPES)
@@ -425,12 +464,41 @@ def test_mamba_scan_backward_kernel_matches_plain_versions(cuda, b, l, d, n,
     else:
         torch.testing.assert_close(states, want_states, rtol=1e-4,
                                    atol=1e-4)
+    before = mamba_scan_bwd.launches
     got = mamba_scan_bwd(*args, g, states)
+    again = mamba_scan_bwd(*args, g, states)
     torch.cuda.synchronize()
+    assert mamba_scan_bwd.launches == before + 2 * \
+        scan_ops.BWD_LAUNCHES_PER_CALL
+    # fixed summation orders, no atomics: two calls agree bit for bit
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
     _assert_grads_close(got, mamba_scan_bwd_ref(*args, g, states), dtype)
     xs = [t.clone().requires_grad_() for t in args]
     _assert_grads_close(
         got, torch.autograd.grad(mamba_scan_ref(*xs), xs, g), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_scan_backward_takes_unaligned_inputs(cuda, dtype):
+    """u, delta and g one element past a 16-byte boundary: the backward
+    loads each next chunk by plain loads, not cp.async, to the same
+    gradients bit for bit."""
+    args = _scan_inputs(2, 70, 256, 16, dtype, cuda, seed=5)
+    g = torch.randn(2, 70, 256, generator=torch.Generator().manual_seed(5)
+                    ).to(cuda, dtype)
+    _, states = scan_ops._launch(*args, keep_states=True)
+
+    def shifted(t):
+        return torch.cat([t.new_zeros(1), t.reshape(-1)])[1:].view(t.shape)
+
+    moved = list(args)
+    moved[0], moved[1] = shifted(args[0]), shifted(args[1])
+    assert moved[0].data_ptr() % 16 and moved[0].is_contiguous()
+    got = mamba_scan_bwd(*moved, shifted(g), states)
+    want = mamba_scan_bwd(*args, g, states)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    _assert_grads_close(got, mamba_scan_bwd_ref(*args, g, states), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

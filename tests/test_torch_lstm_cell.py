@@ -90,10 +90,20 @@ def test_empty_batch_returns_empty_outputs():
     assert h.shape == (0, 32) and c.shape == (0, 32)
 
 
-def test_kernel_geometry_takes_the_path_and_sweep_shapes_only():
+@pytest.mark.parametrize("elem", [4, 2])
+def test_kernel_geometry_takes_the_path_and_sweep_shapes_only(elem):
+    """A block of the kernel takes 8 hidden units and 8 batch rows and
+    stages its (In + H + 1) x 32 slice of the weights and the bias and its
+    rows of x and h in shared memory (at most 227 KB): the path's and the
+    JAX sweep's shapes fit in both dtypes, and so does H that is no
+    multiple of 8; a slice past 227 KB does not."""
     from repro_torch.kernels.lstm_cell import ops
-    for bsz, nin, hid in LSTM_SWEEP + [(256, 32, 32)]:
-        ops._check_launch(bsz, nin, hid)
-    for bsz, nin, hid in [(8, 32, 257), (8, 1400, 32), (2 ** 26, 64, 32)]:
+    for _, nin, hid in LSTM_SWEEP + [(1, 32, 32), (16, 32, 32),
+                                     (256, 32, 32), (8, 32, 257)]:
+        ops._check_launch(nin, hid, elem)
+    for nin, hid in [(32, 3000), (4000, 32), (2500, 2500)]:
         with pytest.raises(ValueError):
-            ops._check_launch(bsz, nin, hid)
+            ops._check_launch(nin, hid, elem)
+    # fp32 elements take twice the room of bf16 ones
+    assert ops.smem_bytes(1400, 128, 4) > ops._SMEM_BYTES \
+        >= ops.smem_bytes(1400, 128, 2)
