@@ -37,7 +37,23 @@ Phases:
    bucket, and the device's busy ms per interval and the cell's device
    time per launch (beside its bound and the floor) at 1, 16 and 256
    jobs;
-5. LM serving, fp32: yi-6b at full width and depth (seeded weights),
+5. START training and simulation at the paper's width: the warmup
+   (``collect_training_data(SimConfig(seed=7))``, 400 hosts x 288
+   intervals); a training gate in fp32 on the card, three ``train_step``s
+   of 64 (lr 1e-3) through the kernel, 10 ``lstm_cell`` launches a step,
+   each loss within 1e-5 relative of the same loss through the plain cell
+   (autograd of the plain version) from the same params, and step 1's
+   gradients within 1e-5 relative in norm; then ``pretrain``'s fit (30
+   epochs) on the card, warm ms per ``train_step`` split into forward,
+   backward and Adam, and a profiled step (device busy, device ops, the
+   cell's share); then the trained ``START`` and ``STARTEager`` on
+   planetlab and overload at 400 hosts (288 intervals, arrival rate 1.2),
+   each on the card and on the CPU from the same params in lockstep:
+   E_S and the predicted straggler count within the Tier-1 bound every
+   interval, the action streams equal up to their first difference,
+   which must involve a boundary job, 10 ``lstm_cell`` launches an
+   interval that predicts; warm ms per interval and each run's summary;
+6. LM serving, fp32: yi-6b at full width and depth (seeded weights),
    ``Engine(n_slots=4, max_len=4096)`` serving 6 seeded requests
    (prompts of 12 to 3000 tokens, 16 new tokens each); every prefill
    launches ``flash_attention`` once per layer and every decoded token
@@ -45,23 +61,23 @@ Phases:
    streams re-run under teacher forcing through the plain attention
    functions agree within 1e-4 on every step's logits, with equal greedy
    tokens except where the plain path's top-2 margin is under 1e-4;
-6. LM serving, bf16 (the config's own dtype): the same requests, timed
+7. LM serving, bf16 (the config's own dtype): the same requests, timed
    (TTFT per prompt length, warm decode ms per token, tokens/s), drift
    against the plain path, profiler device busy per token, and the
    serving entry point ``repro_torch.launch.serve`` once at yi-6b;
-7. MoE serving, fp32: qwen3-moe-30b-a3b at full width, 12 of its 48
+8. MoE serving, fp32: qwen3-moe-30b-a3b at full width, 12 of its 48
    layers (seeded weights), the same engine and requests; every MoE
    layer launches ``moe_router`` once per prefill and per decoded token;
    the teacher-forced re-run takes the plain attention and the plain
    router.  Routing may differ only where the plain path's k-th and
    (k+1)-th probabilities nearly tie (a hidden state moved by ~1e-6 can
    swap them); each request's logits are held to 1e-4, and its greedy
-   tokens as in phase 5, on every step before its first routing
+   tokens as in phase 6, on every step before its first routing
    difference;
-8. MoE serving, bf16: qwen3-moe-30b-a3b at full width and depth, timed
-   as in phase 6, with the routing differences counted, and
+9. MoE serving, bf16: qwen3-moe-30b-a3b at full width and depth, timed
+   as in phase 7, with the routing differences counted, and
    ``repro_torch.launch.serve`` once at qwen3-moe-30b-a3b;
-9. SSM training, fp32: falcon-mamba-7b at full width, 8 of its 64
+10. SSM training, fp32: falcon-mamba-7b at full width, 8 of its 64
    layers (seeded weights), three AdamW steps of ``Trainer`` on
    ``SyntheticLM`` batches of 2 x 256 tokens, every layer's forward and
    its recompute in the backward launching ``mamba_scan`` and its
@@ -69,13 +85,13 @@ Phases:
    same loss through the plain scan (autograd of the plain version),
    within 1e-5 relative, and step 1's gradients within 1e-4 relative in
    norm;
-10. SSM training, bf16: falcon-mamba-7b at full width, 32 of its 64
+11. SSM training, bf16: falcon-mamba-7b at full width, 32 of its 64
    layers, batches of 4 x 512 tokens, one warm step and three timed (ms
    per step, tokens/s), one step by its parts (forward / backward /
    optimizer, and the scan backward's share timed inside it),
    profiler device busy per step, peak memory; and
    ``repro_torch.launch.train`` once, reduced, on the card;
-11. summary: one JSON line of kernel numbers, the card's line, and last
+12. summary: one JSON line of kernel numbers, the card's line, and last
    ``{"ok": true, "device": {...}}``.
 
 Each phase prints its wall time.
@@ -102,6 +118,7 @@ import torch  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.paper_default import PAPER  # noqa: E402
+from repro_torch.core import encoder_lstm as net  # noqa: E402
 from repro_torch.core import features  # noqa: E402
 from repro_torch.core.start import STARTController  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -128,14 +145,19 @@ from repro_torch.models.lm import Model, full_precision  # noqa: E402
 from repro_torch.serve.engine import (  # noqa: E402
     Engine, EngineConfig, Request)
 from repro_torch.serve.kv_cache import pad_to_length  # noqa: E402
+from repro_torch.sim.config import SimConfig  # noqa: E402
+from repro_torch.sim.engine import Simulation  # noqa: E402
+from repro_torch.sim.scenarios import make_config  # noqa: E402
+from repro_torch.sim.techniques import start_tech  # noqa: E402
 from repro_torch.train import optimizer as Opt  # noqa: E402
 from repro_torch.train.data import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.train.trainer import Trainer, value_and_grad  # noqa: E402
 
 # (batch, n_in, hidden): the JAX package's kernel sweep
-# (tests/test_kernels.py LSTM_SWEEP) and the decision path's cell shapes
+# (tests/test_kernels.py LSTM_SWEEP) and the paths' cell shapes: the
+# decision's job buckets 1, 16 and 256, and START training's batch of 64
 LSTM_SWEEP = [(8, 32, 32), (130, 32, 32), (64, 128, 64)]
-PATH_SHAPES = [(1, 32, 32), (16, 32, 32), (256, 32, 32)]
+PATH_SHAPES = [(1, 32, 32), (16, 32, 32), (64, 32, 32), (256, 32, 32)]
 # fp32: max abs; bf16: the sweep's allclose tolerance
 TOL = {torch.float32: dict(rtol=0.0, atol=1e-5),
        torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
@@ -994,6 +1016,7 @@ class Telemetry:
         return dict(
             m_h=m_h, straggler_counts=self.rng.poisson(0.2, self.n_hosts),
             job_ids=ids, m_t=m_t, q=counts.astype(np.float32),
+            task_job=lambda tid: tid // self.max_tasks,
             open_counts=np.array([d["open"].sum() for d in jobs]),
             deadline=np.array([d["deadline"] for d in jobs]),
             incomplete_fn=incomplete, host_load=util[:, 0])
@@ -1047,34 +1070,56 @@ def _action_keys(actions) -> list[tuple]:
             for a in actions]
 
 
-def compare_interval(t, ctrl_a, ctrl_b, tel, acts_a, acts_b) -> dict:
-    """Hold run b against run a on one interval: E_S within the Tier-1
-    bound, actions equal except for boundary jobs.  After a permitted
-    flip, b takes a's trigger state so later intervals compare like with
-    like."""
-    ids = [int(j) for j in tel["job_ids"]]
-    e_a = np.array([ctrl_a._es_cache[j] for j in ids], np.float32)
-    e_b = np.array([ctrl_b._es_cache[j] for j in ids], np.float32)
+def es_drift(t: int, e_a: np.ndarray, e_b: np.ndarray) -> float:
+    """Largest relative E_S difference of two runs at interval ``t``;
+    raises past the Tier-1 bound or on a value that is not finite."""
     if not (np.isfinite(e_a).all() and np.isfinite(e_b).all()):
         raise AssertionError(f"interval {t}: E_S not finite")
-    rel = float((np.abs(e_a.astype(np.float64) - e_b)
+    if not len(e_a):
+        return 0.0
+    rel = float((np.abs(np.asarray(e_a, np.float64) - e_b)
                  / np.maximum(np.abs(e_b), TIER1_ABS_FLOOR)).max())
     if rel > TIER1_REL:
         raise AssertionError(f"interval {t}: E_S drift {rel:.3e} > "
                              f"{TIER1_REL}")
-    flips = 0
-    key_a, key_b = _action_keys(acts_a), _action_keys(acts_b)
-    if key_a != key_b:
-        differ = {k[0] for k in set(key_a) ^ set(key_b)}
-        allowed = boundary_jobs(ctrl_a, tel, e_a)
-        if not differ <= allowed:
+    return rel
+
+
+def hold_decisions(t, ctrl_a, ctrl_b, tel, e_a, keys_a, keys_b) -> int:
+    """Hold run b's decision at interval ``t`` against run a's: the
+    actions (keys whose first element is the job) and the trigger state
+    (streaks, cooldowns, mitigated jobs) equal except for boundary jobs;
+    ``tel["task_job"]`` maps a task id to its job.  After a permitted
+    difference, b takes a's trigger state so later intervals compare
+    like with like.  Returns the number of jobs that differ."""
+    differ = {k[0] for k in set(keys_a) ^ set(keys_b)}
+    for tid in set(ctrl_a._streak) | set(ctrl_b._streak) \
+            | set(ctrl_a._cool) | set(ctrl_b._cool):
+        if ctrl_a._streak.get(tid) != ctrl_b._streak.get(tid) \
+                or ctrl_a._cool.get(tid) != ctrl_b._cool.get(tid):
+            differ.add(int(tel["task_job"](tid)))
+    differ |= set(ctrl_a._mitigated) ^ set(ctrl_b._mitigated)
+    if differ:
+        if not differ <= boundary_jobs(ctrl_a, tel, e_a):
             raise AssertionError(
-                f"interval {t}: actions differ for jobs {sorted(differ)} "
+                f"interval {t}: decisions differ for jobs {sorted(differ)} "
                 f"away from any decision boundary")
-        flips = len(differ)
         ctrl_b._mitigated = set(ctrl_a._mitigated)
         ctrl_b._streak = dict(ctrl_a._streak)
         ctrl_b._cool = dict(ctrl_a._cool)
+    return len(differ)
+
+
+def compare_interval(t, ctrl_a, ctrl_b, tel, acts_a, acts_b) -> dict:
+    """Hold run b against run a on one interval: E_S within the Tier-1
+    bound, actions and trigger state equal except for boundary jobs
+    (:func:`hold_decisions`)."""
+    ids = [int(j) for j in tel["job_ids"]]
+    e_a = np.array([ctrl_a._es_cache[j] for j in ids], np.float32)
+    e_b = np.array([ctrl_b._es_cache[j] for j in ids], np.float32)
+    rel = es_drift(t, e_a, e_b)
+    flips = hold_decisions(t, ctrl_a, ctrl_b, tel, e_a, _action_keys(acts_a),
+                           _action_keys(acts_b))
     return dict(rel=rel, flips=flips)
 
 
@@ -1204,7 +1249,362 @@ def profile_intervals(ctrl, tel_gen, nb: int, floor: float,
     return out
 
 
-# ------------------------------ phases 5 and 6 ------------------------------
+# --------------------------------- phase 5 ---------------------------------
+# START's training and simulation at the paper's width
+
+TRAIN_BATCH, TRAIN_LR = 64, 1e-3           # start_tech.pretrain's fit
+TRAIN_GATE_STEPS = 3
+TRAIN_REL = 1e-5         # losses and step-1 gradients, relative (in norm)
+TRAIN_TIMED_STEPS = 20
+PRETRAIN_EPOCHS = 30
+CELLS_PER_STEP = 2 * PAPER["horizon"]      # LSTM layers x horizon
+SIM_SCENARIOS = ("planetlab", "overload")
+SIM_INTERVALS = 288                        # make_config's paper length
+SIM_ARRIVAL = 1.2                          # the paper's Poisson rate
+
+
+@contextlib.contextmanager
+def plain_cell():
+    """START's LSTM cells through the plain PyTorch version on the card,
+    differentiated by autograd (the kernel's wrapper is not called)."""
+    saved = net.lstm_cell
+    net.lstm_cell = lstm_cell_ref
+    try:
+        yield
+    finally:
+        net.lstm_cell = saved
+
+
+def start_controller(device: str, params=None) -> STARTController:
+    """A controller as ``start_tech.pretrain`` builds it (paper width,
+    beta in interval units), holding ``params`` when given."""
+    cfg = SimConfig()
+    ctrl = STARTController(n_hosts=cfg.n_hosts, max_tasks=cfg.max_tasks,
+                           k=cfg.k, seed=SEED,
+                           beta_scale=cfg.interval_seconds, device=device)
+    if params is not None:
+        ctrl.predictor.load_params(params)
+    return ctrl
+
+
+def start_warmup() -> tuple[np.ndarray, np.ndarray]:
+    """``collect_training_data`` at the paper's width (``SimConfig``'s
+    defaults: 400 hosts, 288 intervals), as ``pretrain`` runs it."""
+    cfg = SimConfig(seed=7)
+    t0 = time.perf_counter()
+    xs, ys = start_tech.collect_training_data(cfg)
+    host_s = time.perf_counter() - t0
+    if xs.shape[0] != PAPER["horizon"] or xs.shape[1] != ys.shape[0] \
+            or xs.shape[2] != features.input_dim(cfg.n_hosts, cfg.max_tasks):
+        raise AssertionError(f"warmup data of shapes {xs.shape}, {ys.shape}")
+    if not (np.isfinite(xs).all() and np.isfinite(ys).all()):
+        raise AssertionError("warmup data not finite")
+    print(f"[start] warmup: {cfg.n_hosts} hosts x {cfg.n_intervals} "
+          f"intervals, xs {xs.shape}, ys {ys.shape} in {host_s:.3f} s host")
+    return xs, ys
+
+
+def start_train_gate(xs: np.ndarray, ys: np.ndarray) -> dict:
+    """fp32 on the card.  The main path: ``TRAIN_GATE_STEPS`` of
+    ``train_step`` through the kernel (launch count set to 0 just before
+    and read just after, ``CELLS_PER_STEP`` a step).  Then, from the
+    params before each step, the same loss through the plain cell (held
+    to ``TRAIN_REL`` relative), and step 1's gradients both ways (held to
+    ``TRAIN_REL`` relative in norm over the tree)."""
+    pred = start_controller(DEVICE).predictor
+    xs_d = torch.as_tensor(xs, device=DEVICE)
+    ys_d = torch.as_tensor(ys, device=DEVICE)
+    rng = np.random.default_rng(SEED)
+    batches = [torch.as_tensor(rng.permutation(xs.shape[1])[:TRAIN_BATCH],
+                               device=DEVICE)
+               for _ in range(TRAIN_GATE_STEPS)]
+    params, opt = pred.params, pred.opt
+    befores, losses, per_step = [], [], []
+    lstm_cell.launches = 0
+    for idx in batches:
+        befores.append(params)
+        n0 = lstm_cell.launches
+        params, opt, loss = net.train_step(params, opt, xs_d[:, idx],
+                                           ys_d[idx], lr=TRAIN_LR)
+        losses.append(float(loss))
+        per_step.append(lstm_cell.launches - n0)
+    launches = lstm_cell.launches
+    if per_step != [CELLS_PER_STEP] * TRAIN_GATE_STEPS:
+        raise AssertionError(f"lstm_cell launches per train_step {per_step},"
+                             f" expected {CELLS_PER_STEP} each")
+    if any(p.requires_grad for p in convert.leaves(params)):
+        raise AssertionError("train_step returned params that require grad")
+    worst = 0.0
+    for i, (p, idx) in enumerate(zip(befores, batches)):
+        with plain_cell():
+            want, grads_p = net.loss_and_grads(p, xs_d[:, idx], ys_d[idx])
+        rel = abs(losses[i] - float(want)) / abs(float(want))
+        worst = max(worst, rel)
+        if not (np.isfinite(losses[i]) and rel <= TRAIN_REL):
+            raise AssertionError(f"train step {i + 1}: loss {losses[i]!r} "
+                                 f"against the plain cell's {float(want)!r}")
+        if i == 0:
+            _, grads_k = net.loss_and_grads(p, xs_d[:, idx], ys_d[idx])
+            g_rel, g_worst = tree_rel(grads_k, grads_p)
+            if not g_rel <= TRAIN_REL:
+                raise AssertionError(f"step-1 gradients {g_rel:.3e} apart "
+                                     f"in norm (bound {TRAIN_REL})")
+    print(f"[start] training gate fp32: {TRAIN_GATE_STEPS} train_steps of "
+          f"{TRAIN_BATCH} through the kernel, losses {losses}; against the "
+          f"plain cell: losses within {worst:.3e} relative, step-1 "
+          f"gradients {g_rel:.3e} in norm (worst leaf {g_worst:.3e}), bound "
+          f"{TRAIN_REL}; lstm_cell launches {per_step} a step")
+    return dict(losses=losses, max_rel_loss=worst, grad_rel=g_rel,
+                grad_worst_leaf=g_worst, launches=launches)
+
+
+def _synced(fn):
+    """``fn()`` and its host ms, ending in a synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def start_train_timing(xs: np.ndarray, ys: np.ndarray) -> dict:
+    """``pretrain``'s fit on the card (``PRETRAIN_EPOCHS`` epochs), then
+    warm ms per ``train_step`` (median of the steps after the first), the
+    same step by its parts (forward, backward, Adam), the part of the
+    backward a backward kernel for the cell would replace (the cell's
+    autograd Function recomputes the plain cell and differentiates it,
+    ``CELLS_PER_STEP`` times a step), and one profiled window: device
+    busy and device ops per step, the cell's share.  Returns the trained
+    params with the numbers."""
+    pred = start_controller(DEVICE).predictor
+    _, fit_ms = _synced(lambda: pred.fit(xs, ys, epochs=PRETRAIN_EPOCHS,
+                                         lr=TRAIN_LR))
+    losses = pred.losses
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"fit's epoch losses {losses}")
+    steps = PRETRAIN_EPOCHS * (xs.shape[1] // TRAIN_BATCH)
+    trained = convert.tree_map(torch.Tensor.clone, pred.params)
+
+    xs_d = torch.as_tensor(xs[:, :TRAIN_BATCH], device=DEVICE)
+    ys_d = torch.as_tensor(ys[:TRAIN_BATCH], device=DEVICE)
+    state = dict(params=pred.params, opt=pred.opt)
+
+    def step():
+        state["params"], state["opt"], loss = net.train_step(
+            state["params"], state["opt"], xs_d, ys_d, lr=TRAIN_LR)
+        return loss
+
+    whole = [_synced(step)[1] for _ in range(TRAIN_TIMED_STEPS + 1)]
+    fwd, bwd, adam = [], [], []
+    for _ in range(TRAIN_TIMED_STEPS + 1):
+        ps = convert.tree_map(lambda t: t.detach().requires_grad_(),
+                              state["params"])
+        with torch.enable_grad():
+            loss, ms_f = _synced(lambda: net.mse_loss(ps, xs_d, ys_d))
+            grads, ms_b = _synced(lambda: torch.autograd.grad(
+                loss, convert.leaves(ps)))
+        (state["params"], state["opt"]), ms_a = _synced(
+            lambda: net.adam_update(state["params"],
+                                    convert.unflatten(ps, grads),
+                                    state["opt"], lr=TRAIN_LR))
+        fwd.append(ms_f)
+        bwd.append(ms_b)
+        adam.append(ms_a)
+    # the Function's backward, CELLS_PER_STEP times at the step's shapes
+    g = torch.Generator().manual_seed(SEED)
+    args = [t.to(DEVICE) for t in (
+        torch.randn(TRAIN_BATCH, n, generator=g) for n in (32, 32, 32))] \
+        + [state["params"]["lstm"][0][k] for k in ("wx", "wh", "b")]
+    seed_grads = [torch.ones(TRAIN_BATCH, 32, device=DEVICE)] * 2
+
+    def recompute():
+        for _ in range(CELLS_PER_STEP):
+            xs_c = [t.detach().requires_grad_() for t in args]
+            with torch.enable_grad():
+                torch.autograd.grad(lstm_cell_ref(*xs_c), xs_c, seed_grads)
+
+    rec = [_synced(recompute)[1] for _ in range(TRAIN_TIMED_STEPS + 1)]
+    rec_ops = sum(c for _, c in _device_ops(recompute, 3).values()) / 3
+    ops = _device_ops(step, TRAIN_TIMED_STEPS)
+    busy = sum(t for t, _ in ops.values()) / 1e6 / TRAIN_TIMED_STEPS
+    n_ops = sum(c for _, c in ops.values()) / TRAIN_TIMED_STEPS
+    cell = [v for k, v in ops.items() if "lstm_cell_kernel" in k]
+    cell_ms = sum(t for t, _ in cell) / 1e6 / TRAIN_TIMED_STEPS
+    cell_n = sum(c for _, c in cell) / TRAIN_TIMED_STEPS
+    top = sorted(ops.items(), key=lambda kv: -kv[1][0])[:5]
+    out = dict(fit_ms=fit_ms, fit_steps=steps, epochs=PRETRAIN_EPOCHS,
+               first_loss=losses[0], last_loss=losses[-1],
+               step_ms=float(np.median(whole[1:])),
+               forward_ms=float(np.median(fwd[1:])),
+               backward_ms=float(np.median(bwd[1:])),
+               adam_ms=float(np.median(adam[1:])),
+               recompute_ms=float(np.median(rec[1:])),
+               recompute_ops=rec_ops,
+               device_busy_ms=busy, device_ops=n_ops,
+               cell_device_ms=cell_ms, cell_launches=cell_n,
+               top=[dict(op=k[:100], ms=t / 1e6 / TRAIN_TIMED_STEPS,
+                         calls=c / TRAIN_TIMED_STEPS)
+                    for k, (t, c) in top])
+    print(f"[start] fit: {PRETRAIN_EPOCHS} epochs, {steps} train_steps of "
+          f"{TRAIN_BATCH} in {fit_ms:.1f} ms host ({fit_ms / steps:.3f} ms "
+          f"a step); epoch losses {losses[0]:.6f} -> {losses[-1]:.6f}")
+    print(f"[start] warm ms per train_step {out['step_ms']:.3f} (median of "
+          f"{TRAIN_TIMED_STEPS}): forward {out['forward_ms']:.3f} + "
+          f"backward {out['backward_ms']:.3f} + Adam {out['adam_ms']:.3f}; "
+          f"the cells' recompute and its gradient (the Function's "
+          f"backward, {CELLS_PER_STEP} a step) {out['recompute_ms']:.3f} "
+          f"ms, {rec_ops:.0f} device ops, "
+          f"{out['recompute_ms'] / out['step_ms']:.1%} of the step")
+    print(f"[profile] train_step: device busy {busy:.4f} ms over "
+          f"{n_ops:.0f} kernels and copies a step; lstm_cell "
+          f"{cell_n:.0f} launches ({cell_n / n_ops:.1%} of the ops), "
+          f"{cell_ms:.4f} ms ({cell_ms / busy:.1%} of busy); top: "
+          + "; ".join(f"{t['op']} {t['ms']:.4f} ms x{t['calls']:.0f}"
+                      for t in out["top"]))
+    return trained, out
+
+
+class DecisionLog:
+    """Wraps a START policy's ``decide`` (either package's): what each
+    interval's decision saw (the active jobs, their M_T, q and open task
+    slots, and E_S) and did (its actions, each with its job), for holding
+    one run against another with :func:`boundary_jobs`."""
+
+    def __init__(self, pol):
+        self.pol, self.rec = pol, None
+        self.actions = self.predicted = 0
+        inner = pol.decide
+
+        def decide(view):
+            acts = inner(view)
+            if view.event == "interval":
+                self.rec = self._record(view, acts)
+                self.actions += len(acts)
+                self.predicted += len(self.rec["job_ids"]) > 0
+            return acts
+
+        pol.decide = decide
+
+    def _record(self, view, acts) -> dict:
+        jobs = view.jobs
+        active = jobs.active()
+        slots = {int(j): jobs.incomplete_tasks(j) - jobs.start[j]
+                 for j in active}
+        cache = self.pol.controller._es_cache
+        task_job = view.tasks.job_id.copy()
+        return dict(
+            job_ids=active.copy(),
+            task_job=task_job.__getitem__,
+            m_t=start_tech._task_matrices(view, active),
+            q=jobs.count[active].astype(np.float32),
+            incomplete_fn=lambda job: (None, None, slots[int(job)]),
+            e_s=np.array([cache[int(j)] for j in active], np.float32),
+            es_sum=self.pol.predicted_straggler_count(),
+            actions=[(int(view.tasks.job_id[a.task]), int(a.task),
+                      str(a.kind), a.target) for a in acts])
+
+
+def compare_decisions(t: int, log_a: DecisionLog, log_b: DecisionLog
+                      ) -> dict:
+    """Hold run b's decision at interval ``t`` against run a's: the same
+    active jobs, E_S and the predicted straggler count within the Tier-1
+    bound, actions and trigger state as :func:`hold_decisions` holds
+    them.  Equal trigger states after a difference in the actions do not
+    make the runs alike again: the actions part them (``diverged``)."""
+    ra, rb = log_a.rec, log_b.rec
+    if not np.array_equal(ra["job_ids"], rb["job_ids"]):
+        raise AssertionError(f"interval {t}: active jobs differ before any "
+                             f"decision did")
+    rel = max(es_drift(t, ra["e_s"], rb["e_s"]),
+              es_drift(t, np.array([ra["es_sum"]]),
+                       np.array([rb["es_sum"]])))
+    flips = hold_decisions(t, log_a.pol.controller, log_b.pol.controller,
+                           ra, ra["e_s"], ra["actions"], rb["actions"])
+    return dict(rel=rel, flips=flips,
+                diverged=ra["actions"] != rb["actions"])
+
+
+def lockstep(sim_a, sim_b, n_intervals: int) -> dict:
+    """Step two simulations of START policies interval by interval and
+    hold b's decisions against a's (:func:`compare_decisions`) until
+    their actions part or the run ends; a runs on to the end alone.
+    Returns the comparison, the intervals where a predicted (had active
+    jobs) and a's host ms per interval."""
+    log_a = DecisionLog(sim_a.technique)
+    log_b = DecisionLog(sim_b.technique)
+    worst, flips, compared, parted, step_ms = 0.0, 0, 0, None, []
+    for t in range(n_intervals):
+        t0 = time.perf_counter()
+        sim_a.step()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if parted is not None:
+            continue
+        sim_b.step()
+        r = compare_decisions(t, log_a, log_b)
+        worst = max(worst, r["rel"])
+        flips += r["flips"]
+        compared += 1
+        if r["diverged"]:
+            parted = t
+    return dict(intervals=compared, parted_at=parted, max_rel=worst,
+                flips=flips, actions_compared=log_b.actions,
+                predicted=log_a.predicted, step_ms=step_ms)
+
+
+def start_simulation(trained: dict) -> dict:
+    """``START`` and ``STARTEager`` with the trained params on the paper's
+    width, planetlab and overload, each run on the card and on the CPU
+    from the same params in lockstep (:func:`lockstep`): the card's
+    lstm_cell launches (``CELLS_PER_STEP`` an interval that predicts),
+    warm host ms per interval (the whole step, and the policy's share as
+    the engine logs it), and the card run's summary."""
+    out = {}
+    for scenario in SIM_SCENARIOS:
+        cfg = make_config(scenario, seed=1, n_hosts=PAPER["n_hosts"],
+                          n_intervals=SIM_INTERVALS,
+                          arrival_rate=SIM_ARRIVAL)
+        for cls in (start_tech.START, start_tech.STARTEager):
+            sim_a = Simulation(cfg, technique=cls(
+                controller=start_controller(DEVICE, trained)))
+            sim_b = Simulation(cfg, technique=cls(
+                controller=start_controller("cpu", trained)))
+            lstm_cell.launches = 0
+            r = lockstep(sim_a, sim_b, cfg.n_intervals)
+            launches = lstm_cell.launches
+            key = f"{cls.name}/{scenario}"
+            if not r["predicted"] or \
+                    launches != CELLS_PER_STEP * r["predicted"]:
+                raise AssertionError(f"{key}: {launches} lstm_cell launches "
+                                     f"over {r['predicted']} predictions")
+            if r["intervals"] < 1 or r["actions_compared"] < 1:
+                raise AssertionError(f"{key}: nothing compared: {r}")
+            summary = sim_a.summary()
+            if not all(np.isfinite(summary[k]) for k in (
+                    "avg_execution_time_s", "energy_kwh",
+                    "sla_violation_rate")):
+                raise AssertionError(f"{key}: summary {summary}")
+            ms = r.pop("step_ms")
+            out[key] = dict(r, launches=launches,
+                            ms_per_interval=float(np.median(ms[1:])),
+                            policy_ms_per_interval=1e3 * float(np.median(
+                                sim_a.log.overhead_s[1:])),
+                            summary={k: summary[k] for k in (
+                                "avg_execution_time_s", "energy_kwh",
+                                "resource_contention", "sla_violation_rate",
+                                "tasks_done", "tasks_total")})
+            print(f"[start] {key}: card vs cpu over {r['intervals']} of "
+                  f"{cfg.n_intervals} intervals (parted at "
+                  f"{r['parted_at']}), E_S max rel drift "
+                  f"{r['max_rel']:.3e}, {r['actions_compared']} actions, "
+                  f"{r['flips']} boundary flips; lstm_cell launches "
+                  f"{launches} over {r['predicted']} predicting intervals; "
+                  f"warm {out[key]['ms_per_interval']:.3f} ms per interval "
+                  f"(policy {out[key]['policy_ms_per_interval']:.3f}); "
+                  f"{out[key]['summary']}")
+    return out
+
+
+# ------------------------------- phases 6 to 9 -------------------------------
 
 class RouteLog:
     """``backend.moe_router`` as the model calls it: each call's indices
@@ -1603,7 +2003,7 @@ def profile_decode(model, params, caches, tok, pos, reps: int = 8) -> dict:
                           reps)
 
 
-# ----------------------------- phases 9 and 10 -----------------------------
+# ----------------------------- phases 10 and 11 -----------------------------
 
 @contextlib.contextmanager
 def plain_scan():
@@ -1907,6 +2307,12 @@ def main() -> None:
               f"{fused} fused intervals; one staged copy per warm interval")
         buckets = time_buckets(n_hosts, max_tasks, floor)
 
+    with phase("START training and simulation"):
+        xs, ys = start_warmup()
+        start_gate = start_train_gate(xs, ys)
+        trained, start_timing = start_train_timing(xs, ys)
+        start_sims = start_simulation(trained)
+
     with phase(f"{LM_ARCH} fp32 gate"):
         gate = lm_gate(LM_ARCH)
     with phase(f"{LM_ARCH} bf16 timing and serve"):
@@ -1943,7 +2349,9 @@ def main() -> None:
         device_ms=buckets[f"milestone/{TIMED_BUCKETS[-1]}"][
             "kernel_device_ms"],
         device_us={r["batch"]: r["device_us"] for r in cell["timing"]},
-        floor_us=floor, per_shape=cell["timing"])]
+        floor_us=floor, per_shape=cell["timing"],
+        launches_train_gate=start_gate["launches"],
+        launches_sim={k: v["launches"] for k, v in start_sims.items()})]
     # launches: flash from yi-6b's bf16 serving run (the tensor-core
     # kernel, the one timed), decode from yi-6b's fp32 gate, the router
     # from qwen3's; times at the path's longest timed shape, attention in
@@ -2001,6 +2409,9 @@ def main() -> None:
         device_ms=head["device_ms"], floor_us=floor, shape=head["shape"],
         per_dtype=scan_bwd["timing"]))
     print(json.dumps({"slice": slice_stats, "ms_per_interval": buckets}))
+    print(json.dumps({"start_train_gate": start_gate,
+                      "start_train": start_timing,
+                      "start_sim": start_sims}))
     print(json.dumps({"lm_fp32": {k: v for k, v in gate.items()
                                   if k != "flips"},
                       "lm_bf16": timing, "serve": served}))

@@ -17,13 +17,16 @@ import numpy as np
 import torch
 
 
-def tree_map(fn, tree):
-    """``fn`` over every leaf of a params tree of dicts and lists."""
+def tree_map(fn, tree, *rest):
+    """``fn`` over every leaf of a params tree of dicts and lists, with the
+    matching leaves of ``rest``, trees of the same structure, as its
+    further arguments."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
+        return [tree_map(fn, *vs) for vs in zip(tree, *rest)]
+    return fn(tree, *rest)
 
 
 def _leaf(a, device) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""Encoder-LSTM straggler-prediction network (paper §3.2, Fig. 4): the
-serving half, in PyTorch.
+"""Encoder-LSTM straggler-prediction network (paper §3.2, Fig. 4) and its
+training (MSE against MLE-fitted targets, the repo's Adam), in PyTorch.
 
 Architecture (as ``repro.core.encoder_lstm``):
   - Encoder: 4 fully-connected layers, softplus after each:
@@ -14,9 +14,10 @@ with LSTM gates packed [i, f, g, o] — so weights convert from the JAX
 package by a plain copy (``repro_torch.convert``).
 
 Every LSTM cell goes through ``repro_torch.kernels.lstm_cell``: the CUDA
-kernel for tensors on the card, its plain version for tensors on the CPU.
-There is no ``jit`` here: ``unroll`` arguments are kept for parity with
-the JAX signatures and have no effect in eager PyTorch.
+kernel for tensors on the card, its plain version for tensors on the CPU;
+training differentiates the plain cell (the wrapper's autograd Function
+on the card).  There is no ``jit`` here: ``unroll`` arguments are kept
+for parity with the JAX signatures and have no effect in eager PyTorch.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.convert import leaves, tree_map, unflatten
 from repro_torch.kernels.lstm_cell import lstm_cell, lstm_cell_ref
 
 EMA_W = 0.8          # weight of the *latest* resource matrix (paper §3.2)
@@ -218,3 +220,67 @@ def predict_sequence(params: Params, xs: torch.Tensor) -> torch.Tensor:
     for x in xs:
         top = _lstm_layers(params, hs, cs, encoder_apply(params, x))
     return _head(params, top)
+
+
+# ------------------------------- training ---------------------------------
+
+
+def mse_loss(params: Params, xs: torch.Tensor,
+             targets: torch.Tensor) -> torch.Tensor:
+    """MSE between predicted (alpha, beta) and MLE-fitted targets (paper
+    §4.4)."""
+    pred = predict_sequence(params, xs)
+    return torch.mean((pred - targets) ** 2)
+
+
+class AdamState(NamedTuple):
+    step: torch.Tensor   # int32 scalar on the params' device
+    mu: Params
+    nu: Params
+
+
+def adam_init(params: Params) -> AdamState:
+    dev = leaves(params)[0].device
+    return AdamState(step=torch.zeros((), dtype=torch.int32, device=dev),
+                     mu=tree_map(torch.zeros_like, params),
+                     nu=tree_map(torch.zeros_like, params))
+
+
+@torch.no_grad()
+def adam_update(params: Params, grads: Params, state: AdamState,
+                lr: float = 1e-5, b1: float = 0.9, b2: float = 0.999,
+                eps: float = 1e-8) -> tuple[Params, AdamState]:
+    """Adam (paper §4.4 uses Adam with lr 1e-5), leaf by leaf.  The bias
+    corrections are fp32 on the device, as the JAX package computes
+    them (``1 - b1 ** float32(t)``), not Python doubles."""
+    t = state.step + 1
+    mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g, state.mu, grads)
+    nu = tree_map(lambda v, g: b2 * v + (1 - b2) * g * g, state.nu, grads)
+    tf = t.to(torch.float32)
+    bc1 = 1 - b1 ** tf
+    bc2 = 1 - b2 ** tf
+    params = tree_map(
+        lambda p, m, v: p - lr * (m / bc1) / (torch.sqrt(v / bc2) + eps),
+        params, mu, nu)
+    return params, AdamState(step=t, mu=mu, nu=nu)
+
+
+def loss_and_grads(params: Params, xs: torch.Tensor, targets: torch.Tensor
+                   ) -> tuple[torch.Tensor, Params]:
+    """:func:`mse_loss` and its gradients in the params' structure, by
+    autograd from detached copies of the params."""
+    ps = tree_map(lambda p: p.detach().requires_grad_(), params)
+    with torch.enable_grad():
+        loss = mse_loss(ps, xs, targets)
+        grads = torch.autograd.grad(loss, leaves(ps))
+    return loss.detach(), unflatten(ps, grads)
+
+
+def train_step(params: Params, opt: AdamState, xs: torch.Tensor,
+               targets: torch.Tensor, lr: float = 1e-5
+               ) -> tuple[Params, AdamState, torch.Tensor]:
+    """One Adam step on :func:`mse_loss`.  The params returned do not
+    require grad, so the decisions that read them build no graph."""
+    loss, grads = loss_and_grads(params, xs, targets)
+    params, opt = adam_update(params, grads, opt, lr=lr)
+    return params, opt, loss

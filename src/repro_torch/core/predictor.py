@@ -1,5 +1,6 @@
 """Straggler Prediction module (paper Fig. 1 / Fig. 4): Encoder-LSTM -> Pareto,
-serving half, in PyTorch.
+in PyTorch, with its training (MSE against MLE-fitted (alpha, beta)
+targets, paper §4.4).
 
 The per-interval hot path is the **fused step** (``_fused_step``): the M_H
 history lives in a device-resident ring that rolls on the device, the
@@ -172,13 +173,17 @@ class StragglerPredictor:
         self._exact_shapes: set[int] = set()
         self.params = net.init_params(self.seed, self.input_dim,
                                       device=self.device)
+        self.opt = net.adam_init(self.params)
+        self._losses: list[float] = []
         self.buckets_used: set[int] = set()
         self._init_fused_state()
 
     def load_params(self, params: dict) -> None:
         """Replace the weights (e.g. ``convert.from_jax`` output), moved
-        to this predictor's device."""
+        to this predictor's device, with a fresh Adam state for them (as
+        a new JAX predictor holding them would have)."""
         self.params = _tree_to(params, self.device)
+        self.opt = net.adam_init(self.params)
 
     # ----------------------- fused interval hot path -----------------------
 
@@ -195,10 +200,12 @@ class StragglerPredictor:
 
     def __getstate__(self):
         # device state is a cache of host state: drop the ring, staging
-        # buffers and scalars, and carry params on the CPU so the pickle
-        # holds no device memory; unpickling moves them back to `device`
+        # buffers and scalars, and carry params and Adam's state on the
+        # CPU so the pickle holds no device memory; unpickling moves them
+        # back to `device`
         d = dict(self.__dict__)
         d["params"] = _tree_to(self.params, "cpu")
+        d["opt"] = _opt_to(self.opt, "cpu")
         d["_ring"] = None
         d["_ring_rows"] = 0
         d["_stage_bufs"] = {}
@@ -208,6 +215,7 @@ class StragglerPredictor:
     def __setstate__(self, d):
         self.__dict__.update(d)
         self.params = _tree_to(self.params, self.device)
+        self.opt = _opt_to(self.opt, self.device)
 
     def push_host_row(self, m_h: np.ndarray) -> None:
         """Feed one observed host matrix into the fused ring (called every
@@ -459,8 +467,56 @@ class StragglerPredictor:
         """Uncounted upload for the unfused reference path."""
         return torch.as_tensor(np.ascontiguousarray(arr)).to(self.device)
 
+    # ---------------------------- training --------------------------------
+
+    def make_targets(self, times, mask=None) -> torch.Tensor:
+        """MLE-fit (alpha, beta/beta_scale) targets from response times,
+        on this predictor's device."""
+        times = torch.as_tensor(times, dtype=torch.float32,
+                                device=self.device)
+        a, b = pareto.fit_pareto(times, mask)
+        return torch.stack([a, b / self.beta_scale], dim=-1)
+
+    def fit(self, xs, targets, epochs: int = 50, lr: float = 1e-5,
+            batch: int = 64) -> list[float]:
+        """Train on (T, N, input_dim) sequences vs (N, 2) targets.
+
+        Minibatches keep one shape: when N > batch the trailing partial
+        batch is dropped (each epoch re-permutes, so all data is seen
+        across epochs); when N <= batch the single batch is the whole
+        set.  Records the epoch-mean loss, not the last batch's.  The
+        data stays on the predictor's device across epochs."""
+        n = xs.shape[1]
+        rng = np.random.default_rng(self.seed)
+        xs = torch.as_tensor(xs, dtype=torch.float32).to(self.device)
+        targets = torch.as_tensor(targets, dtype=torch.float32).to(
+            self.device)
+        for _ in range(epochs):
+            order = rng.permutation(n)
+            if n > batch:
+                order = order[:n - (n % batch)]
+            losses = []
+            for s in range(0, len(order), batch):
+                idx = torch.as_tensor(order[s:s + batch], device=self.device)
+                self.params, self.opt, loss = net.train_step(
+                    self.params, self.opt, xs[:, idx], targets[idx], lr=lr)
+                losses.append(float(loss))
+            self._losses.append(float(np.mean(losses)))
+        return self._losses
+
+    @property
+    def losses(self) -> list[float]:
+        return self._losses
+
 
 def _tree_to(tree, device):
     """A params tree's leaves as float32 tensors on ``device``."""
     return tree_map(
         lambda t: torch.as_tensor(t, dtype=torch.float32).to(device), tree)
+
+
+def _opt_to(opt: net.AdamState, device) -> net.AdamState:
+    """Adam's state (step and moments) on ``device``."""
+    return net.AdamState(step=opt.step.to(device),
+                         mu=_tree_to(opt.mu, device),
+                         nu=_tree_to(opt.nu, device))

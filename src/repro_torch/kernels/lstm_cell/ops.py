@@ -1,10 +1,13 @@
 """Wrapper of the fused LSTM cell kernel (``csrc/lstm_cell.cu``).
 
 On CUDA tensors it launches the kernel on the current stream, or raises;
-on CPU tensors it runs the plain version (:func:`lstm_cell_ref`).  It
-never pads: the kernel masks the ragged edge of the batch.  Inference
-only — inputs that require grad are refused until the cell has a
-``torch.autograd.Function`` with a backward kernel.
+on CPU tensors it runs the plain version (:func:`lstm_cell_ref`), which
+plain autograd differentiates.  It never pads: the kernel masks the
+ragged edge of the batch.  On the card an input that requires grad sends
+the call through :class:`_Cell`, whose forward launches the kernel and
+whose backward differentiates the plain cell recomputed from the saved
+inputs, as the JAX package's ``custom_vjp`` does; there is no backward
+kernel.
 """
 from __future__ import annotations
 
@@ -33,11 +36,8 @@ def _launcher(dtype: torch.dtype):
     return fn
 
 
-def _check(x, h, c, wx, wh, b) -> tuple[int, int, int]:
+def _check(x, h, c, wx, wh, b) -> None:
     ts = (x, h, c, wx, wh, b)
-    if any(t.requires_grad for t in ts):
-        raise ValueError("lstm_cell is inference-only: an input requires "
-                         "grad")
     if any(t.device != x.device for t in ts):
         raise ValueError("lstm_cell inputs lie on different devices")
     if any(t.dtype != x.dtype for t in ts) or x.dtype not in _SYMBOLS:
@@ -54,7 +54,6 @@ def _check(x, h, c, wx, wh, b) -> tuple[int, int, int]:
         raise ValueError(f"lstm_cell shapes {got}, expected {want}")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("lstm_cell inputs must be contiguous")
-    return bsz, n_in, hid
 
 
 def smem_bytes(n_in: int, hid: int, elem: int) -> int:
@@ -74,18 +73,9 @@ def _check_launch(n_in: int, hid: int, elem: int) -> None:
                          f"{_SMEM_BYTES} bytes of shared memory")
 
 
-def lstm_cell(x, h, c, wx, wh, b):
-    """One fused LSTM cell step: returns ``(h', c')``.
-
-    x (B, In); h, c (B, H); wx (In, 4H); wh (H, 4H); b (4H,); gates
-    packed [i, f, g, o]; float32 or bfloat16, fp32 math.
-    ``lstm_cell.launches`` counts kernel launches (CPU calls do not
-    launch and do not count)."""
-    bsz, n_in, hid = _check(x, h, c, wx, wh, b)
-    if x.device.type == "cpu":
-        return lstm_cell_ref(x, h, c, wx, wh, b)
-    if x.device.type != "cuda":
-        raise ValueError(f"lstm_cell has no kernel for {x.device}")
+def _launch(x, h, c, wx, wh, b):
+    """The kernel on the current stream: returns ``(h', c')``."""
+    bsz, n_in, hid = x.shape[0], x.shape[1], h.shape[1]
     if x.get_device() != torch.cuda.current_device():
         raise ValueError("lstm_cell inputs must lie on the current device")
     h_out = torch.empty_like(h)
@@ -101,6 +91,48 @@ def lstm_cell(x, h, c, wx, wh, b):
         raise RuntimeError(f"lstm_cell kernel launch failed: CUDA error {rc}")
     lstm_cell.launches += 1
     return h_out, c_out
+
+
+class _Cell(torch.autograd.Function):
+    """Forward: the kernel (CUDA) or the plain version (CPU, where
+    :func:`lstm_cell` itself never applies the Function).  Backward:
+    autograd of :func:`lstm_cell_ref` recomputed from the six saved
+    inputs (the JAX ``_lstm_cell_bwd``: ``jax.vjp(lstm_cell_ref, ...)``)."""
+
+    @staticmethod
+    def forward(ctx, x, h, c, wx, wh, b):
+        ctx.save_for_backward(x, h, c, wx, wh, b)
+        if x.device.type == "cpu":
+            return lstm_cell_ref(x, h, c, wx, wh, b)
+        return _launch(x, h, c, wx, wh, b)
+
+    @staticmethod
+    def backward(ctx, g_h, g_c):
+        xs = [t.detach().requires_grad_(w)
+              for t, w in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            outs = lstm_cell_ref(*xs)
+        want = [t for t in xs if t.requires_grad]
+        got = iter(torch.autograd.grad(outs, want, (g_h, g_c)))
+        return tuple(next(got) if t.requires_grad else None for t in xs)
+
+
+def lstm_cell(x, h, c, wx, wh, b):
+    """One fused LSTM cell step: returns ``(h', c')``.
+
+    x (B, In); h, c (B, H); wx (In, 4H); wh (H, 4H); b (4H,); gates
+    packed [i, f, g, o]; float32 or bfloat16, fp32 math.  Differentiable
+    in all six inputs.  ``lstm_cell.launches`` counts kernel launches
+    (CPU calls do not launch and do not count)."""
+    _check(x, h, c, wx, wh, b)
+    if x.device.type == "cpu":
+        return lstm_cell_ref(x, h, c, wx, wh, b)
+    if x.device.type != "cuda":
+        raise ValueError(f"lstm_cell has no kernel for {x.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, h, c, wx, wh, b)):
+        return _Cell.apply(x, h, c, wx, wh, b)
+    return _launch(x, h, c, wx, wh, b)
 
 
 lstm_cell.launches = 0

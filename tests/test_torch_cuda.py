@@ -1,8 +1,10 @@
 """On-card tests of the port: the CUDA kernels against their plain
-versions, the decision step's launches, reduced LMs (dense and MoE)
-served on the card against the same model on the CPU, and a reduced SSM
-trained on the card against the CPU.  They need an NVIDIA Hopper
-card and ``nvcc`` and skip elsewhere; run them on the card with
+versions, the decision step's launches, START's training through the
+cell's kernel and a START simulation on the card against the CPU,
+reduced LMs (dense and MoE) served on the card against the same model on
+the CPU, and a reduced SSM trained on the card against the CPU.  They
+need an NVIDIA Hopper card and ``nvcc`` and skip elsewhere; run them on
+the card with
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -13,9 +15,12 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from repro_torch import convert
 from repro_torch.configs import get_reduced
+from repro_torch.core import encoder_lstm as net
 from repro_torch.core.predictor import StragglerPredictor
+from repro_torch.core.start import STARTController
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_ref)
 from repro_torch.kernels.decode_attention import ops as decode_ops
@@ -31,6 +36,9 @@ from repro_torch.kernels.mamba_scan import ops as scan_ops
 from repro_torch.kernels.moe_router import moe_router, moe_router_ref
 from repro_torch.models.lm import Model
 from repro_torch.serve.engine import Engine, EngineConfig, Request
+from repro_torch.sim import scenarios
+from repro_torch.sim.engine import Simulation
+from repro_torch.sim.techniques import start_tech
 from repro_torch.train import optimizer as Opt
 from repro_torch.train.data import DataConfig, SyntheticLM
 from repro_torch.train.trainer import Trainer
@@ -115,6 +123,96 @@ def test_fused_interval_launches_the_kernel_for_every_cell(cuda):
         assert lstm_cell.launches == before + 2 * pred.horizon
         np.testing.assert_allclose(got, ref.predict_interval(mt, q),
                                    rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("bsz,nin,hid", [(1, 32, 32), (64, 32, 32),
+                                         (33, 5, 7)])
+@pytest.mark.parametrize("dtype,atol", CELL_TOL)
+def test_lstm_cell_gradients_through_the_kernel(cuda, bsz, nin, hid, dtype,
+                                                atol):
+    """Inputs that require grad: the forward launches the kernel once
+    inside the autograd Function, and the backward (the plain cell
+    recomputed from the same inputs) gives autograd's gradients of the
+    plain cell; the outputs of a call without grad carry no graph."""
+    args = _cell_args(bsz, nin, hid, dtype, cuda)
+    g = [torch.randn(bsz, hid, device=cuda).to(dtype) for _ in range(2)]
+    grads = []
+    for fn in (lstm_cell, lstm_cell_ref):
+        xs = [t.clone().requires_grad_() for t in args]
+        before = lstm_cell.launches
+        outs = fn(*xs)
+        torch.autograd.backward(outs, g)
+        torch.cuda.synchronize()
+        assert lstm_cell.launches == before + (fn is lstm_cell)
+        grads.append([x.grad.float() for x in xs])
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=atol, atol=atol)
+    before = lstm_cell.launches
+    with torch.no_grad():
+        h, c = lstm_cell(*[t.clone().requires_grad_() for t in args])
+    assert h.grad_fn is None and c.grad_fn is None
+    assert lstm_cell.launches == before + 1
+
+
+def _start_pair(n_hosts, max_tasks, cuda):
+    """A controller on the card and one on the CPU with the same weights."""
+    kw = dict(n_hosts=n_hosts, max_tasks=max_tasks, seed=0,
+              beta_scale=300.0)
+    dev = STARTController(device=cuda, **kw)
+    cpu = STARTController(device="cpu", **kw)
+    cpu.predictor.load_params(dev.predictor.params)
+    return dev, cpu
+
+
+def test_start_training_on_the_card_matches_the_cpu(cuda):
+    """Three ``train_step``s of 64 on the card (10 cell launches each,
+    through the kernel) and on the CPU from the same params: losses and
+    params within 1e-5 relative."""
+    dev, cpu = _start_pair(16, 10, cuda)
+    rng = np.random.default_rng(0)
+    dim = dev.predictor.input_dim
+    xs = rng.uniform(0, 1, (5, 64, dim)).astype(np.float32)
+    ys = np.stack([rng.uniform(1, 4, 64), rng.uniform(0.1, 3, 64)],
+                  -1).astype(np.float32)
+    out = {}
+    for name, pred in (("cuda", dev.predictor), ("cpu", cpu.predictor)):
+        x = torch.as_tensor(xs, device=pred.device)
+        y = torch.as_tensor(ys, device=pred.device)
+        params, opt, losses, launches = pred.params, pred.opt, [], []
+        for _ in range(3):
+            before = lstm_cell.launches
+            params, opt, loss = net.train_step(params, opt, x, y, lr=1e-3)
+            losses.append(float(loss))
+            launches.append(lstm_cell.launches - before)
+        out[name] = (losses, convert.to_numpy(params), launches)
+    assert out["cuda"][2] == [10] * 3 and out["cpu"][2] == [0] * 3
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    rel, _ = chip_smoke.tree_rel(
+        convert.from_jax(out["cuda"][1], "cpu"),
+        convert.from_jax(out["cpu"][1], "cpu"))
+    assert rel <= 1e-5
+
+
+@pytest.mark.parametrize("cls", [start_tech.START, start_tech.STARTEager])
+def test_start_simulation_on_the_card_matches_the_cpu(cuda, cls):
+    """A short pretrain on the card, then the policy on the card and on
+    the CPU in lockstep (``chip_smoke.lockstep``): E_S within the Tier-1
+    bound, actions equal up to a boundary difference, 10 cell launches
+    an interval that predicts."""
+    ctrl = start_tech.pretrain(scenarios.make_config(
+        "planetlab", seed=7, n_hosts=32, n_intervals=72), epochs=2,
+        device=cuda)
+    cfg = scenarios.make_config("overload", seed=1, n_hosts=32,
+                                n_intervals=48)
+    _, cpu = _start_pair(32, 10, cuda)
+    cpu.predictor.load_params(ctrl.predictor.params)
+    before = lstm_cell.launches
+    r = chip_smoke.lockstep(Simulation(cfg, technique=cls(controller=ctrl)),
+                            Simulation(cfg, technique=cls(controller=cpu)),
+                            cfg.n_intervals)
+    assert lstm_cell.launches - before == 10 * r["predicted"] > 0
+    assert r["max_rel"] <= chip_smoke.TIER1_REL
+    assert r["intervals"] >= cfg.n_intervals // 2
 
 
 def _qkv(shapes, dtype, seed, device):

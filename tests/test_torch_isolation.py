@@ -1,7 +1,8 @@
 """The port stands alone: no file of ``src/repro_torch/`` and not
 ``chip_smoke.py`` imports ``jax`` or the JAX package ``repro``, and
 building and running the port's controller, its LM serving engine
-(dense and MoE) and its SSM trainer on the CPU loads neither."""
+(dense and MoE), its SSM trainer, and START's pretraining and a
+START-eager simulation on the CPU loads neither."""
 import ast
 import os
 import subprocess
@@ -41,7 +42,23 @@ def test_the_scan_sees_every_port_module():
             "src/repro_torch/train/data.py",
             "src/repro_torch/train/optimizer.py",
             "src/repro_torch/train/trainer.py",
-            "src/repro_torch/launch/train.py"} <= names
+            "src/repro_torch/launch/train.py",
+            "src/repro_torch/policy/__init__.py",
+            "src/repro_torch/policy/actions.py",
+            "src/repro_torch/policy/base.py",
+            "src/repro_torch/policy/registry.py",
+            "src/repro_torch/policy/telemetry.py",
+            "src/repro_torch/sim/__init__.py",
+            "src/repro_torch/sim/config.py",
+            "src/repro_torch/sim/cluster.py",
+            "src/repro_torch/sim/faults.py",
+            "src/repro_torch/sim/workload.py",
+            "src/repro_torch/sim/scheduler.py",
+            "src/repro_torch/sim/metrics.py",
+            "src/repro_torch/sim/scenarios.py",
+            "src/repro_torch/sim/engine.py",
+            "src/repro_torch/sim/techniques/__init__.py",
+            "src/repro_torch/sim/techniques/start_tech.py"} <= names
     assert _imported_roots(ROOT / "src" / "repro" / "core" / "start.py") \
         >= {"repro", "numpy"}
 
@@ -82,6 +99,15 @@ def test_running_the_port_loads_no_jax():
         "global_batch=2), device='cpu')\n"
         "p, s, m = tr.compile_step()(p, s, data.batch(0))\n"
         "assert int(s.step) == 1 and bool(m['loss'].isfinite())\n"
+        "from repro_torch.sim import scenarios\n"
+        "from repro_torch.sim.engine import Simulation\n"
+        "from repro_torch.sim.techniques import start_tech\n"
+        "ctrl = start_tech.pretrain(scenarios.make_config('planetlab', "
+        "seed=7, n_hosts=8, n_intervals=24), epochs=1, device='cpu')\n"
+        "pol = start_tech.STARTEager(controller=ctrl)\n"
+        "out = Simulation(scenarios.make_config('planetlab', seed=1, "
+        "n_hosts=8, n_intervals=12), technique=pol).run()\n"
+        "assert out['tasks_total'] > 0 and len(ctrl.predictor.losses) == 1\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n")

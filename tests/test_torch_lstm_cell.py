@@ -58,9 +58,7 @@ def test_plain_version_is_fp32_math_with_io_dtype():
 
 def _bad(kind):
     args = [torch.from_numpy(a) for a in _inputs(4, 32, 32)]
-    if kind == "grad":
-        args[3].requires_grad_(True)
-    elif kind == "shape":
+    if kind == "shape":
         args[4] = args[4][:, :64]
     elif kind == "bias":
         args[5] = args[5][:64]
@@ -76,7 +74,7 @@ def _bad(kind):
 
 
 @pytest.mark.parametrize("kind,exc", [
-    ("grad", ValueError), ("shape", ValueError), ("bias", ValueError),
+    ("shape", ValueError), ("bias", ValueError),
     ("dtype", TypeError), ("float64", TypeError),
     ("contiguous", ValueError), ("meta", ValueError)])
 def test_wrapper_refuses_what_the_kernel_does_not_take(kind, exc):
