@@ -53,7 +53,22 @@ Phases:
    interval, the action streams equal up to their first difference,
    which must involve a boundary job, 10 ``lstm_cell`` launches an
    interval that predicts; warm ms per interval and each run's summary;
-6. LM serving, fp32: yi-6b at full width and depth (seeded weights),
+6. the paper's technique comparison at the paper's width (400 hosts x
+   288 intervals, arrival rate 1.2, planetlab): IGRU-SD's training gate
+   (three fp32 ``_gru_step``s on the sweep's seed-9 warmup on the card,
+   each loss within 1e-5 relative of the same steps on the CPU from the
+   same init); ``pretrain_igru`` (40 epochs, the sweep's) and the
+   trained IGRU-SD on the card and on the CPU in lockstep on planetlab
+   and overload (predictions within the Tier-1 bound every interval,
+   the predicted straggler count equal up to tasks at the 1.5
+   threshold, the action streams equal up to a first difference that
+   involves a boundary task), and the GRU's host ms and device busy per
+   call; ``sweep.run`` over the 14 techniques of ``FIELD``, seed 0,
+   serially (the QoS keys and ms per interval of each; every START cell
+   launches ``lstm_cell`` 10 times per interval that predicts); and a
+   2-worker ``sweep.run`` of start, igru-sd and grass x seeds (0, 1)
+   bit-equal, field by field, to the serial run;
+7. LM serving, fp32: yi-6b at full width and depth (seeded weights),
    ``Engine(n_slots=4, max_len=4096)`` serving 6 seeded requests
    (prompts of 12 to 3000 tokens, 16 new tokens each); every prefill
    launches ``flash_attention`` once per layer and every decoded token
@@ -61,23 +76,23 @@ Phases:
    streams re-run under teacher forcing through the plain attention
    functions agree within 1e-4 on every step's logits, with equal greedy
    tokens except where the plain path's top-2 margin is under 1e-4;
-7. LM serving, bf16 (the config's own dtype): the same requests, timed
+8. LM serving, bf16 (the config's own dtype): the same requests, timed
    (TTFT per prompt length, warm decode ms per token, tokens/s), drift
    against the plain path, profiler device busy per token, and the
    serving entry point ``repro_torch.launch.serve`` once at yi-6b;
-8. MoE serving, fp32: qwen3-moe-30b-a3b at full width, 12 of its 48
+9. MoE serving, fp32: qwen3-moe-30b-a3b at full width, 12 of its 48
    layers (seeded weights), the same engine and requests; every MoE
    layer launches ``moe_router`` once per prefill and per decoded token;
    the teacher-forced re-run takes the plain attention and the plain
    router.  Routing may differ only where the plain path's k-th and
    (k+1)-th probabilities nearly tie (a hidden state moved by ~1e-6 can
    swap them); each request's logits are held to 1e-4, and its greedy
-   tokens as in phase 6, on every step before its first routing
+   tokens as in phase 7, on every step before its first routing
    difference;
-9. MoE serving, bf16: qwen3-moe-30b-a3b at full width and depth, timed
-   as in phase 7, with the routing differences counted, and
+10. MoE serving, bf16: qwen3-moe-30b-a3b at full width and depth, timed
+   as in phase 8, with the routing differences counted, and
    ``repro_torch.launch.serve`` once at qwen3-moe-30b-a3b;
-10. SSM training, fp32: falcon-mamba-7b at full width, 8 of its 64
+11. SSM training, fp32: falcon-mamba-7b at full width, 8 of its 64
    layers (seeded weights), three AdamW steps of ``Trainer`` on
    ``SyntheticLM`` batches of 2 x 256 tokens, every layer's forward and
    its recompute in the backward launching ``mamba_scan`` and its
@@ -85,13 +100,13 @@ Phases:
    same loss through the plain scan (autograd of the plain version),
    within 1e-5 relative, and step 1's gradients within 1e-4 relative in
    norm;
-11. SSM training, bf16: falcon-mamba-7b at full width, 32 of its 64
+12. SSM training, bf16: falcon-mamba-7b at full width, 32 of its 64
    layers, batches of 4 x 512 tokens, one warm step and three timed (ms
    per step, tokens/s), one step by its parts (forward / backward /
    optimizer, and the scan backward's share timed inside it),
    profiler device busy per step, peak memory; and
    ``repro_torch.launch.train`` once, reduced, on the card;
-12. summary: one JSON line of kernel numbers, the card's line, and last
+13. summary: one JSON line of kernel numbers, the card's line, and last
    ``{"ok": true, "device": {...}}``.
 
 Each phase prints its wall time.
@@ -105,6 +120,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -147,8 +163,10 @@ from repro_torch.serve.engine import (  # noqa: E402
 from repro_torch.serve.kv_cache import pad_to_length  # noqa: E402
 from repro_torch.sim.config import SimConfig  # noqa: E402
 from repro_torch.sim.engine import Simulation  # noqa: E402
+from repro_torch.sim import sweep  # noqa: E402
 from repro_torch.sim.scenarios import make_config  # noqa: E402
-from repro_torch.sim.techniques import start_tech  # noqa: E402
+from repro_torch.sim.techniques import FIELD  # noqa: E402
+from repro_torch.sim.techniques import baselines, start_tech  # noqa: E402
 from repro_torch.train import optimizer as Opt  # noqa: E402
 from repro_torch.train.data import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.train.trainer import Trainer, value_and_grad  # noqa: E402
@@ -1070,17 +1088,19 @@ def _action_keys(actions) -> list[tuple]:
             for a in actions]
 
 
-def es_drift(t: int, e_a: np.ndarray, e_b: np.ndarray) -> float:
-    """Largest relative E_S difference of two runs at interval ``t``;
-    raises past the Tier-1 bound or on a value that is not finite."""
+def es_drift(t: int, e_a: np.ndarray, e_b: np.ndarray,
+             what: str = "E_S") -> float:
+    """Largest relative difference of two runs' ``what`` (E_S unless
+    named) at interval ``t``; raises past the Tier-1 bound or on a value
+    that is not finite."""
     if not (np.isfinite(e_a).all() and np.isfinite(e_b).all()):
-        raise AssertionError(f"interval {t}: E_S not finite")
+        raise AssertionError(f"interval {t}: {what} not finite")
     if not len(e_a):
         return 0.0
     rel = float((np.abs(np.asarray(e_a, np.float64) - e_b)
                  / np.maximum(np.abs(e_b), TIER1_ABS_FLOOR)).max())
     if rel > TIER1_REL:
-        raise AssertionError(f"interval {t}: E_S drift {rel:.3e} > "
+        raise AssertionError(f"interval {t}: {what} drift {rel:.3e} > "
                              f"{TIER1_REL}")
     return rel
 
@@ -1524,14 +1544,95 @@ def compare_decisions(t: int, log_a: DecisionLog, log_b: DecisionLog
                 diverged=ra["actions"] != rb["actions"])
 
 
-def lockstep(sim_a, sim_b, n_intervals: int) -> dict:
-    """Step two simulations of START policies interval by interval and
-    hold b's decisions against a's (:func:`compare_decisions`) until
-    their actions part or the run ends; a runs on to the end alone.
-    Returns the comparison, the intervals where a predicted (had active
-    jobs) and a's host ms per interval."""
-    log_a = DecisionLog(sim_a.technique)
-    log_b = DecisionLog(sim_b.technique)
+class GRULog:
+    """Wraps an IGRU-SD policy's ``decide`` (either package's): what each
+    interval's decision saw (its ready tasks, their elapsed and expected
+    times and the GRU's predictions for them) and did (the predicted
+    straggler count and its actions), for :func:`compare_gru`.
+    ``preds(pol)`` returns the predictions of the policy's last
+    decision, in the order of its ready tasks (default: the port's
+    ``last_preds``)."""
+
+    def __init__(self, pol, preds=None):
+        self.pol, self.rec = pol, None
+        self.actions = self.predicted = 0
+        self.ready_counts: list[int] = []
+        preds = preds or (lambda p: p.last_preds)
+        inner = pol.decide
+
+        def decide(view):
+            if view.event != "interval":
+                return inner(view)
+            tt = view.tasks
+            # the ready set as decide takes it, before decide flags any
+            ready = [int(i) for i in np.nonzero(tt.active_mask())[0]
+                     if len(pol.hist.get(int(i), [])) >= pol.HIST
+                     and int(i) not in pol._flagged]
+            acts = inner(view)
+            p = np.asarray(preds(pol), np.float32)[:len(ready)] if ready \
+                else np.zeros(0, np.float32)
+            self.rec = dict(
+                ready=ready, p=p,
+                elapsed=np.array([view.now_s - float(tt.start_s[i])
+                                  for i in ready]),
+                expected=np.array([float(tt.work[i] / view.host_ips_mean)
+                                   for i in ready]),
+                count=pol.predicted_straggler_count(),
+                actions=[(int(a.task), str(a.kind), a.target)
+                         for a in acts])
+            self.actions += len(acts)
+            self.predicted += bool(ready)
+            self.ready_counts.append(len(ready))
+            return acts
+
+        pol.decide = decide
+
+
+def compare_gru(t: int, log_a: GRULog, log_b: GRULog) -> dict:
+    """Hold run b's IGRU-SD decision at interval ``t`` against run a's:
+    the same ready tasks, the GRU's predictions within the Tier-1 bound,
+    the predicted straggler count equal up to tasks whose prediction
+    lies within the bound of the 1.5 threshold, and the actions equal;
+    where they differ, the difference must involve a boundary task (its
+    prediction within the bound of 1.5, or its elapsed time within the
+    bound of its expected time)."""
+    ra, rb = log_a.rec, log_b.rec
+    if ra["ready"] != rb["ready"]:
+        raise AssertionError(f"interval {t}: ready tasks differ before any "
+                             f"decision did")
+    rel = es_drift(t, ra["p"], rb["p"], what="GRU prediction")
+
+    def tol(v):
+        return TIER1_REL * np.maximum(np.abs(v), TIER1_ABS_FLOOR)
+
+    near_p = np.abs(ra["p"] - 1.5) <= tol(1.5)
+    near = near_p | (np.abs(ra["elapsed"] - ra["expected"])
+                     <= tol(ra["expected"]))
+    boundary = {i for i, b in zip(ra["ready"], near) if b}
+    if abs(ra["count"] - rb["count"]) > int(near_p.sum()):
+        raise AssertionError(f"interval {t}: predicted straggler counts "
+                             f"{ra['count']} and {rb['count']} with "
+                             f"{int(near_p.sum())} boundary predictions")
+    differ = {k[0] for k in set(ra["actions"]) ^ set(rb["actions"])}
+    if differ and not differ & boundary:
+        raise AssertionError(f"interval {t}: decisions differ for tasks "
+                             f"{sorted(differ)} away from any decision "
+                             f"boundary")
+    return dict(rel=rel, flips=len(differ),
+                diverged=ra["actions"] != rb["actions"])
+
+
+def lockstep(sim_a, sim_b, n_intervals: int, log=DecisionLog,
+             compare=compare_decisions) -> dict:
+    """Step two simulations of the same policy interval by interval and
+    hold b's decisions against a's (``compare``, over what ``log``
+    records: :func:`compare_decisions` for START policies,
+    :func:`compare_gru` with :class:`GRULog` for IGRU-SD) until their
+    actions part or the run ends; a runs on to the end alone.  Returns
+    the comparison, the intervals where a predicted and a's host ms per
+    interval."""
+    log_a = log(sim_a.technique)
+    log_b = log(sim_b.technique)
     worst, flips, compared, parted, step_ms = 0.0, 0, 0, None, []
     for t in range(n_intervals):
         t0 = time.perf_counter()
@@ -1540,7 +1641,7 @@ def lockstep(sim_a, sim_b, n_intervals: int) -> dict:
         if parted is not None:
             continue
         sim_b.step()
-        r = compare_decisions(t, log_a, log_b)
+        r = compare(t, log_a, log_b)
         worst = max(worst, r["rel"])
         flips += r["flips"]
         compared += 1
@@ -1602,6 +1703,288 @@ def start_simulation(trained: dict) -> dict:
                   f"(policy {out[key]['policy_ms_per_interval']:.3f}); "
                   f"{out[key]['summary']}")
     return out
+
+
+# --------------------------------- phase 6 ---------------------------------
+# the paper's technique comparison: IGRU-SD on the card and the grid
+
+GRID_SCENARIO = "planetlab"
+IGRU_EPOCHS = 40           # SweepSpec's igru_epochs
+IGRU_GATE_STEPS = 3
+IGRU_REL = 1e-5            # losses, relative
+PARITY = ("start", "igru-sd", "grass")
+PARITY_SEEDS = (0, 1)
+PARITY_WORKERS = 2
+
+
+def paper_spec(techniques, seeds=(0,)) -> sweep.SweepSpec:
+    """A serial sweep on planetlab at the paper's width (400 hosts x 288
+    intervals, arrival rate 1.2), the networks of START, START-eager and
+    IGRU-SD on ``DEVICE``."""
+    on_device = {"device": DEVICE}
+    return sweep.SweepSpec(
+        techniques=tuple(techniques), seeds=tuple(seeds),
+        scenarios=(GRID_SCENARIO,), n_hosts=PAPER["n_hosts"],
+        n_intervals=SIM_INTERVALS, arrival_rate=SIM_ARRIVAL,
+        igru_epochs=IGRU_EPOCHS, max_workers=1,
+        technique_kwargs={t: on_device for t in (
+            "start", "start-eager", "igru-sd") if t in techniques})
+
+
+def igru_train_gate() -> dict:
+    """fp32 on the card: ``IGRU_GATE_STEPS`` of ``_gru_step`` on the
+    training pairs of the sweep's seed-9 warmup at the paper's width,
+    from ``gru_init(SEED)``; then the same steps on the CPU from the
+    same init, each loss held to ``IGRU_REL`` relative."""
+    spec = paper_spec(("igru-sd",))
+    t0 = time.perf_counter()
+    warm = sweep._warm_view(spec.cell_config(GRID_SCENARIO, 0))
+    xs, ys = baselines.igru_training_data(warm)
+    warm_s = time.perf_counter() - t0
+    feats, hist = baselines.IGRUSD.FEATS, baselines.IGRUSD.HIST
+    if xs.shape[0] != hist or xs.shape[2] != feats \
+            or not np.isfinite(xs).all():
+        raise AssertionError(f"IGRU-SD training data of shape {xs.shape}")
+    losses = {}
+    for dev in (DEVICE, "cpu"):
+        params = baselines.gru_init(SEED, feats, 16, device=dev)
+        opt = net.adam_init(params)
+        x_d = torch.as_tensor(xs, device=dev)
+        y_d = torch.as_tensor(ys, device=dev)
+        losses[dev] = []
+        for _ in range(IGRU_GATE_STEPS):
+            params, opt, loss = baselines._gru_step(params, opt, x_d, y_d)
+            losses[dev].append(float(loss))
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses[DEVICE],
+                                                losses["cpu"])]
+    if not (np.isfinite(losses[DEVICE]).all() and max(rel) <= IGRU_REL):
+        raise AssertionError(f"IGRU-SD steps on the card {losses[DEVICE]} "
+                             f"against the CPU's {losses['cpu']}")
+    print(f"[paper] IGRU-SD training gate fp32: warmup {warm_s:.3f} s host, "
+          f"{xs.shape[1]} training pairs; {IGRU_GATE_STEPS} _gru_steps on "
+          f"the card {losses[DEVICE]}, within {max(rel):.3e} relative of "
+          f"the CPU's (bound {IGRU_REL})")
+    return dict(pairs=int(xs.shape[1]), losses=losses[DEVICE],
+                cpu_losses=losses["cpu"], max_rel=max(rel))
+
+
+def gru_profile(pol, n: int, reps: int = 20) -> dict:
+    """IGRU-SD's prediction (``_predict``: padding, the upload, the GRU,
+    the readback) on the histories of ``n`` of its tasks: host ms per
+    call (it ends in a readback) and profiled device busy ms and ops."""
+    full = [h for h in pol.hist.values() if len(h) >= pol.HIST][:n]
+    xs = np.stack([np.stack(h[-pol.HIST:]) for h in full], axis=1)
+    pol._predict(xs)
+    _, ms = _synced(lambda: [pol._predict(xs) for _ in range(reps)])
+    ops = _device_ops(lambda: pol._predict(xs), reps)
+    return dict(jobs=len(full), padded=1 << (len(full) - 1).bit_length(),
+                host_ms=ms / reps,
+                busy_ms=sum(t for t, _ in ops.values()) / 1e6 / reps,
+                ops=sum(c for _, c in ops.values()) / reps)
+
+
+def igru_lockstep() -> dict:
+    """``pretrain_igru`` (``IGRU_EPOCHS`` epochs on the seed-9 warmup, as
+    the sweep trains it, cached for the grid), then the trained IGRU-SD
+    on the card and on the CPU from the same params, on planetlab and
+    overload at the paper's width, in lockstep (:func:`lockstep` with
+    :func:`compare_gru`)."""
+    spec = paper_spec(("igru-sd",))
+
+    def trained():
+        return sweep.make_technique(
+            "igru-sd", spec.cell_config(GRID_SCENARIO, 0),
+            igru_epochs=spec.igru_epochs,
+            technique_kwargs=spec.kwargs_for("igru-sd"))
+
+    t0 = time.perf_counter()
+    trained()
+    train_s = time.perf_counter() - t0
+    out = dict(pretrain_s=train_s)
+    for scenario in SIM_SCENARIOS:
+        cfg = make_config(scenario, seed=1, n_hosts=PAPER["n_hosts"],
+                          n_intervals=SIM_INTERVALS,
+                          arrival_rate=SIM_ARRIVAL)
+        card, twin = trained(), baselines.IGRUSD(device="cpu")
+        twin.params = convert.tree_map(lambda t: t.cpu(), card.params)
+        sim_a = Simulation(cfg, technique=card)
+        sim_b = Simulation(cfg, technique=twin)
+        logs = []
+
+        def gru_log(pol):
+            logs.append(GRULog(pol))
+            return logs[-1]
+
+        r = lockstep(sim_a, sim_b, cfg.n_intervals, log=gru_log,
+                     compare=compare_gru)
+        ms = r.pop("step_ms")
+        if r["intervals"] < 1 or not r["predicted"] \
+                or r["actions_compared"] < 1:
+            raise AssertionError(f"igru-sd/{scenario}: nothing compared: "
+                                 f"{r}")
+        ready = [n for n in logs[0].ready_counts if n]
+        out[scenario] = dict(r, ms_per_interval=float(np.median(ms[1:])),
+                             gru=gru_profile(card, int(np.median(ready))))
+        gru = out[scenario]["gru"]
+        gru["idle_share"] = 1 - gru["busy_ms"] / out[scenario][
+            "ms_per_interval"]
+        print(f"[paper] igru-sd/{scenario}: card vs cpu over "
+              f"{r['intervals']} of {cfg.n_intervals} intervals (parted at "
+              f"{r['parted_at']}), prediction max rel drift "
+              f"{r['max_rel']:.3e}, {r['actions_compared']} actions, "
+              f"{r['flips']} boundary flips, {r['predicted']} predicting "
+              f"intervals; warm {out[scenario]['ms_per_interval']:.3f} ms "
+              f"per interval")
+        print(f"[profile] igru-sd/{scenario}: the GRU on {gru['jobs']} ready "
+              f"tasks (the run's median, padded to {gru['padded']}): "
+              f"{gru['host_ms']:.4f} ms a call by the host clock, device "
+              f"busy {gru['busy_ms']:.4f} ms over {gru['ops']:.0f} kernels "
+              f"and copies; idle {gru['idle_share']:.1%} of the interval")
+    print(f"[paper] pretrain_igru: {IGRU_EPOCHS} epochs in {train_s:.3f} s "
+          f"host (the warmup cached)")
+    return out
+
+
+@contextlib.contextmanager
+def start_cell_launches(out: dict):
+    """Count, per cell of a serial ``sweep.run``, the ``lstm_cell``
+    launches (set to 0 just before the cell, read just after) and the
+    intervals in which a START policy predicted (had active jobs)."""
+    inner_decide, inner_cell = start_tech.START.decide, sweep.run_cell
+    predicted = [0]
+
+    def decide(self, view):
+        if view.event == "interval" and len(view.jobs.active()):
+            predicted[0] += 1
+        return inner_decide(self, view)
+
+    def run_cell(spec, scenario, technique, seed, **kw):
+        predicted[0] = 0
+        lstm_cell.launches = 0
+        res = inner_cell(spec, scenario, technique, seed, **kw)
+        out[(scenario, technique, seed)] = (lstm_cell.launches,
+                                            predicted[0])
+        return res
+
+    start_tech.START.decide, sweep.run_cell = decide, run_cell
+    try:
+        yield out
+    finally:
+        start_tech.START.decide, sweep.run_cell = inner_decide, inner_cell
+
+
+def paper_grid() -> dict:
+    """``sweep.run`` of every technique of ``FIELD`` on planetlab at the
+    paper's width, seed 0, serially: the pretraining first (timed apart),
+    then one line per technique with its QoS keys and ms per interval;
+    every START cell must launch ``lstm_cell`` ``CELLS_PER_STEP`` times
+    per interval that predicts."""
+    spec = paper_spec(FIELD)
+    t0 = time.perf_counter()
+    for tech in spec.techniques:
+        sweep.pretrain_payload(spec, GRID_SCENARIO, tech)
+    pretrain_s = time.perf_counter() - t0
+    counts: dict = {}
+    with start_cell_launches(counts):
+        res = sweep.run(spec)
+    out = dict(pretrain_s=pretrain_s, run_s=res.wall_s, cells={})
+    for c in res.cells:
+        launches, predicted = counts[(c.scenario, c.technique, c.seed)]
+        if c.technique.startswith("start") and (
+                not predicted or launches != CELLS_PER_STEP * predicted):
+            raise AssertionError(f"{c.technique}: {launches} lstm_cell "
+                                 f"launches over {predicted} predictions")
+        qos = {k: c.summary[k] for k in sweep.QOS_KEYS}
+        if not all(np.isfinite(v) for v in qos.values()) \
+                or c.summary["tasks_done"] < 1:
+            raise AssertionError(f"{c.technique}: summary {c.summary}")
+        row = dict(qos, ms_per_interval=1e3 * c.wall_s / SIM_INTERVALS,
+                   policy_ms_per_interval=1e3 * c.summary["avg_overhead_s"],
+                   lstm_cell_launches=launches, predicted=predicted,
+                   tasks_done=c.summary["tasks_done"])
+        out["cells"][c.technique] = row
+        print(f"[grid] {c.technique}: {row['ms_per_interval']:.3f} ms per "
+              f"interval (policy {row['policy_ms_per_interval']:.3f}), "
+              + ", ".join(f"{k} {v:.6g}" for k, v in qos.items())
+              + (f"; lstm_cell {launches} launches over {predicted} "
+                 f"predicting intervals" if launches else ""))
+    print(f"[grid] {len(res.cells)} cells at {PAPER['n_hosts']} hosts x "
+          f"{SIM_INTERVALS} intervals: pretraining {pretrain_s:.1f} s, the "
+          f"grid {res.wall_s:.1f} s host")
+    return out
+
+
+def built_libraries() -> dict:
+    """The built kernel libraries, name -> modification time (a rebuild
+    replaces the file, so a changed time means one was built again)."""
+    return {p.name: p.stat().st_mtime_ns
+            for p in _build.BUILD_DIR.glob("*.so")}
+
+
+def cells_in_workers(res: sweep.SweepResult, techniques,
+                     device: str) -> dict:
+    """Technique -> the seeds of its cells in ``res`` that ran in a pool
+    worker, not in this process.  Fails unless every technique of
+    ``techniques`` ran at least one cell there, and each such cell with
+    its network on a ``device`` device (the pickled policy unpickled
+    there in the worker)."""
+    out = {t: [c.seed for c in res.cells
+               if c.technique == t and c.pid != os.getpid()]
+           for t in techniques}
+    wrong = [(c.technique, c.seed, c.device) for c in res.cells
+             if c.technique in out and c.pid != os.getpid()
+             and torch.device(c.device).type != device]
+    if wrong or not all(out.values()):
+        raise AssertionError(f"cells in the workers {out}, on the wrong "
+                             f"device {wrong}: the workers' path was not "
+                             f"driven")
+    return out
+
+
+def sweep_parity() -> dict:
+    """``PARITY`` x ``PARITY_SEEDS`` on planetlab at the paper's width,
+    serially and on ``PARITY_WORKERS`` spawned workers (warmed first, so
+    the parent does not run the grid alone while they import): every
+    cell's ``deterministic_summary`` must be equal bit for bit, field by
+    field; START and IGRU-SD must each run a cell on the card in a
+    worker, and no worker may build a kernel library again."""
+    spec = paper_spec(PARITY, PARITY_SEEDS)
+    serial = sweep.run(spec)
+    libs = built_libraries()
+    try:
+        spawn_s = sweep.warm_pool(PARITY_WORKERS)
+        parallel = sweep.run(dataclasses.replace(
+            spec, max_workers=PARITY_WORKERS))
+    finally:
+        sweep.shutdown_pool()
+    on_card = torch.device(DEVICE).type == "cuda"
+    if on_card and (not libs or built_libraries() != libs):
+        raise AssertionError(f"kernel libraries {libs} became "
+                             f"{built_libraries()} in the parallel run")
+    in_workers = cells_in_workers(parallel, ("start", "igru-sd"),
+                                  torch.device(DEVICE).type)
+    differ = []
+    for a, b in zip(serial.cells, parallel.cells):
+        da = sweep.deterministic_summary(a.summary)
+        db = sweep.deterministic_summary(b.summary)
+        key = (a.scenario, a.technique, a.seed)
+        if key != (b.scenario, b.technique, b.seed) or set(da) != set(db):
+            raise AssertionError(f"cells {key} and {b.technique, b.seed} "
+                                 f"do not line up")
+        differ += [f"{a.technique}/seed {a.seed}: {k} {da[k]!r} != "
+                   f"{db[k]!r}" for k in da if da[k] != db[k]]
+    if differ:
+        raise AssertionError("serial and parallel sweeps differ: "
+                             + "; ".join(differ))
+    print(f"[paper] serial vs {PARITY_WORKERS} workers: {len(serial.cells)} "
+          f"cells ({', '.join(PARITY)} x seeds {PARITY_SEEDS}) bit-equal in "
+          f"every field; in the workers (seeds): {in_workers}, no library "
+          f"rebuilt; serial {serial.wall_s:.1f} s, parallel "
+          f"{parallel.wall_s:.1f} s host (the pool warmed before it in "
+          f"{spawn_s:.1f} s)")
+    return dict(cells=len(serial.cells), serial_s=serial.wall_s,
+                parallel_s=parallel.wall_s, spawn_s=spawn_s,
+                in_workers=in_workers)
 
 
 # ------------------------------- phases 6 to 9 -------------------------------
@@ -2313,6 +2696,12 @@ def main() -> None:
         trained, start_timing = start_train_timing(xs, ys)
         start_sims = start_simulation(trained)
 
+    with phase("paper comparison"):
+        igru_gate = igru_train_gate()
+        igru_sims = igru_lockstep()
+        grid = paper_grid()
+        parity = sweep_parity()
+
     with phase(f"{LM_ARCH} fp32 gate"):
         gate = lm_gate(LM_ARCH)
     with phase(f"{LM_ARCH} bf16 timing and serve"):
@@ -2351,7 +2740,10 @@ def main() -> None:
         device_us={r["batch"]: r["device_us"] for r in cell["timing"]},
         floor_us=floor, per_shape=cell["timing"],
         launches_train_gate=start_gate["launches"],
-        launches_sim={k: v["launches"] for k, v in start_sims.items()})]
+        launches_sim={k: v["launches"] for k, v in start_sims.items()},
+        launches_grid={k: v["lstm_cell_launches"]
+                       for k, v in grid["cells"].items()
+                       if v["lstm_cell_launches"]})]
     # launches: flash from yi-6b's bf16 serving run (the tensor-core
     # kernel, the one timed), decode from yi-6b's fp32 gate, the router
     # from qwen3's; times at the path's longest timed shape, attention in
@@ -2412,6 +2804,8 @@ def main() -> None:
     print(json.dumps({"start_train_gate": start_gate,
                       "start_train": start_timing,
                       "start_sim": start_sims}))
+    print(json.dumps({"igru_train_gate": igru_gate, "igru_sim": igru_sims,
+                      "grid": grid, "sweep_parity": parity}))
     print(json.dumps({"lm_fp32": {k: v for k, v in gate.items()
                                   if k != "flips"},
                       "lm_bf16": timing, "serve": served}))

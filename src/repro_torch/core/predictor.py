@@ -58,6 +58,15 @@ def resolve_device(device: str | torch.device) -> torch.device:
     return dev
 
 
+def fp32_ieee() -> None:
+    """fp32 means IEEE fp32: turn TF32 off for matmuls and cuDNN (TF32
+    would cost the Tier-1 bound).  Every model of the port calls it
+    when it is built or unpickled, so a process that holds only one
+    model (a sweep worker) has it off too."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 # --------------------------- fused interval step ---------------------------
 #
 # Packed staging layout (one float32 vector, one host->device copy per
@@ -164,9 +173,7 @@ class StragglerPredictor:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        # fp32 means IEEE fp32: TF32 would cost the Tier-1 bound
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        fp32_ieee()
         self.input_dim = features.input_dim(self.n_hosts, self.max_tasks)
         self.host_dim = self.n_hosts * features.HOST_FEATURES
         self.task_dim = self.max_tasks * features.TASK_FEATURES
@@ -214,6 +221,7 @@ class StragglerPredictor:
 
     def __setstate__(self, d):
         self.__dict__.update(d)
+        fp32_ieee()
         self.params = _tree_to(self.params, self.device)
         self.opt = _opt_to(self.opt, self.device)
 

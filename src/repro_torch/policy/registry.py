@@ -70,19 +70,11 @@ class PolicyEntry:
 
 _REGISTRY: dict[str, PolicyEntry] = {}
 
-_REST_OF_SIM = "ROADMAP.md Queue 1 item 4.7 (the rest of the simulator)"
 _POD = "ROADMAP.md Queue 1 item 4.3 (the pod runtime)"
 #: names the JAX package registers that the port does not have yet, and
 #: the ROADMAP item that ports each
-NOT_PORTED = {
-    "igru-sd": "ROADMAP.md Queue 1 item 4.4 (IGRU-SD)",
-    **dict.fromkeys(("nearestfit", "dolly", "grass", "sgc", "wrangler",
-                     "rpps", "single-fork", "fork-relaunch",
-                     "redundancy-fixed", "redundancy-adaptive"),
-                    _REST_OF_SIM),
-    **dict.fromkeys(("start-pod", "start-eager-pod", "start-pod-online",
-                     "start-pod-service"), _POD),
-}
+NOT_PORTED = dict.fromkeys(("start-pod", "start-eager-pod",
+                            "start-pod-online", "start-pod-service"), _POD)
 
 
 class UnknownPolicyError(ValueError):

@@ -8,6 +8,7 @@ import torch
 
 from repro.configs import get_reduced
 from repro.models.lm import Model as JModel
+from repro.sim.techniques import baselines as jax_baselines
 from repro_torch import convert
 from repro_torch.configs import PORTED
 
@@ -81,3 +82,22 @@ def test_leaves_follow_jax_order_and_unflatten_inverts_them():
     assert list(back) == ["z", "a", "m"]
     assert list(back["a"][1]) == ["y", "b"]
     assert [float(t) for t in convert.leaves(back)] == [10 * x for x in got]
+
+
+def test_gru_params_carry_over_and_round_trip():
+    """IGRU-SD's GRU pytree (``wx``, ``wh``, ``b``, ``head.w``,
+    ``head.b``) converts leaf for leaf in fp32 and ``to_numpy`` gives it
+    back exactly, in the JAX tree's structure."""
+    jp = jax_baselines.gru_init(jax.random.PRNGKey(3), 3, 16)
+    tp = convert.from_jax(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+    assert set(tp) == {"wx", "wh", "b", "head"}
+    assert set(tp["head"]) == {"w", "b"}
+    assert [tuple(t.shape) for t in convert.leaves(tp)] == [
+        (48,), (1,), (16, 1), (16, 48), (3, 48)]
+    assert all(t.dtype == torch.float32 for t in convert.leaves(tp))
+    back = convert.to_numpy(tp)
+    want_leaves, want_def = jax.tree_util.tree_flatten(jp)
+    got_leaves, got_def = jax.tree_util.tree_flatten(back)
+    assert got_def == want_def
+    for got, want in zip(got_leaves, want_leaves):
+        np.testing.assert_array_equal(got, np.asarray(want))

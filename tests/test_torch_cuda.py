@@ -2,7 +2,9 @@
 versions, the decision step's launches, START's training through the
 cell's kernel and a START simulation on the card against the CPU,
 reduced LMs (dense and MoE) served on the card against the same model on
-the CPU, and a reduced SSM trained on the card against the CPU.  They
+the CPU, a reduced SSM trained on the card against the CPU, IGRU-SD's
+GRU on the card against the CPU, and a 2-worker sweep on the card
+against the serial run.  They
 need an NVIDIA Hopper card and ``nvcc`` and skip elsewhere; run them on
 the card with
 
@@ -10,6 +12,7 @@ the card with
 
 This file imports no JAX, so it runs where only the port is installed."""
 import dataclasses
+import pickle
 
 import numpy as np
 import pytest
@@ -36,9 +39,9 @@ from repro_torch.kernels.mamba_scan import ops as scan_ops
 from repro_torch.kernels.moe_router import moe_router, moe_router_ref
 from repro_torch.models.lm import Model
 from repro_torch.serve.engine import Engine, EngineConfig, Request
-from repro_torch.sim import scenarios
+from repro_torch.sim import scenarios, sweep
 from repro_torch.sim.engine import Simulation
-from repro_torch.sim.techniques import start_tech
+from repro_torch.sim.techniques import baselines, start_tech
 from repro_torch.train import optimizer as Opt
 from repro_torch.train.data import DataConfig, SyntheticLM
 from repro_torch.train.trainer import Trainer
@@ -679,3 +682,90 @@ def test_reduced_ssm_training_on_the_card_matches_the_cpu(cuda):
     per_step = 2 * cfg.n_layers * 3
     assert launches == [(0, 0), (per_step, per_step)]
     np.testing.assert_allclose(losses[1], losses[0], rtol=1e-5)
+
+
+def _gru_inputs(seed: int = 0):
+    """A GRU from ``gru_init`` with a nonzero bias, and T = 5 steps of 37
+    histories (padded by ``_predict`` to 64) with their targets."""
+    p = baselines.gru_init(seed, 3, 16)
+    g = torch.Generator().manual_seed(seed)
+    p["b"] = torch.randn(48, generator=g) * 0.5
+    xs = torch.randn(5, 37, 3, generator=g)
+    y = torch.rand(37, generator=g) * 2.5 + 0.5
+    return p, xs, y
+
+
+def test_igru_gru_on_the_card_matches_the_cpu(cuda):
+    """IGRU-SD's GRU forward, and three ``_gru_step``s, on the card
+    within 1e-5 of the same on the CPU from the same params; a policy's
+    predictions on the card within 1e-5 of its CPU twin's."""
+    p, xs, y = _gru_inputs()
+    outs = {dev: baselines.gru_apply(convert.tree_map(
+        lambda t: t.to(dev), p), xs.to(dev)).cpu() for dev in ("cpu", cuda)}
+    np.testing.assert_allclose(outs[cuda], outs["cpu"], rtol=1e-5,
+                               atol=1e-6)
+    losses = {}
+    for dev in ("cpu", cuda):
+        params = convert.tree_map(lambda t: t.to(dev), p)
+        opt = net.adam_init(params)
+        losses[dev] = []
+        for _ in range(3):
+            params, opt, loss = baselines._gru_step(params, opt, xs.to(dev),
+                                                    y.to(dev))
+            losses[dev].append(float(loss))
+    np.testing.assert_allclose(losses[cuda], losses["cpu"], rtol=1e-5)
+    card, twin = (baselines.IGRUSD(device=d) for d in (cuda, "cpu"))
+    card.params = convert.tree_map(lambda t: t.to(cuda), p)
+    twin.params = p
+    hist = xs.numpy()
+    np.testing.assert_allclose(card._predict(hist), twin._predict(hist),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_igru_refuses_the_card_where_there_is_none(monkeypatch):
+    """No fallback: asked for ``cuda`` where CUDA is absent, IGRU-SD
+    raises, in its constructor and when a pickle made for the card is
+    loaded there."""
+    pickled = pickle.dumps(baselines.IGRUSD(device="cpu"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA was asked for"):
+        baselines.IGRUSD(device="cuda")
+    pol = pickle.loads(pickled)
+    assert pol.device.type == "cpu"
+    pol.device = torch.device("cuda")
+    with pytest.raises(RuntimeError, match="CUDA was asked for"):
+        pickle.loads(pickle.dumps(pol))
+
+
+def test_sweep_on_the_card_two_workers_equal_serial(cuda):
+    """A 2-worker sweep of START, IGRU-SD (both on the card) and GRASS
+    is bit-equal to the serial run, cell by cell; the pickled START and
+    IGRU-SD unpickle onto the card in the workers (each runs a cell
+    there, the pool warmed first), which load the parent's kernel
+    libraries without building them again."""
+    spec = sweep.SweepSpec(
+        techniques=("start", "igru-sd", "grass"), seeds=(0, 1),
+        scenarios=("planetlab", "overload"), n_hosts=16, n_intervals=24,
+        arrival_rate=0.8, pretrain_epochs=2, igru_epochs=5, max_workers=1,
+        technique_kwargs={"start": {"device": "cuda"},
+                          "igru-sd": {"device": "cuda"}})
+    serial = sweep.run(spec)
+    libs = chip_smoke.built_libraries()
+    try:
+        sweep.warm_pool(2)
+        parallel = sweep.run(dataclasses.replace(spec, max_workers=2))
+    finally:
+        sweep.shutdown_pool()
+    assert libs and chip_smoke.built_libraries() == libs
+    chip_smoke.cells_in_workers(parallel, ("start", "igru-sd"), "cuda")
+    assert len(serial.cells) == len(parallel.cells) == 12
+    for a, b in zip(serial.cells, parallel.cells):
+        assert (a.scenario, a.technique, a.seed) == (b.scenario,
+                                                     b.technique, b.seed)
+        assert sweep.deterministic_summary(a.summary) == \
+            sweep.deterministic_summary(b.summary), (a.technique, a.seed)
+    tech = sweep.make_technique(
+        "igru-sd", spec.cell_config("planetlab", 0),
+        igru_epochs=spec.igru_epochs,
+        technique_kwargs=spec.kwargs_for("igru-sd"))
+    assert tech.params["wx"].device.type == "cuda"

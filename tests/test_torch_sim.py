@@ -5,8 +5,10 @@ key by key, and START and START-eager run in lockstep with the JAX
 policies (``chip_smoke.lockstep``, which holds the card's run against the
 CPU's the same way): E_S and the predicted straggler count within the
 Tier-1 bound every interval, the action streams equal up to a first
-difference that involves a boundary job.  Plus the registry's names that
-are not ported yet, and the pod view START-eager refuses."""
+difference that involves a boundary job.  Plus the registry: the pod
+runtime's names, which are not ported yet, and the JAX package's
+``FIELD``, all of which the port makes; and the pod view START-eager
+refuses."""
 import dataclasses
 
 import jax
@@ -16,6 +18,7 @@ import pytest
 import chip_smoke
 from repro.core.start import STARTController as JaxController
 from repro.sim import scenarios as jax_scenarios
+from repro.sim import techniques as jax_techniques
 from repro.sim.engine import Simulation as JaxSimulation
 from repro.sim.techniques import start_tech as jax_start_tech
 from repro_torch import convert, policy
@@ -132,17 +135,29 @@ def test_start_pretrains_through_the_registry_on_the_cpu():
                       technique=pol).run()["tasks_total"] > 0
 
 
-@pytest.mark.parametrize("name,item", [
-    ("igru-sd", "Queue 1 item 4.4"), ("dolly", "Queue 1 item 4.7"),
-    ("rpps", "Queue 1 item 4.7"), ("redundancy-adaptive", "Queue 1 item 4.7"),
-    ("start-pod-online", "Queue 1 item 4.3")])
-def test_names_not_ported_yet_raise_with_their_roadmap_item(name, item):
-    import repro_torch.sim.techniques  # noqa: F401  (registers the port's)
-    with pytest.raises(NotImplementedError, match=item):
-        policy.make(name)
+@pytest.mark.parametrize("name", ["start-pod", "start-eager-pod",
+                                  "start-pod-online", "start-pod-service",
+                                  "FIELD"])
+def test_names_not_ported_yet_raise_with_their_roadmap_item(name):
+    """The pod runtime's four policies raise naming their ROADMAP item;
+    every other name of the JAX package's ``FIELD`` (case ``FIELD``) is
+    registered for the simulator and makes a policy."""
+    import repro_torch.sim.techniques as techniques
+    if name == "FIELD":
+        assert techniques.FIELD == jax_techniques.FIELD
+        assert set(jax_techniques.FIELD) <= set(policy.names("sim"))
+        for n in jax_techniques.FIELD:
+            kw = {"device": "cpu"} if n == "igru-sd" else {}
+            assert isinstance(policy.make(n, **kw), policy.Policy), n
+    else:
+        with pytest.raises(NotImplementedError, match="Queue 1 item 4.3"):
+            policy.make(name)
+        assert name in policy.registry.NOT_PORTED
     with pytest.raises(policy.UnknownPolicyError):
         policy.make("no-such-technique")
-    assert {"none", "start", "start-eager"} <= set(policy.names("sim"))
+    assert set(policy.registry.NOT_PORTED) == {
+        "start-pod", "start-eager-pod", "start-pod-online",
+        "start-pod-service"}
 
 
 def test_start_eager_refuses_a_pod_view():
