@@ -106,7 +106,28 @@ Phases:
    optimizer, and the scan backward's share timed inside it),
    profiler device busy per step, peak memory; and
    ``repro_torch.launch.train`` once, reduced, on the card;
-13. summary: one JSON line of kernel numbers, the card's line, and last
+13. the multi-tenant prediction service at the paper's width
+   (``Profile(n_hosts=400, max_tasks=10, horizon=5, k=1.5)``), in both
+   triggers: a service on the card and its CPU twin from one weight set
+   (the twin's VersionStore is a copy of the card's) fed 16 tenants'
+   seeded streams (1 to 32 live jobs an interval, finished jobs reported
+   with Pareto durations), every tenant queued before one ``tick`` of
+   each, for 40 intervals: E_S and scores within the Tier-1 bound, the
+   actions held as in phase 4, 10 ``lstm_cell`` launches a tick on the
+   card, a dispatch at bucket 512; a retrain -> shadow-eval -> promote
+   cycle on both (losses within 1e-5 relative, the same decision and
+   version, 10 launches per ``train_step`` and per shadow evaluation),
+   the promoted model in lockstep, a rollback on both, lockstep again;
+   degraded mode (a pointer to a version never saved) in lockstep; then
+   the host ms of one tick at 1, 4 and 16 tenants, a profiled 16-tenant
+   tick (device busy, ops, the cell's device time at bucket 512 beside
+   its bound); a ``ServiceDaemon`` over TCP answering 16 threaded
+   ``ServiceClient``s (snapshots/s, round-trip p50 and p99, tenants a
+   tick); a daemon killed and restarted mid-stream (each snapshot applied
+   once, the promoted version served after it); and
+   ``repro_torch.launch.train`` killed by ``--kill-at`` (exit 42) and
+   resumed, its losses bit-equal to an uninterrupted run's;
+14. summary: one JSON line of kernel numbers, the card's line, and last
    ``{"ok": true, "device": {...}}``.
 
 Each phase prints its wall time.
@@ -121,8 +142,11 @@ import dataclasses
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -136,6 +160,8 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.paper_default import PAPER  # noqa: E402
 from repro_torch.core import encoder_lstm as net  # noqa: E402
 from repro_torch.core import features  # noqa: E402
+from repro_torch.core.predictor import (  # noqa: E402
+    StragglerPredictor, bucket_size)
 from repro_torch.core.start import STARTController  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
@@ -158,9 +184,12 @@ from repro_torch.launch import serve as serve_entry  # noqa: E402
 from repro_torch.launch import train as train_entry  # noqa: E402
 from repro_torch.models import backend  # noqa: E402
 from repro_torch.models.lm import Model, full_precision  # noqa: E402
+from repro_torch.policy import wire  # noqa: E402
 from repro_torch.serve.engine import (  # noqa: E402
     Engine, EngineConfig, Request)
 from repro_torch.serve.kv_cache import pad_to_length  # noqa: E402
+from repro_torch.service import (  # noqa: E402
+    PredictionService, Profile, ServiceClient, ServiceConfig, ServiceDaemon)
 from repro_torch.sim.config import SimConfig  # noqa: E402
 from repro_torch.sim.engine import Simulation  # noqa: E402
 from repro_torch.sim import sweep  # noqa: E402
@@ -169,6 +198,7 @@ from repro_torch.sim.techniques import FIELD  # noqa: E402
 from repro_torch.sim.techniques import baselines, start_tech  # noqa: E402
 from repro_torch.train import optimizer as Opt  # noqa: E402
 from repro_torch.train.data import DataConfig, SyntheticLM  # noqa: E402
+from repro_torch.train.checkpoint import VersionStore  # noqa: E402
 from repro_torch.train.trainer import Trainer, value_and_grad  # noqa: E402
 
 # (batch, n_in, hidden): the JAX package's kernel sweep
@@ -2635,6 +2665,551 @@ def ssm_timing() -> dict:
     return out
 
 
+# ----------------------------- phase 13 ------------------------------------
+# The multi-tenant prediction service at the paper's width
+
+SERVICE_TENANTS = 16
+SERVICE_INTERVALS = 40        # phase a's seeded stream, per tenant
+SERVICE_MAX_JOBS = 32         # live jobs of a tenant in an interval: 1..32
+SERVICE_PROMOTED = 8          # intervals the promoted model serves, then
+SERVICE_ROLLED_BACK = 4       # those after the rollback
+SERVICE_DEGRADED = 6
+SERVICE_MIN_PAIRS = 256       # replay pairs the buffer holds at the retrain
+# the retrain's size: the newest 512 pairs (32 held back), 3 epochs of
+# batches of 64 at start_tech.pretrain's learning rate
+SERVICE_RETRAIN = dict(buffer_cap=512, train_epochs=3, train_lr=TRAIN_LR)
+RETRAIN_REL = 1e-5            # shadow and training losses, relative
+PARETO_DURATIONS = (2.5, 1.0)  # a finished job's task durations: alpha, beta
+TICK_TENANTS = (1, 4, 16)     # tenants in a timed tick, 32 jobs each
+TICK_REPS = 10
+PROFILED_TICKS = 5
+TCP_SNAPSHOTS = 40            # per client, 16 clients
+DRILL_TENANTS, DRILL_BEFORE, DRILL_AFTER = 4, 3, 3
+# launch.train's checkpoint drill: checkpoints at steps 4 and 8, killed
+# after step 9, resumed from step 8
+TRAIN_DRILL = ["--arch", SSM_ARCH, "--reduced", "--steps", "16", "--batch",
+               "4", "--seq", "16", "--ckpt-every", "4"]
+KILL_AT, RESUME_AT = 9, 8
+CARD = "not measured"         # the card's name and power limit (phase 1)
+
+
+def service_profile(trigger: str) -> Profile:
+    return Profile(n_hosts=PAPER["n_hosts"], max_tasks=PAPER["max_tasks"],
+                   horizon=PAPER["horizon"], k=PAPER["k"], trigger=trigger)
+
+
+class TenantStream:
+    """One tenant's seeded telemetry in wire form: :class:`Telemetry`'s
+    cluster with 1..``max_jobs`` live jobs an interval; a job that leaves
+    (its tasks all finished, or the backlog shrank) is reported once in
+    ``done``, with Pareto durations for its tasks."""
+
+    def __init__(self, tenant: str, n_hosts: int, max_tasks: int, seed: int,
+                 max_jobs: int = SERVICE_MAX_JOBS):
+        self.tenant, self.max_jobs = tenant, max_jobs
+        self.tel = Telemetry(n_hosts, max_tasks, seed)
+        self.seq = 0
+
+    def step(self, n_jobs: int | None = None) -> tuple[dict, dict]:
+        """The next snapshot (a ``snapshot`` request without its ``op``)
+        and its :meth:`Telemetry.step` dict, which :func:`hold_decisions`
+        reads; ``n_jobs`` fixes the live jobs (else 1..``max_jobs``)."""
+        gen = self.tel
+        qs = {j: d["q"] for j, d in gen.jobs.items()}
+        tel = gen.step(int(gen.rng.integers(1, self.max_jobs + 1))
+                       if n_jobs is None else n_jobs)
+        alpha, beta = PARETO_DURATIONS
+        done = [{"id": j, "times": beta * (1.0 + gen.rng.pareto(alpha, q))}
+                for j, q in sorted(qs.items()) if j not in gen.jobs]
+        jobs = []
+        for i, j in enumerate(tel["job_ids"]):
+            tids, hosts, slots = tel["incomplete_fn"](j)
+            jobs.append(wire.job_to_wire(
+                int(j), int(tel["q"][i]), tel["m_t"][i],
+                open_count=len(tids), deadline=bool(tel["deadline"][i]),
+                tasks=list(zip(tids, hosts, slots))))
+        snap = wire.snapshot_to_wire(self.tenant, self.seq, tel["m_h"], jobs,
+                                     done)
+        self.seq += 1
+        return snap, tel
+
+
+def service_streams(n: int, prefix: str = "tenant",
+                    seed: int = SEED) -> list:
+    """``n`` tenants' streams at the paper's width."""
+    return [TenantStream(f"{prefix}{i}", PAPER["n_hosts"],
+                         PAPER["max_tasks"], seed + i) for i in range(n)]
+
+
+def _answer_keys(res: dict) -> list[tuple]:
+    """The actions of a service answer, each keyed by its job first."""
+    return [(j["id"], a.get("task", -1), a["kind"], a.get("target"),
+             a.get("host", -1)) for j in res["jobs"] for a in j["actions"]]
+
+
+def hold_answers(t: int, svc_a, svc_b, tenant: str, tel: dict, ra: dict,
+                 rb: dict) -> dict:
+    """Hold service b's answer to one snapshot against service a's: both
+    answered, with the same seq, version, degraded flag and repairs; E_S
+    and the per-task scores within the Tier-1 bound; the actions and the
+    tenant's trigger state as :func:`hold_decisions` holds them."""
+    for r in (ra, rb):
+        if not r.get("ok"):
+            raise AssertionError(f"interval {t} {tenant}: {r}")
+    for key in ("seq", "version", "degraded", "sanitized"):
+        if ra[key] != rb[key]:
+            raise AssertionError(f"interval {t} {tenant}: {key} "
+                                 f"{ra[key]!r} != {rb[key]!r}")
+    if [j["id"] for j in ra["jobs"]] != [j["id"] for j in rb["jobs"]]:
+        raise AssertionError(f"interval {t} {tenant}: answered other jobs")
+    e_a = np.array([j["e_s"] for j in ra["jobs"]])
+    e_b = np.array([j["e_s"] for j in rb["jobs"]])
+    rel = es_drift(t, e_a, e_b)
+    if ra["jobs"] and "scores" in ra["jobs"][0]:
+        rel = max(rel, es_drift(
+            t, np.concatenate([j["scores"] for j in ra["jobs"]]),
+            np.concatenate([j["scores"] for j in rb["jobs"]]),
+            what="per-task scores"))
+    flips = hold_decisions(t, svc_a.tenants[tenant].controller,
+                           svc_b.tenants[tenant].controller, tel, e_a,
+                           _answer_keys(ra), _answer_keys(rb))
+    return dict(rel=rel, flips=flips)
+
+
+def service_lockstep(svc_a, svc_b, streams, n: int, t0: int = 0,
+                     launches_per_tick: int = CELLS_PER_STEP) -> dict:
+    """Feed two services the same snapshots, every tenant's queued before
+    one ``tick`` of each (so both group the tenants alike), for ``n``
+    intervals, and hold b's answers against a's (:func:`hold_answers`).
+    a's tick must launch ``lstm_cell`` ``launches_per_tick`` times."""
+    worst, flips, actions = 0.0, 0, 0
+    for t in range(t0, t0 + n):
+        snaps = [s.step() for s in streams]
+        pa = [svc_a.submit(s.tenant, snap)
+              for s, (snap, _) in zip(streams, snaps)]
+        pb = [svc_b.submit(s.tenant, snap)
+              for s, (snap, _) in zip(streams, snaps)]
+        before = lstm_cell.launches
+        if svc_a.tick() != len(streams):
+            raise AssertionError(f"interval {t}: the tick left tenants out")
+        launched = lstm_cell.launches - before
+        if svc_b.tick() != len(streams):
+            raise AssertionError(f"interval {t}: the twin's tick left "
+                                 f"tenants out")
+        if launched != launches_per_tick:
+            raise AssertionError(f"interval {t}: the tick launched "
+                                 f"lstm_cell {launched} times, expected "
+                                 f"{launches_per_tick}")
+        for s, (_, tel), p, q in zip(streams, snaps, pa, pb):
+            r = hold_answers(t, svc_a, svc_b, s.tenant, tel, p.result,
+                             q.result)
+            worst = max(worst, r["rel"])
+            flips += r["flips"]
+            actions += sum(len(j["actions"]) for j in p.result["jobs"])
+    return dict(intervals=n, max_rel=worst, flips=flips, actions=actions)
+
+
+def service_pair(trigger: str, root: Path, **cfg) -> tuple:
+    """A service on the card and its CPU twin serving the same weights
+    (the twin's VersionStore is a copy of the card's, whose version 0
+    holds the card service's seeded weights), with the same tenants."""
+    prof = service_profile(trigger)
+    dir_a, dir_b = root / f"{trigger}-card", root / f"{trigger}-cpu"
+    svc_a = PredictionService(ServiceConfig(
+        prof, ckpt_dir=str(dir_a), device=DEVICE, **cfg))
+    shutil.copytree(dir_a, dir_b)
+    svc_b = PredictionService(ServiceConfig(
+        prof, ckpt_dir=str(dir_b), device="cpu", **cfg))
+    for a, b in zip(convert.leaves(svc_a.params),
+                    convert.leaves(svc_b.params)):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError("the twin's weights differ from the card's")
+    streams = service_streams(SERVICE_TENANTS)
+    for s in streams:
+        for svc in (svc_a, svc_b):
+            r = svc.hello(s.tenant, prof.to_wire())
+            if not r["ok"]:
+                raise AssertionError(f"{s.tenant}: {r}")
+    return svc_a, svc_b, streams
+
+
+def _rel(a, b) -> float:
+    return abs(a - b) / max(abs(b), TIER1_ABS_FLOOR)
+
+
+def service_retrain(svc_a, svc_b) -> dict:
+    """One retrain -> shadow-eval -> promote cycle on each service: the
+    card's losses within ``RETRAIN_REL`` of the twin's, the same decision
+    and version, and ``lstm_cell`` launched 10 times per ``train_step`` of
+    the fit and per shadow evaluation (two of them)."""
+    pairs = len(svc_a.buffer)
+    if pairs < SERVICE_MIN_PAIRS or len(svc_b.buffer) != pairs:
+        raise AssertionError(f"replay buffers of {pairs} and "
+                             f"{len(svc_b.buffer)} pairs at the retrain")
+    before = lstm_cell.launches
+    t0 = time.perf_counter()
+    ra = svc_a.retrain_now()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launched = lstm_cell.launches - before
+    rb = svc_b.retrain_now()
+    n = ra["train_pairs"]
+    steps = SERVICE_RETRAIN["train_epochs"] * max(n // TRAIN_BATCH, 1)
+    if launched != CELLS_PER_STEP * (steps + 2):
+        raise AssertionError(f"the retrain launched lstm_cell {launched} "
+                             f"times, expected {CELLS_PER_STEP} x ({steps} "
+                             f"train steps + 2 shadow evaluations)")
+    rel = max(_rel(ra[k], rb[k]) for k in ("champion_loss",
+                                           "candidate_loss",
+                                           "final_train_loss"))
+    if rel > RETRAIN_REL:
+        raise AssertionError(f"retrain losses card {ra} vs cpu {rb}: "
+                             f"{rel:.3e} > {RETRAIN_REL}")
+    for key in ("promoted", "version", "train_pairs", "eval_pairs"):
+        if ra[key] != rb[key]:
+            raise AssertionError(f"retrain {key}: {ra[key]} != {rb[key]}")
+    if not ra["promoted"]:
+        raise AssertionError(f"the candidate was not promoted: {ra}")
+    return dict(wall_s=wall_s, launches=launched, train_steps=steps,
+                max_rel=rel, card=ra, cpu=rb)
+
+
+def service_trigger(trigger: str, root: Path) -> dict:
+    """Phases a-c of the service in one trigger: lockstep with the CPU
+    twin, a retrain -> promote cycle, the promoted model in lockstep, a
+    rollback on both, lockstep again; then degraded mode in lockstep."""
+    svc_a, svc_b, streams = service_pair(trigger, root, **SERVICE_RETRAIN)
+    out = dict(lockstep=service_lockstep(svc_a, svc_b, streams,
+                                         SERVICE_INTERVALS))
+    out["buckets"] = svc_a.stats()["buckets"]
+    if bucket_size(SERVICE_TENANTS * SERVICE_MAX_JOBS) not in out["buckets"]:
+        raise AssertionError(f"no dispatch reached bucket "
+                             f"{SERVICE_TENANTS * SERVICE_MAX_JOBS}: "
+                             f"{out['buckets']}")
+    out["buffer_pairs"] = len(svc_a.buffer)
+    out["retrain"] = service_retrain(svc_a, svc_b)
+    t = SERVICE_INTERVALS
+    out["promoted"] = service_lockstep(svc_a, svc_b, streams,
+                                       SERVICE_PROMOTED, t0=t)
+    ka, kb = svc_a.rollback_now(), svc_b.rollback_now()
+    if not (ka["ok"] and ka == kb and ka["version"] == 0):
+        raise AssertionError(f"rollback: card {ka}, cpu {kb}")
+    out["rolled_back"] = service_lockstep(
+        svc_a, svc_b, streams, SERVICE_ROLLED_BACK, t0=t + SERVICE_PROMOTED)
+    out["stats"] = {k: v for k, v in svc_a.stats().items()
+                    if isinstance(v, int)}
+    # c: degraded mode, a pointer to a version that was never saved
+    prof = service_profile(trigger)
+    degraded = []
+    for name, dev in (("card", DEVICE), ("cpu", "cpu")):
+        d = root / f"{trigger}-degraded-{name}"
+        d.mkdir()
+        (d / "CURRENT").write_text(json.dumps({"current": 7,
+                                               "history": []}))
+        svc = PredictionService(ServiceConfig(prof, ckpt_dir=str(d),
+                                              device=dev))
+        if not svc.degraded:
+            raise AssertionError("a missing version did not degrade")
+        degraded.append(svc)
+    streams = service_streams(SERVICE_TENANTS, prefix="degraded")
+    for s in streams:
+        for svc in degraded:
+            svc.hello(s.tenant, prof.to_wire())
+    out["degraded"] = service_lockstep(*degraded, streams, SERVICE_DEGRADED,
+                                       launches_per_tick=0)
+    out["degraded"]["answers"] = degraded[0].stats()["degraded_answers"]
+    for key in ("lockstep", "promoted", "rolled_back", "degraded"):
+        r = out[key]
+        print(f"[service] {trigger} {key}: {r['intervals']} intervals x "
+              f"{SERVICE_TENANTS} tenants, {DEVICE} vs cpu, E_S and scores "
+              f"max rel drift {r['max_rel']:.3e}, {r['actions']} actions, "
+              f"{r['flips']} boundary flips")
+    r = out["retrain"]
+    print(f"[service] {trigger} retrain: {r['card']['train_pairs']} train "
+          f"+ {r['card']['eval_pairs']} eval pairs of {out['buffer_pairs']}, "
+          f"{r['train_steps']} train steps, losses champion "
+          f"{r['card']['champion_loss']:.6g} candidate "
+          f"{r['card']['candidate_loss']:.6g} (max rel vs cpu "
+          f"{r['max_rel']:.3e}), promoted to v{r['card']['version']}, "
+          f"{r['launches']} lstm_cell launches, {r['wall_s']:.3f} s wall; "
+          f"buckets {out['buckets']} [{CARD}]")
+    return out
+
+
+def service_timing() -> dict:
+    """Host ms of one tick (the tick alone, snapshots already queued) at
+    1, 4 and 16 tenants of 32 jobs each (buckets 32, 128 and 512), and a
+    profiled window of 16-tenant ticks: device busy ms and device ops per
+    tick, and ``lstm_cell``'s device time per launch at bucket 512 beside
+    its bound."""
+    prof = service_profile("milestone")
+    svc = PredictionService(ServiceConfig(prof, device=DEVICE))
+    streams = service_streams(SERVICE_TENANTS, prefix="timed")
+    for s in streams:
+        svc.hello(s.tenant, prof.to_wire())
+
+    def queue(n):
+        for s in streams[:n]:
+            svc.submit(s.tenant, s.step(SERVICE_MAX_JOBS)[0])
+
+    def tick(n):
+        if svc.tick() != n:
+            raise AssertionError("the tick left tenants out")
+
+    out = {}
+    for n in TICK_TENANTS:
+        ms = []
+        for i in range(TICK_REPS + 3):
+            queue(n)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tick(n)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[f"tick_ms_{n}"] = float(np.median(ms[3:]))
+
+    def whole():
+        queue(SERVICE_TENANTS)
+        tick(SERVICE_TENANTS)
+
+    before = lstm_cell.launches
+    ops = _device_ops(whole, PROFILED_TICKS)
+    launched = lstm_cell.launches - before
+    cell = [v for k, v in ops.items() if "lstm_cell_kernel" in k]
+    cell_n = sum(c for _, c in cell)
+    if launched != CELLS_PER_STEP * PROFILED_TICKS or cell_n != launched:
+        raise AssertionError(f"{PROFILED_TICKS} ticks: {launched} lstm_cell "
+                             f"launches counted, {cell_n} in the trace, "
+                             f"expected {CELLS_PER_STEP} a tick")
+    nb = SERVICE_TENANTS * SERVICE_MAX_JOBS
+    bound_ms, bound_by = cell_bound(nb, *PATH_SHAPES[0][1:], 4)
+    out.update(
+        device_busy_ms_per_tick=sum(t for t, _ in ops.values()) / 1e6
+        / PROFILED_TICKS,
+        device_ops_per_tick=sum(c for _, c in ops.values()) / PROFILED_TICKS,
+        cell_launches_per_tick=cell_n / PROFILED_TICKS,
+        cell_device_us=sum(t for t, _ in cell) / cell_n / 1e3,
+        cell_bound_us=bound_ms * 1e3, cell_bound_by=bound_by, bucket=nb,
+        top=[dict(op=k[:80], ms=t / 1e6 / PROFILED_TICKS,
+                  calls=c / PROFILED_TICKS)
+             for k, (t, c) in sorted(ops.items(),
+                                     key=lambda kv: -kv[1][0])[:4]])
+    print(f"[service] host ms of one tick (32 jobs a tenant): "
+          + ", ".join(f"{n} tenants {out[f'tick_ms_{n}']:.3f}"
+                      for n in TICK_TENANTS)
+          + f"; {SERVICE_TENANTS}-tenant tick (bucket {nb}) under the "
+          f"profiler: device "
+          f"busy {out['device_busy_ms_per_tick']:.4f} ms over "
+          f"{out['device_ops_per_tick']:.0f} kernels and copies a tick, "
+          f"lstm_cell {out['cell_launches_per_tick']:.0f} launches a tick "
+          f"at {out['cell_device_us']:.3f} us device each (bound "
+          f"{out['cell_bound_us']:.4f} us, {bound_by}); top: "
+          + "; ".join(f"{t['op']} {t['ms']:.4f} ms x{t['calls']:.0f}"
+                      for t in out["top"]) + f" [{CARD}]")
+    return out
+
+
+def service_tcp() -> dict:
+    """A ``ServiceDaemon(port=0)`` on the card answering 16
+    ``ServiceClient``s, one thread each, each streaming
+    ``TCP_SNAPSHOTS`` snapshots (made before the clock starts):
+    snapshots/s, round-trip ms percentiles, ticks and tenants per tick."""
+    prof = service_profile("milestone")
+    streams = service_streams(SERVICE_TENANTS, prefix="tcp")
+    snaps = [[s.step()[0] for _ in range(TCP_SNAPSHOTS)] for s in streams]
+    rtt = [[] for _ in streams]
+    errors: list = []
+    start = threading.Barrier(len(streams) + 1, timeout=120)
+    with ServiceDaemon(ServiceConfig(prof, device=DEVICE)) as d:
+        def run(i):
+            try:
+                c = d.tcp_client(streams[i].tenant)
+                r = c.hello(prof)
+                if not r["ok"]:
+                    raise AssertionError(r)
+                start.wait()
+                for snap in snaps[i]:
+                    t0 = time.perf_counter()
+                    r = c.snapshot(snap)
+                    rtt[i].append((time.perf_counter() - t0) * 1e3)
+                    if not r["ok"]:
+                        raise AssertionError(r)
+                c.bye()
+            except Exception as e:     # raised again in the main thread
+                errors.append(f"{streams[i].tenant}: {e!r}")
+                start.abort()
+
+        threads = [threading.Thread(target=run, args=(i,), daemon=True)
+                   for i in range(len(streams))]
+        for th in threads:
+            th.start()
+        start.wait()
+        t0 = time.perf_counter()
+        for th in threads:
+            th.join(timeout=300)
+        wall = time.perf_counter() - t0
+        st = d.service.stats()
+    if errors or any(th.is_alive() for th in threads):
+        raise AssertionError(f"TCP clients failed: {errors}")
+    all_rtt = np.concatenate(rtt)
+    n = len(all_rtt)
+    if st["snapshots"] != n:
+        raise AssertionError(f"{st['snapshots']} snapshots applied of {n}")
+    out = dict(snapshots=n, wall_s=wall, snapshots_per_s=n / wall,
+               rtt_p50_ms=float(np.percentile(all_rtt, 50)),
+               rtt_p99_ms=float(np.percentile(all_rtt, 99)),
+               ticks=st["ticks"], tenants_per_tick=n / st["ticks"],
+               buckets=st["buckets"])
+    print(f"[service] TCP: {len(streams)} clients x {TCP_SNAPSHOTS} "
+          f"snapshots in {wall:.3f} s = {out['snapshots_per_s']:.1f} "
+          f"snapshots/s, round trip p50 {out['rtt_p50_ms']:.3f} ms p99 "
+          f"{out['rtt_p99_ms']:.3f} ms, {st['ticks']} ticks, "
+          f"{out['tenants_per_tick']:.2f} tenants a tick [{CARD}]")
+    return out
+
+
+def service_drill(root: Path, store: Path) -> dict:
+    """Kill and restart a daemon mid-stream (the JAX package's
+    ``test_daemon_kill_restart_mid_stream``, at the paper's width, on the
+    card): the daemon serves version 1 of ``store`` (a copy, promoted),
+    4 reconnecting clients stream 3 snapshots, the daemon stops, a new one
+    binds the same port, and the clients go on with 3 more.  Each
+    snapshot is applied exactly once, a resent one is answered from the
+    cache, the promoted version serves after the restart, and the last
+    answer equals, bit for bit, a predictor of version 1 fed the tenant's
+    rows since the restart."""
+    prof = service_profile("milestone")
+    d = root / "drill"
+    shutil.copytree(store, d)
+    VersionStore(str(d)).promote(1)
+    cfg = ServiceConfig(prof, ckpt_dir=str(d), device=DEVICE)
+    streams = service_streams(DRILL_TENANTS, prefix="drill", seed=SEED + 100)
+    snaps = [[s.step()[0] for _ in range(DRILL_BEFORE + DRILL_AFTER)]
+             for s in streams]
+    d1 = ServiceDaemon(cfg).start()
+    port = d1.port
+    clients = [ServiceClient("127.0.0.1", port, s.tenant, retries=8,
+                             backoff_s=0.05) for s in streams]
+
+    def send(i, c, snap):
+        r = c.snapshot(snap)
+        if not (r["ok"] and r["version"] == 1):
+            raise AssertionError(f"{streams[i].tenant} seq {snap['seq']}: "
+                                 f"{r}")
+        return r
+
+    try:
+        for c in clients:
+            if not c.hello(prof)["ok"]:
+                raise AssertionError("hello refused")
+        for k in range(DRILL_BEFORE):
+            for i, c in enumerate(clients):
+                send(i, c, snaps[i][k])
+        applied_1 = d1.service.stats()["snapshots"]
+    finally:
+        d1.stop()
+    d2 = None
+    for _ in range(50):                # rebinding the same port
+        try:
+            d2 = ServiceDaemon(cfg, port=port).start()
+            break
+        except OSError:
+            time.sleep(0.1)
+    if d2 is None:
+        raise AssertionError("could not rebind the daemon's port")
+    try:
+        last = None
+        for k in range(DRILL_BEFORE, DRILL_BEFORE + DRILL_AFTER):
+            for i, c in enumerate(clients):
+                r = send(i, c, snaps[i][k])
+                last = r if i == 0 else last
+        again = clients[0].snapshot(snaps[0][-1])   # a reply "lost"
+        st = d2.service.stats()
+        for c in clients:
+            c.bye()
+    finally:
+        d2.stop()
+    want = (DRILL_TENANTS * DRILL_BEFORE, DRILL_TENANTS * DRILL_AFTER)
+    if (applied_1, st["snapshots"]) != want or st["version"] != 1:
+        raise AssertionError(f"applied {applied_1} + {st['snapshots']} "
+                             f"snapshots, expected {want}; version "
+                             f"{st['version']}")
+    if not again.get("resent") or again["jobs"] != last["jobs"]:
+        raise AssertionError(f"the resent snapshot was not answered from "
+                             f"the cache: {again}")
+    ref = _drill_reference(prof, d, snaps[0][DRILL_BEFORE:])
+    got = np.array([j["e_s"] for j in last["jobs"]])
+    if not np.array_equal(got, ref):
+        raise AssertionError(f"after the restart E_S {got} != {ref}")
+    print(f"[service] kill and restart: {applied_1} + {st['snapshots']} "
+          f"snapshots applied once each across the restart, version "
+          f"{st['version']} served after it, the resent one answered from "
+          f"the cache, the last answer bit-equal to version 1 fed the rows "
+          f"since the restart [{CARD}]")
+    return dict(applied=[applied_1, st["snapshots"]], version=st["version"])
+
+
+def _drill_reference(prof, store: Path, snaps: list) -> np.ndarray:
+    """E_S of a predictor with the store's version 1, fed ``snaps`` as a
+    tenant alone in its ticks is (its own fused step), sanitized as the
+    service sanitizes it."""
+    pred = StragglerPredictor(n_hosts=prof.n_hosts, max_tasks=prof.max_tasks,
+                              k=prof.k, horizon=prof.horizon, device=DEVICE)
+    pred.load_params(VersionStore(str(store)).load_version(1, pred.params))
+    e_s = q = None
+    for snap in snaps:
+        pred.push_host_row(np.asarray(snap["m_h"], np.float32))
+        m_t = np.stack([np.asarray(j["m_t"], np.float32).reshape(
+            prof.max_tasks, features.TASK_FEATURES) for j in snap["jobs"]])
+        q = np.array([j["q"] for j in snap["jobs"]], np.float32)
+        e_s = pred.predict_interval(m_t, q)
+    return STARTController._sanitize_es(e_s, q)
+
+
+def train_resume(root: Path) -> dict:
+    """``repro_torch.launch.train`` killed by ``--kill-at`` (exit 42) and
+    resumed with ``--resume``: its losses from the resume step on equal
+    an uninterrupted run's bit for bit."""
+    full = train_entry.main([*TRAIN_DRILL, "--device", DEVICE])
+    argv = [*TRAIN_DRILL, "--device", DEVICE, "--ckpt", str(root / "train")]
+    try:
+        train_entry.main([*argv, "--kill-at", str(KILL_AT)])
+    except SystemExit as e:     # the drill's own exit, the one expected
+        code = e.code
+    else:
+        code = 0
+    if code != 42:
+        raise AssertionError(f"--kill-at {KILL_AT} exited {code}, not 42")
+    resumed = train_entry.main([*argv, "--resume"])
+    want = full["losses"][RESUME_AT:]
+    diff = max(abs(a - b) for a, b in zip(resumed["losses"], want))
+    if resumed["start"] != RESUME_AT or resumed["losses"] != want:
+        raise AssertionError(f"resumed at {resumed['start']}: losses "
+                             f"{resumed['losses']} vs {want} (largest "
+                             f"difference {diff:.3e})")
+    print(f"[service] launch.train: killed at step {KILL_AT} (exit 42), "
+          f"resumed from step {RESUME_AT}, {len(want)} losses bit-equal to "
+          f"an uninterrupted run [{CARD}]")
+    return dict(resumed_at=RESUME_AT, losses=len(want), max_diff=diff)
+
+
+def service_phase() -> dict:
+    """Phase 13: the service at the paper's width, both triggers."""
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="service-", dir=build))
+    try:
+        out = {trigger: service_trigger(trigger, root)
+               for trigger in ("milestone", "per_task")}
+        out["timing"] = service_timing()
+        out["tcp"] = service_tcp()
+        out["drill"] = service_drill(root, root / "milestone-card")
+        out["train"] = train_resume(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 # --------------------------------- main ------------------------------------
 
 @contextlib.contextmanager
@@ -2645,8 +3220,9 @@ def phase(name: str):
 
 
 def main() -> None:
+    global CARD
     t_start = time.perf_counter()
-    smi = environment()
+    smi = CARD = environment()
     full_precision()
     with phase("build"):
         t0 = time.perf_counter()
@@ -2725,6 +3301,9 @@ def main() -> None:
                            ).all():
             raise AssertionError(f"launch.train: {trained}")
         free_cuda()
+    with phase("prediction service"):
+        service = service_phase()
+        free_cuda()
 
     headline = cell["timing"][-1]
     kernels = [dict(
@@ -2743,7 +3322,16 @@ def main() -> None:
         launches_sim={k: v["launches"] for k, v in start_sims.items()},
         launches_grid={k: v["lstm_cell_launches"]
                        for k, v in grid["cells"].items()
-                       if v["lstm_cell_launches"]})]
+                       if v["lstm_cell_launches"]},
+        launches_service={
+            "per_tick": service["timing"]["cell_launches_per_tick"],
+            "per_retrain": {t: service[t]["retrain"]["launches"]
+                            for t in ("milestone", "per_task")},
+            "retrain_train_steps": {t: service[t]["retrain"]["train_steps"]
+                                    for t in ("milestone", "per_task")}},
+        device_us_service=service["timing"]["cell_device_us"],
+        bound_us_service=service["timing"]["cell_bound_us"],
+        batch_service=service["timing"]["bucket"])]
     # launches: flash from yi-6b's bf16 serving run (the tensor-core
     # kernel, the one timed), decode from yi-6b's fp32 gate, the router
     # from qwen3's; times at the path's longest timed shape, attention in
@@ -2814,6 +3402,7 @@ def main() -> None:
                       "moe_bf16": moe_timing, "moe_serve": moe_served}))
     print(json.dumps({"ssm_fp32": ssm_fp32, "ssm_bf16": ssm_bf16,
                       "train": trained}))
+    print(json.dumps({"service": service}))
     print(f"[time] total: {time.perf_counter() - t_start:.1f} s wall")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -183,6 +183,9 @@ class StragglerPredictor:
         self.opt = net.adam_init(self.params)
         self._losses: list[float] = []
         self.buckets_used: set[int] = set()
+        #: the distinct (path, batch shape) pairs this predictor has
+        #: dispatched: the shapes the JAX package compiles a program for
+        self.dispatched: set[tuple] = set()
         self._init_fused_state()
 
     def load_params(self, params: dict) -> None:
@@ -312,6 +315,7 @@ class StragglerPredictor:
         n = m_t.shape[0]
         nb = self.batch_size(n)
         self.buckets_used.add(nb)
+        self.dispatched.add(("fused", nb, per_task))
         row = self._sync_ring()
         host_dim = self.host_dim
         task_dim = self.task_dim
@@ -378,6 +382,7 @@ class StragglerPredictor:
         total = int(sum(ns))
         nb = self.batch_size(total)
         self.buckets_used.add(nb)
+        self.dispatched.add(("tenants", nb, per_task))
         xs = np.zeros((t, nb, self.input_dim), np.float32)
         qp = np.ones(nb, np.float32)
         lo = 0
@@ -450,6 +455,7 @@ class StragglerPredictor:
         t = m_h_seq.shape[0]
         nb = bucket_size(n)
         self.buckets_used.add(nb)
+        self.dispatched.add(("unfused", t, nb, per_task))
         mh_flat = np.asarray(m_h_seq, np.float32).reshape(t, 1, -1)
         host_dim = mh_flat.shape[-1]
         xs = np.zeros((t, nb, self.input_dim), np.float32)
@@ -474,6 +480,14 @@ class StragglerPredictor:
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         """Uncounted upload for the unfused reference path."""
         return torch.as_tensor(np.ascontiguousarray(arr)).to(self.device)
+
+    @property
+    def compile_count(self) -> int:
+        """The counterpart of the JAX predictor's XLA compile count: eager
+        PyTorch compiles nothing, so this counts the distinct (path,
+        batch shape) pairs dispatched (:attr:`dispatched`), the shapes
+        for which the JAX package compiles a program."""
+        return len(self.dispatched)
 
     # ---------------------------- training --------------------------------
 

@@ -6,7 +6,10 @@ root.  The library's name carries a hash of its source and the compiler
 flags, so an edited source builds anew and an unchanged one loads from
 disk.  The build runs at the first CUDA use of any kernel: every missing
 library compiles at once, one ``nvcc`` process per source, all started
-together.  A failed build raises with the compiler's output.
+together.  A failed build raises with the compiler's output.  One lock
+serialises building and loading within a process, so threads that touch
+a kernel for the first time at once (the service's batch worker and its
+retrainer) run ``nvcc`` once and share one loaded library.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -27,6 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+# re-entrant: library() holds it while it calls build_all()
+_lock = threading.RLock()
 
 
 def sources() -> dict[str, Path]:
@@ -56,6 +62,11 @@ def build_all() -> dict[str, float]:
 
     Returns kernel name -> seconds its build took (0.0 when it was
     already built).  Raises RuntimeError naming each failed source."""
+    with _lock:
+        return _build_missing()
+
+
+def _build_missing() -> dict[str, float]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     todo = {name: src for name, src in sources().items()
             if not target(src).exists()}
@@ -97,12 +108,16 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        import torch
-        cap = torch.cuda.get_device_capability()
-        if cap != (9, 0):
-            raise RuntimeError(
-                f"kernels are built for sm_90a (Hopper); this card is "
-                f"sm_{cap[0]}{cap[1]}")
-        build_all()
-        lib = _loaded[name] = ctypes.CDLL(str(target(sources()[name])))
+        with _lock:
+            lib = _loaded.get(name)
+            if lib is None:
+                import torch
+                cap = torch.cuda.get_device_capability()
+                if cap != (9, 0):
+                    raise RuntimeError(
+                        f"kernels are built for sm_90a (Hopper); this card "
+                        f"is sm_{cap[0]}{cap[1]}")
+                build_all()
+                lib = _loaded[name] = ctypes.CDLL(
+                    str(target(sources()[name])))
     return lib

@@ -1,14 +1,21 @@
 """Training driver: seeded params, the synthetic LM data, AdamW steps
 through ``Model.loss_fn`` on one device (the card unless ``--device
-cpu``).
+cpu``), with asynchronous checkpoints and a fault drill.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch falcon-mamba-7b --reduced --steps 30 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch falcon-mamba-7b --reduced --steps 30 --device cpu \\
+      --ckpt /tmp/ck --ckpt-every 5 --kill-at 12      # exits 42
+  (the same with --resume instead of --kill-at: "resumed from step 10")
 
-The JAX driver's flags, plus ``--device``.  Checkpointing (``--ckpt``,
-``--resume``, ``--kill-at``) and the straggler runtime
-(``--simulate-stragglers``) are not ported yet and raise, naming their
+The JAX driver's flags, plus ``--device``.  The checkpoint of step s
+holds the params and optimizer state entering step s (the JAX driver's
+final checkpoint; its periodic ones hold the state after step s, and
+its resume runs step s a second time), so a resumed run repeats no step
+and its losses equal an uninterrupted run's.  The straggler runtime
+(``--simulate-stragglers``) is not ported yet and raises, naming its
 ROADMAP.md item.
 """
 from __future__ import annotations
@@ -18,6 +25,7 @@ import time
 
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.models.lm import Model
+from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.data import DataConfig, SyntheticLM
 from repro_torch.train.optimizer import OptConfig
 from repro_torch.train.trainer import TrainConfig, Trainer
@@ -33,6 +41,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--n-micro", type=int, default=1)
     ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--kill-at", type=int, default=None,
                     help="fault drill: hard-exit mid-run at this step")
@@ -40,11 +49,6 @@ def main(argv=None) -> dict:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.ckpt or args.resume or args.kill_at is not None:
-        raise NotImplementedError(
-            "checkpointing (--ckpt, --resume, --kill-at) is not ported yet: "
-            "ROADMAP.md Queue 1 item 4.2 (the service, with "
-            "train/checkpoint.py)")
     if args.simulate_stragglers:
         raise NotImplementedError(
             "the straggler runtime (--simulate-stragglers) is not ported "
@@ -63,22 +67,47 @@ def main(argv=None) -> dict:
                                   global_batch=args.batch),
                        device=args.device)
 
+    start = 0
+    writer = None
+    if args.ckpt:
+        writer = ckpt.AsyncCheckpointer(args.ckpt, keep=3)
+        last = ckpt.latest_step(args.ckpt)
+        if args.resume and last is not None:
+            params, opt_state = ckpt.restore(args.ckpt, last,
+                                             (params, opt_state))
+            start = last
+            print(f"[train] resumed from step {last}")
+
     losses = []
     t0 = time.time()
-    for step in range(args.steps):
+    for step in range(start, args.steps):
         params, opt_state, metrics = step_fn(params, opt_state,
                                              data.batch(step))
         loss = float(metrics["loss"])
         losses.append(loss)
+        if args.kill_at is not None and step >= args.kill_at:
+            if writer is not None:
+                # the drill kills the training loop, not the storage
+                # layer: checkpoints submitted at earlier steps would be
+                # durable long before a real crash this many steps later
+                writer.close()
+            print(f"[train] FAULT DRILL: dying at step {step}")
+            raise SystemExit(42)
+        if writer and (step + 1) % args.ckpt_every == 0 \
+                and step + 1 < args.steps:
+            writer.submit(step + 1, (params, opt_state))
         if step % args.log_every == 0:
             print(f"[train] step {step} loss {loss:.4f} "
                   f"lr {float(metrics['lr']):.2e} "
                   f"({(time.time() - t0):.1f}s)")
+    if writer:
+        writer.submit(args.steps, (params, opt_state))
+        writer.close()
     out = {"first_loss": losses[0] if losses else None,
            "last_loss": losses[-1] if losses else None,
            "steps": len(losses)}
     print(f"[train] done: {out}")
-    return out
+    return dict(out, start=start, losses=losses)
 
 
 if __name__ == "__main__":

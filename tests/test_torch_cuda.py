@@ -3,8 +3,9 @@ versions, the decision step's launches, START's training through the
 cell's kernel and a START simulation on the card against the CPU,
 reduced LMs (dense and MoE) served on the card against the same model on
 the CPU, a reduced SSM trained on the card against the CPU, IGRU-SD's
-GRU on the card against the CPU, and a 2-worker sweep on the card
-against the serial run.  They
+GRU on the card against the CPU, a 2-worker sweep on the card
+against the serial run, the prediction service on the card against its
+CPU twin and over TCP, and the trainer's checkpoint drill.  They
 need an NVIDIA Hopper card and ``nvcc`` and skip elsewhere; run them on
 the card with
 
@@ -13,6 +14,7 @@ the card with
 This file imports no JAX, so it runs where only the port is installed."""
 import dataclasses
 import pickle
+import shutil
 
 import numpy as np
 import pytest
@@ -37,12 +39,16 @@ from repro_torch.kernels.mamba_scan import (mamba_scan, mamba_scan_bwd,
                                             mamba_scan_ref, scan_states_ref)
 from repro_torch.kernels.mamba_scan import ops as scan_ops
 from repro_torch.kernels.moe_router import moe_router, moe_router_ref
+from repro_torch.launch import train as train_entry
 from repro_torch.models.lm import Model
 from repro_torch.serve.engine import Engine, EngineConfig, Request
+from repro_torch.service import (PredictionService, Profile, ServiceConfig,
+                                 ServiceDaemon)
 from repro_torch.sim import scenarios, sweep
 from repro_torch.sim.engine import Simulation
 from repro_torch.sim.techniques import baselines, start_tech
 from repro_torch.train import optimizer as Opt
+from repro_torch.train.checkpoint import VersionStore
 from repro_torch.train.data import DataConfig, SyntheticLM
 from repro_torch.train.trainer import Trainer
 
@@ -769,3 +775,92 @@ def test_sweep_on_the_card_two_workers_equal_serial(cuda):
         igru_epochs=spec.igru_epochs,
         technique_kwargs=spec.kwargs_for("igru-sd"))
     assert tech.params["wx"].device.type == "cuda"
+
+
+# ------------------------------ the service --------------------------------
+
+def _service_pair(tmp_path, cuda, tenants=4, **kw):
+    """A service on the card and its CPU twin from one weight set (the
+    twin's store is a copy of the card's), at 16 hosts, k = 0.5 so the
+    seeded weights act."""
+    prof = Profile(n_hosts=16, max_tasks=10, k=0.5, trigger="per_task")
+    card = PredictionService(ServiceConfig(prof, ckpt_dir=str(
+        tmp_path / "card"), device="cuda", **kw))
+    shutil.copytree(tmp_path / "card", tmp_path / "cpu")
+    twin = PredictionService(ServiceConfig(prof, ckpt_dir=str(
+        tmp_path / "cpu"), device="cpu", **kw))
+    streams = [chip_smoke.TenantStream(f"t{i}", 16, 10, i, max_jobs=12)
+               for i in range(tenants)]
+    for s in streams:
+        for svc in (card, twin):
+            assert svc.hello(s.tenant, prof.to_wire())["ok"]
+    return card, twin, streams
+
+
+def test_service_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """Every tick on the card launches lstm_cell 10 times; the answers
+    hold to the CPU twin's within the Tier-1 bound, with the actions
+    held as the smoke holds them; a retrain (10 launches per train step
+    and per shadow evaluation) decides as the twin does, with losses
+    within 1e-5, and the promoted model stays in lockstep."""
+    card, twin, streams = _service_pair(
+        tmp_path, cuda, min_train_pairs=32, eval_holdback=8,
+        train_epochs=2, train_lr=1e-3)
+    r = chip_smoke.service_lockstep(card, twin, streams, 12)
+    assert r["actions"] > 0
+    before = lstm_cell.launches
+    ra = card.retrain_now()
+    launched = lstm_cell.launches - before
+    rb = twin.retrain_now()
+    steps = 2 * max(ra["train_pairs"] // 64, 1)
+    assert launched == 10 * (steps + 2)
+    for key in ("champion_loss", "candidate_loss", "final_train_loss"):
+        assert abs(ra[key] - rb[key]) <= 1e-5 * abs(rb[key]), key
+    assert (ra["promoted"], ra["version"]) == (rb["promoted"],
+                                               rb["version"])
+    chip_smoke.service_lockstep(card, twin, streams, 4, t0=12)
+
+
+def test_daemon_on_the_card_answers_over_tcp_bit_for_bit(cuda):
+    """A single tenant's answer over TCP from a daemon on the card equals
+    the card's own predictor fed the same rows, bit for bit."""
+    prof = Profile(n_hosts=16, max_tasks=10)
+    stream = chip_smoke.TenantStream("t0", 16, 10, 3, max_jobs=6)
+    snaps = [stream.step()[0] for _ in range(4)]
+    with ServiceDaemon(ServiceConfig(prof, device="cuda")) as d:
+        c = d.tcp_client("t0")
+        assert c.hello(prof)["ok"]
+        for snap in snaps:
+            r = c.snapshot(snap)
+        c.bye()
+    pred = StragglerPredictor(n_hosts=16, max_tasks=10, device="cuda")
+    for snap in snaps:
+        pred.push_host_row(np.asarray(snap["m_h"], np.float32))
+        m_t = np.stack([np.asarray(j["m_t"], np.float32).reshape(10, 5)
+                        for j in snap["jobs"]])
+        q = np.array([j["q"] for j in snap["jobs"]], np.float32)
+        e_s = STARTController._sanitize_es(pred.predict_interval(m_t, q), q)
+    assert [j["e_s"] for j in r["jobs"]] == [float(e) for e in e_s]
+
+
+def test_version_store_restores_onto_the_card(cuda, tmp_path):
+    pred = StragglerPredictor(n_hosts=4, max_tasks=3, device="cuda")
+    store = VersionStore(str(tmp_path))
+    store.save_version(0, pred.params)
+    got = store.load_version(0, pred.params)
+    for a, b in zip(convert.leaves(got), convert.leaves(pred.params)):
+        assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+def test_launch_train_resumes_on_the_card_bit_for_bit(cuda, tmp_path):
+    argv = ["--arch", "falcon-mamba-7b", "--reduced", "--steps", "8",
+            "--batch", "2", "--seq", "16", "--ckpt-every", "3", "--device",
+            "cuda"]
+    full = train_entry.main(argv)
+    ck = ["--ckpt", str(tmp_path)]
+    with pytest.raises(SystemExit) as killed:
+        train_entry.main([*argv, *ck, "--kill-at", "4"])
+    assert killed.value.code == 42
+    resumed = train_entry.main([*argv, *ck, "--resume"])
+    assert resumed["start"] == 3
+    assert resumed["losses"] == full["losses"][3:]

@@ -1,8 +1,9 @@
 """The port stands alone: no file of ``src/repro_torch/`` and not
 ``chip_smoke.py`` imports ``jax`` or the JAX package ``repro``, and
 building and running the port's controller, its LM serving engine
-(dense and MoE), its SSM trainer, and START's pretraining and a
-START-eager simulation on the CPU loads neither."""
+(dense and MoE), its SSM trainer, START's pretraining and a START-eager
+simulation, and a prediction service's tick and a daemon's TCP round
+trip on the CPU loads neither."""
 import ast
 import os
 import subprocess
@@ -58,7 +59,18 @@ def test_the_scan_sees_every_port_module():
             "src/repro_torch/sim/scenarios.py",
             "src/repro_torch/sim/engine.py",
             "src/repro_torch/sim/techniques/__init__.py",
-            "src/repro_torch/sim/techniques/start_tech.py"} <= names
+            "src/repro_torch/sim/techniques/start_tech.py",
+            "src/repro_torch/service/__init__.py",
+            "src/repro_torch/service/core.py",
+            "src/repro_torch/service/daemon.py",
+            "src/repro_torch/service/protocol.py",
+            "src/repro_torch/service/retrain.py",
+            "src/repro_torch/service/sanitize.py",
+            "src/repro_torch/policy/wire.py",
+            "src/repro_torch/train/checkpoint.py",
+            "src/repro_torch/chaos/__init__.py",
+            "src/repro_torch/chaos/clock.py",
+            "src/repro_torch/chaos/proxy.py"} <= names
     assert _imported_roots(ROOT / "src" / "repro" / "core" / "start.py") \
         >= {"repro", "numpy"}
 
@@ -108,6 +120,22 @@ def test_running_the_port_loads_no_jax():
         "out = Simulation(scenarios.make_config('planetlab', seed=1, "
         "n_hosts=8, n_intervals=12), technique=pol).run()\n"
         "assert out['tasks_total'] > 0 and len(ctrl.predictor.losses) == 1\n"
+        "from repro_torch.policy import wire\n"
+        "from repro_torch.service import (PredictionService, Profile, "
+        "ServiceConfig, ServiceDaemon)\n"
+        "prof = Profile(n_hosts=4, max_tasks=3)\n"
+        "snap = wire.snapshot_to_wire('t', 0, np.ones((4, 11)), jobs=["
+        "wire.job_to_wire(1, 2, np.ones((3, 5)), tasks=[(7, 0, 0)])])\n"
+        "svc = PredictionService(ServiceConfig(prof, device='cpu'))\n"
+        "assert svc.hello('t', prof.to_wire())['ok']\n"
+        "p = svc.submit('t', snap)\n"
+        "assert svc.tick() == 1 and p.result['ok']\n"
+        "with ServiceDaemon(ServiceConfig(prof, device='cpu')) as d:\n"
+        "    c = d.tcp_client('t')\n"
+        "    assert c.hello(prof)['ok']\n"
+        "    r = c.snapshot(snap)\n"
+        "    c.bye()\n"
+        "assert r['jobs'] == p.result['jobs']\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n")
