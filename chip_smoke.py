@@ -127,7 +127,28 @@ Phases:
    once, the promoted version served after it); and
    ``repro_torch.launch.train`` killed by ``--kill-at`` (exit 42) and
    resumed, its losses bit-equal to an uninterrupted run's;
-14. summary: one JSON line of kernel numbers, the card's line, and last
+14. the training-pod straggler runtime at the paper's width (400 hosts,
+   horizon 5, k = 1.5): every policy registered for the ``pod``
+   substrate (ten, IGRU-SD fitted first by ``pretrain_igru_pod`` on a
+   15-step warm run, 150 epochs, on the card), each on a runtime on the
+   card and on a CPU twin from the same weights, in lockstep over 200
+   steps of ``examples/pod_baseline_grid.py``'s trace (Pareto(2.0)
+   noise, host 5 at 2.5x): equal actions at every step and equal
+   summaries, E_S (the tail fit's, the network's, the service's answer
+   and scores) and IGRU-SD's predictions within the Tier-1 bound, the
+   online policy's epoch losses within 1e-5 relative (a difference in
+   the actions only at a boundary step, where the runs part);
+   ``start-pod-online`` launches ``lstm_cell`` 10 times per network
+   prediction and per ``train_step``, ``start-pod-service`` 10 times per
+   tick; each policy's backups, evictions and sync barrier, host ms per
+   step, the online policy's ``fit`` ms per window, and device busy and
+   ops per step of the two Encoder-LSTM policies (one profiled window);
+   ``start-pod-service`` against a ``ServiceDaemon`` over TCP, its
+   answers equal to the in-process run's; and ``repro_torch.launch.train
+   --simulate-stragglers --n-hosts 400`` on the card, its
+   ``[start-runtime]`` lines, summary and E_S equal to a ``--device cpu``
+   run's;
+15. summary: one JSON line of kernel numbers, the card's line, and last
    ``{"ok": true, "device": {...}}``.
 
 Each phase prints its wall time.
@@ -140,6 +161,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import io
 import json
 import os
 import shutil
@@ -158,11 +180,15 @@ import torch  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.paper_default import PAPER  # noqa: E402
+from repro_torch import policy as registry  # noqa: E402
 from repro_torch.core import encoder_lstm as net  # noqa: E402
 from repro_torch.core import features  # noqa: E402
 from repro_torch.core.predictor import (  # noqa: E402
     StragglerPredictor, bucket_size)
 from repro_torch.core.start import STARTController  # noqa: E402
+from repro_torch.distributed.straggler_runtime import (  # noqa: E402
+    RuntimeConfig, ServiceBackedPodPolicy, StragglerRuntime,
+    pretrain_igru_pod)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, decode_attention_ref)
@@ -206,6 +232,11 @@ from repro_torch.train.trainer import Trainer, value_and_grad  # noqa: E402
 # decision's job buckets 1, 16 and 256, and START training's batch of 64
 LSTM_SWEEP = [(8, 32, 32), (130, 32, 32), (64, 128, 64)]
 PATH_SHAPES = [(1, 32, 32), (16, 32, 32), (64, 32, 32), (256, 32, 32)]
+# the pod runtime's cell batches: start-pod-online's and the pod service's
+# predictions (one job: batch 1), and its fit's whole set of 1..40 windows
+# (200 steps of horizon 5), one batch an epoch
+POD_STEPS = 200
+POD_SHAPES = [(b, 32, 32) for b in range(2, POD_STEPS // 5 + 1) if b != 16]
 # fp32: max abs; bf16: the sweep's allclose tolerance
 TOL = {torch.float32: dict(rtol=0.0, atol=1e-5),
        torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
@@ -392,7 +423,8 @@ def check_kernel(floor: float) -> dict:
     version and ``torch.lstm_cell``, and by profiler device time per launch
     beside its bound and ``floor``, the floor of a launch (us)."""
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    for i, (bsz, n_in, hid) in enumerate(LSTM_SWEEP + PATH_SHAPES):
+    for i, (bsz, n_in, hid) in enumerate(LSTM_SWEEP + PATH_SHAPES
+                                         + POD_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
             args = cell_inputs(bsz, n_in, hid, dtype, seed=i)
             got = lstm_cell(*args)
@@ -405,8 +437,11 @@ def check_kernel(floor: float) -> dict:
                 torch.testing.assert_close(g, w, **TOL[dtype])
                 err = (g - w).abs().max().item()
                 worst[dtype] = max(worst[dtype], err)
-            print(f"[kernel] lstm_cell B={bsz} In={n_in} H={hid} "
-                  f"{str(dtype)[6:]}: ok")
+            if (bsz, n_in, hid) not in POD_SHAPES:
+                print(f"[kernel] lstm_cell B={bsz} In={n_in} H={hid} "
+                      f"{str(dtype)[6:]}: ok")
+    print(f"[kernel] lstm_cell B={POD_SHAPES[0][0]}..{POD_SHAPES[-1][0]} "
+          f"(the pod's fit batches) In=H=32, fp32 and bf16: ok")
     print(f"[kernel] max abs err fp32 {worst[torch.float32]:.3e} "
           f"(bound 1e-5), bf16 {worst[torch.bfloat16]:.3e} (bound 2e-2)")
 
@@ -3210,6 +3245,585 @@ def service_phase() -> dict:
     return out
 
 
+# --------------------------------- phase 14 --------------------------------
+# the training-pod straggler runtime at the paper's width
+
+POD_SLOW, POD_SLOWDOWN = 5, 2.5   # examples/pod_baseline_grid.py's trace
+POD_WARM_STEPS, POD_WARM_SEED = 15, 1
+POD_IGRU_EPOCHS = 150
+POD_PROFILED = ("start-pod-online", "start-pod-service")
+POD_PROFILE_AT = 20             # profile steps 20..24: one window, one fit
+POD_TCP_STEPS = 50
+# start-pod-online's params after one fit (8 Adam steps) from equal
+# weights and Adam state, card vs CPU, relative in norm (PR 22 measured
+# 7.645e-08 at most over the 40 fits of the phase)
+POD_FIT_DRIFT_REL = 1e-6
+POD_TRAIN = ["--arch", SSM_ARCH, "--reduced", "--steps", "12",
+             "--simulate-stragglers", "--n-hosts", str(PAPER["n_hosts"])]
+
+
+def pod_trace(steps: int, n_hosts: int, seed: int = 0) -> np.ndarray:
+    """(steps, n_hosts) step times, ``examples/pod_baseline_grid.py``'s
+    generator: mild Pareto noise and host 5 running 2.5x slow."""
+    rng = np.random.default_rng(seed)
+    t = 1.0 + 0.05 * rng.pareto(2.0, (steps, n_hosts))
+    t[:, POD_SLOW] *= POD_SLOWDOWN
+    return t
+
+
+def pod_config(device: str) -> RuntimeConfig:
+    return RuntimeConfig(n_hosts=PAPER["n_hosts"], horizon=PAPER["horizon"],
+                         k=PAPER["k"], device=device)
+
+
+def pod_es_policy(pol):
+    """The policy object whose ``_expected_stragglers`` the runtime's
+    policy calls (``start-eager`` hands a pod view to its
+    ``StartEagerPodPolicy``), or ``None`` for policies without one."""
+    if hasattr(pol, "_pod_policy"):
+        return pol._pod_policy()
+    return pol if hasattr(pol, "_expected_stragglers") else None
+
+
+def prebuild(rt) -> None:
+    """Build an online policy's predictor before the first window (either
+    package's), so its weights can be replaced and its ``fit`` timed."""
+    if hasattr(rt.policy, "_ensure_predictor"):
+        rt.policy._ensure_predictor(rt.cfg)
+
+
+class PodLog:
+    """Steps a pod runtime (either package's) and records what each
+    ``decide`` predicted and did: E_S (each ``_expected_stragglers``
+    call: the tail fit's or the network's; the service's answer and its
+    per-task scores), IGRU-SD's predictions (``preds(pol)``, default the
+    port's ``last_preds``), the online policy's epoch losses, and the
+    actions.  It also counts the online policy's network predictions and
+    ``train_step``s and times its ``fit`` (``timed``)."""
+
+    def __init__(self, rt, preds=None, timed: bool = False):
+        self.rt, self.es = rt, []
+        pol = rt.policy
+        self.name = pol.name
+        self.preds = preds or (lambda p: p.last_preds)
+        self.responses: list = []
+        self.net_predictions = self.train_steps = 0
+        self.fit_ms: list[float] = []
+        target = pod_es_policy(pol)
+        if target is not None:
+            inner = target._expected_stragglers
+
+            def es(view):
+                v = inner(view)
+                self.es.append(v)
+                return v
+
+            target._expected_stragglers = es
+        if timed and getattr(pol, "predictor", None) is not None:
+            fit = pol.predictor.fit
+
+            def timed_fit(*a, **kw):
+                out, ms = _synced(lambda: fit(*a, **kw))
+                self.fit_ms.append(ms)
+                return out
+
+            pol.predictor.fit = timed_fit
+
+    def step(self, times) -> dict:
+        pol = self.rt.policy
+        self.es = []
+        epochs = len(pol.predictor.losses) \
+            if getattr(pol, "predictor", None) is not None else 0
+        self.rt.observe_step(times)
+        acts = self.rt.decide()
+        rec = dict(actions=[(str(a.kind), int(a.host), a.backup)
+                            for a in acts],
+                   es=np.array(self.es, np.float64))
+        if self.name == "start-pod-service":
+            resp = pol.last_response
+            self.responses.append(resp)
+            jobs = resp["jobs"] if resp and resp.get("ok") else []
+            rec["es"] = np.array([j["e_s"] for j in jobs], np.float64)
+            rec["scores"] = [np.array(j["scores"], np.float64)
+                             for j in jobs]
+        elif self.name == "igru-sd":
+            p = self.preds(pol)
+            rec["preds"] = None if p is None else np.asarray(p, np.float64)
+        if getattr(pol, "predictor", None) is not None:
+            rec["losses"] = list(pol.predictor.losses)
+            pairs = pol.trained_pairs
+            self.train_steps += (len(rec["losses"]) - epochs) \
+                * max(1, pairs // 64)
+            self.net_predictions += pairs >= pol.min_windows
+        return rec
+
+
+def pod_boundary(ra: dict, rb: dict) -> bool:
+    """A step whose decision may rightly flip between two runs that agree
+    within the Tier-1 bound: an E_S within the bound of an integer (its
+    floor sizes the set), two per-task scores of the service within the
+    bound of each other (the top-n cut; exact ties order the same on both),
+    or an IGRU-SD prediction within the bound of its 1.5 threshold."""
+    def tol(v):
+        return TIER1_REL * np.maximum(np.abs(v), TIER1_ABS_FLOOR)
+
+    for r in (ra, rb):
+        e = r["es"]
+        if len(e) and (np.abs(e - np.round(e)) <= tol(e)).any():
+            return True
+        for s in r.get("scores", ()):
+            d = np.diff(np.sort(s))
+            if ((d > 0) & (d <= tol(np.sort(s)[1:]))).any():
+                return True
+        p = r.get("preds")
+        if p is not None and len(p) and (np.abs(p - 1.5) <= tol(1.5)).any():
+            return True
+    return False
+
+
+def param_gap(src, dst) -> float:
+    """How far ``dst``'s params (a port predictor's) lie from ``src``'s:
+    relative, in norm over every leaf."""
+    a = [t.detach().double().cpu() for t in convert.leaves(src.params)]
+    b = [t.detach().double().cpu() for t in convert.leaves(dst.params)]
+    num = sum(float(((x - y) ** 2).sum()) for x, y in zip(a, b))
+    return (num / sum(float((x ** 2).sum()) for x in a)) ** 0.5
+
+
+def sync_predictor(src, dst) -> float:
+    """Give ``dst`` (a port predictor) ``src``'s params and Adam state, on
+    ``dst``'s device; returns :func:`param_gap` before the copy."""
+    rel = param_gap(src, dst)
+
+    def to(tree):
+        return convert.tree_map(lambda t: t.detach().to(dst.device).clone(),
+                                tree)
+
+    dst.params = to(src.params)
+    dst.opt = net.AdamState(step=src.opt.step.detach().to(dst.device)
+                            .clone(), mu=to(src.opt.mu), nu=to(src.opt.nu))
+    return rel
+
+
+def es_of_alpha(alpha, q: float, k: float):
+    """Eq. 4 in float64 from the tail index alone (beta cancels):
+    q * (k*alpha/(alpha-1))^(-alpha)."""
+    a = np.asarray(alpha, np.float64)
+    return q * (k * a / (a - 1.0)) ** (-a)
+
+
+def es_condition(alpha, k: float):
+    """|d ln E_S / d ln alpha| of Eq. 4: the factor by which E_S magnifies
+    a relative error in alpha."""
+    a = np.asarray(alpha, np.float64)
+    return a * np.abs(1.0 / (a - 1.0) - np.log(k * a / (a - 1.0)))
+
+
+def pod_lockstep(rt_a, rt_b, trace: np.ndarray, preds=None,
+                 timed: bool = False, sync: bool = False) -> dict:
+    """Step two pod runtimes of the same policy over ``trace`` and hold
+    b's every step against a's: E_S (and the service's scores, IGRU-SD's
+    predictions) within the Tier-1 bound, the online policy's epoch
+    losses within ``TRAIN_REL``, and the actions equal; a difference in
+    the actions is allowed only at a boundary step (:func:`pod_boundary`),
+    and the runs part there (a runs on alone).  Runs that never part must
+    end with equal ``summary()``s.  ``preds`` gives run a's IGRU-SD
+    predictions (default: the port's ``last_preds``).  With ``sync`` (two
+    port runtimes), b's online predictor takes a's params and Adam state
+    after every fit, once its losses were held, so every fit and
+    prediction starts from the same weights (``fit_drift``: how far b's
+    params lay from a's after each fit, within ``POD_FIT_DRIFT_REL``)."""
+    log_a = PodLog(rt_a, preds, timed=timed)
+    log_b = PodLog(rt_b)
+    worst = worst_loss = 0.0
+    boundary, parted, step_ms, acted, fit_drift = [], None, [], 0, []
+    synced = 0
+    for t, times in enumerate(trace):
+        t0 = time.perf_counter()
+        ra = log_a.step(times)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if parted is not None:
+            continue
+        rb = log_b.step(times)
+        if len(ra["es"]) != len(rb["es"]):
+            raise AssertionError(f"step {t}: {len(ra['es'])} and "
+                                 f"{len(rb['es'])} E_S predictions")
+        worst = max(worst, es_drift(t, ra["es"], rb["es"]))
+        for sa, sb in zip(ra.get("scores", ()), rb.get("scores", ())):
+            worst = max(worst, es_drift(t, sa, sb, "per-task score"))
+        if ra.get("preds") is not None and rb.get("preds") is not None:
+            if ra["preds"].shape != rb["preds"].shape:
+                raise AssertionError(f"step {t}: IGRU-SD predicted for "
+                                     f"{len(ra['preds'])} and "
+                                     f"{len(rb['preds'])} tasks")
+            worst = max(worst, es_drift(t, ra["preds"], rb["preds"],
+                                        "IGRU-SD prediction"))
+        la, lb = ra.get("losses", []), rb.get("losses", [])
+        if len(la) != len(lb):
+            raise AssertionError(f"step {t}: {len(la)} and {len(lb)} epochs")
+        for a, b in zip(la, lb):
+            rel = abs(a - b) / max(abs(b), 1e-30)
+            if not np.isfinite(a) or rel > TRAIN_REL:
+                raise AssertionError(f"step {t}: epoch loss {a} vs {b} "
+                                     f"(rel {rel:.3e} > {TRAIN_REL})")
+            worst_loss = max(worst_loss, rel)
+        if sync and len(la) != synced:
+            synced = len(la)
+            fit_drift.append(sync_predictor(rt_a.policy.predictor,
+                                            rt_b.policy.predictor))
+            if not fit_drift[-1] <= POD_FIT_DRIFT_REL:
+                raise AssertionError(
+                    f"step {t}: params {fit_drift[-1]:.3e} apart after a fit "
+                    f"from equal weights (> {POD_FIT_DRIFT_REL})")
+        edge = pod_boundary(ra, rb)
+        if edge:
+            boundary.append(t)
+        acted += len(ra["actions"])
+        if ra["actions"] != rb["actions"]:
+            if not edge:
+                raise AssertionError(
+                    f"step {t}: actions {ra['actions']} and "
+                    f"{rb['actions']} differ away from any decision "
+                    f"boundary")
+            parted = t
+    sa, sb = rt_a.summary(), rt_b.summary()
+    if parted is None and sa != sb:
+        raise AssertionError(f"summaries differ: {sa} vs {sb}")
+    return dict(steps=len(trace) if parted is None else parted + 1,
+                parted_at=parted, boundary_steps=boundary, max_rel=worst,
+                max_loss_rel=worst_loss, actions=acted, summary=sa,
+                fit_drift=fit_drift,
+                net_predictions=log_a.net_predictions,
+                train_steps=log_a.train_steps, fit_ms=log_a.fit_ms,
+                responses=log_a.responses, step_ms=step_ms)
+
+
+def pod_online_drift(trace: np.ndarray) -> dict:
+    """``start-pod-online`` on the card and on the CPU from equal initial
+    weights, each training on its own (no weight sync).  Measures how the
+    two runs' rounding differences grow through 320 Adam steps: the
+    params' gap after each fit, and at each network prediction the
+    relative gaps in E_S and in alpha beside E_S's condition number in
+    alpha (:func:`es_condition`; beta cancels from Eq. 4), so a spike in
+    the E_S gap reads as alpha's gap magnified, or not.  The gate is the
+    synced lockstep's; this run fails only if the actions differ at a step
+    where the two E_S do not lie on either side of an integer (the backup
+    set is floor(E_S) hosts, the evictions follow the trace alone)."""
+    runs = [StragglerRuntime(pod_config(dev), policy=registry.make(
+        "start-pod-online")) for dev in (DEVICE, "cpu")]
+    for rt in runs:
+        prebuild(rt)
+    start_gap = sync_predictor(runs[0].policy.predictor,
+                               runs[1].policy.predictor)
+    heads = ([], [])
+    for rt, head in zip(runs, heads):
+        pred = rt.policy.predictor
+        inner = pred.predict_features
+
+        def record(*a, inner=inner, head=head, **kw):
+            out = inner(*a, **kw)
+            head.append((float(out.alpha[0]), float(out.e_s[0])))
+            return out
+
+        pred.predict_features = record
+    logs = [PodLog(rt) for rt in runs]
+    n, k = PAPER["n_hosts"], PAPER["k"]
+    per_window, parted, first_past, fit_gap, steps = [], None, None, [], []
+    fits = 0
+    for t, times in enumerate(trace):
+        made = len(heads[0])
+        ra, rb = (log.step(times) for log in logs)
+        if len(ra["losses"]) != fits:
+            fits = len(ra["losses"])
+            fit_gap.append(param_gap(runs[0].policy.predictor,
+                                     runs[1].policy.predictor))
+        rel = float((np.abs(ra["es"] - rb["es"]) / np.maximum(
+            np.abs(rb["es"]), TIER1_ABS_FLOOR)).max()) if len(ra["es"]) \
+            else 0.0
+        w = t // PAPER["horizon"]
+        if w == len(per_window):
+            per_window.append(0.0)
+        per_window[w] = max(per_window[w], rel)
+        if first_past is None and rel > TIER1_REL:
+            first_past = t
+        if len(heads[0]) > made:
+            (aa, ea), (ab, eb) = heads[0][-1], heads[1][-1]
+            kappa = float(es_condition(ab, k))
+            steps.append(dict(
+                step=t, es_gap=abs(ea - eb) / max(abs(eb), TIER1_ABS_FLOOR),
+                alpha=ab, alpha_gap=abs(aa - ab) / abs(ab), kappa=kappa,
+                own=max(abs(e - float(es_of_alpha(a, n, k)))
+                        / max(float(es_of_alpha(a, n, k)), TIER1_ABS_FLOOR)
+                        for a, e in ((aa, ea), (ab, eb))),
+                fit_gap=fit_gap[-1]))
+        if ra["actions"] != rb["actions"]:
+            straddle = (np.floor(ra["es"]) != np.floor(rb["es"])).any() \
+                if len(ra["es"]) == len(rb["es"]) else False
+            if not straddle:
+                raise AssertionError(
+                    f"free-running step {t}: actions {ra['actions']} and "
+                    f"{rb['actions']} differ, E_S {ra['es']} and {rb['es']} "
+                    f"on the same side of every integer")
+            parted = t
+            break
+    spikes = [s for s in steps if s["es_gap"] > TIER1_REL]
+    return dict(per_window=per_window, first_past_tier1=first_past,
+                parted_at=parted, start_gap=start_gap, fit_gap=fit_gap,
+                spikes=spikes,
+                max_alpha_gap=max((s["alpha_gap"] for s in steps),
+                                  default=0.0),
+                max_own=max((s["own"] for s in steps), default=0.0),
+                explained=[s["es_gap"] / max(s["kappa"] * s["alpha_gap"],
+                                             1e-30) for s in spikes])
+
+
+def pod_igru(trace_warm: np.ndarray) -> tuple[dict, float]:
+    """IGRU-SD fitted on the card by ``pretrain_igru_pod`` on a 15-step
+    warm run (seed 1, 150 epochs), as ``examples/pod_baseline_grid.py``
+    fits it: the trained params (on the card) and the fit's host ms."""
+    warm = StragglerRuntime(pod_config(DEVICE))
+    for times in trace_warm:
+        warm.observe_step(times)
+    tech = baselines.IGRUSD(seed=0, device=DEVICE)
+    _, ms = _synced(lambda: pretrain_igru_pod(tech, warm,
+                                              epochs=POD_IGRU_EPOCHS))
+    if not all(torch.isfinite(t).all() for t in convert.leaves(tech.params)):
+        raise AssertionError("IGRU-SD's pod pretraining: params not finite")
+    return tech.params, ms
+
+
+def pod_policy(name: str, device: str, igru_params=None):
+    """A fresh policy of ``name``; IGRU-SD holds a copy of ``igru_params``
+    on ``device`` (the others take the runtime's device)."""
+    if name == "igru-sd":
+        tech = baselines.IGRUSD(seed=0, device=device)
+        tech.params = convert.tree_map(lambda t: t.detach().to(device)
+                                       .clone(), igru_params)
+        return tech
+    return registry.make(name)
+
+
+def pod_profile(name: str, trace: np.ndarray) -> dict:
+    """A card run of ``name`` up to step ``POD_PROFILE_AT``, then one
+    window of ``horizon`` steps (one fit for the online policy, one
+    prediction a step) under the profiler: device busy ms and ops per
+    step, and the cell's device time per launch."""
+    rt = StragglerRuntime(pod_config(DEVICE), policy=registry.make(name))
+    for times in trace[:POD_PROFILE_AT]:
+        rt.observe_step(times)
+        rt.decide()
+    steps = iter(trace[POD_PROFILE_AT:])
+    reps = PAPER["horizon"]
+
+    def step():
+        rt.observe_step(next(steps))
+        rt.decide()
+
+    ops = _device_ops(step, reps)
+    cell = [v for k, v in ops.items() if "lstm_cell_kernel" in k]
+    return dict(busy_ms=sum(v[0] for v in ops.values()) / reps / 1e6,
+                ops=sum(v[1] for v in ops.values()) / reps,
+                cell_launches=sum(c for _, c in cell),
+                cell_device_us=(sum(t for t, _ in cell)
+                                / max(1, sum(c for _, c in cell)) / 1e3))
+
+
+def pod_tcp(trace: np.ndarray, responses: list) -> dict:
+    """``start-pod-service`` against a port ``ServiceDaemon`` on
+    localhost through a ``ServiceClient``, on the card, for the first
+    ``POD_TCP_STEPS`` steps: every answer equal to the in-process card
+    run's (``responses``): the same actions, E_S and scores within the
+    Tier-1 bound (counted where bit-equal)."""
+    cfg = pod_config(DEVICE)
+    prof = Profile(n_hosts=cfg.n_hosts, max_tasks=cfg.n_hosts,
+                   horizon=cfg.horizon, k=cfg.k, trigger="per_task",
+                   hysteresis=2, cooldown=5)
+    worst, equal, ms = 0.0, 0, []
+    with ServiceDaemon(ServiceConfig(profile=prof, device=DEVICE),
+                       port=0) as d:
+        client = d.tcp_client("pod0")
+        try:
+            rt = StragglerRuntime(cfg, policy=ServiceBackedPodPolicy(
+                client=client))
+            for t, times in enumerate(trace[:POD_TCP_STEPS]):
+                t0 = time.perf_counter()
+                rt.observe_step(times)
+                rt.decide()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                got = rt.policy.last_response
+                want = responses[t]
+                if not got.get("ok") or not want.get("ok"):
+                    raise AssertionError(f"step {t}: answers {got}, {want}")
+                for jg, jw in zip(got["jobs"], want["jobs"], strict=True):
+                    if jg["actions"] != jw["actions"]:
+                        raise AssertionError(f"step {t}: TCP actions "
+                                             f"{jg['actions']} vs in-process "
+                                             f"{jw['actions']}")
+                    worst = max(worst, es_drift(t, np.array([jg["e_s"]]),
+                                                np.array([jw["e_s"]])),
+                                es_drift(t, np.array(jg["scores"]),
+                                         np.array(jw["scores"]),
+                                         "per-task score"))
+                    equal += jg["e_s"] == jw["e_s"] \
+                        and jg["scores"] == jw["scores"]
+        finally:
+            client.close()
+    return dict(steps=POD_TCP_STEPS, max_rel=worst, bit_equal=equal,
+                ms_per_step=float(np.median(ms)),
+                summary=rt.summary())
+
+
+def recording_runtime(base) -> tuple[type, list]:
+    """A subclass of ``base`` (either package's ``StragglerRuntime``)
+    recording E_S after every ``decide``, and the list each runtime it
+    builds is appended to."""
+    made = []
+
+    class Recorded(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.es: list[float] = []
+            made.append(self)
+
+        def decide(self):
+            acts = super().decide()
+            self.es.append(self.expected_stragglers())
+            return acts
+
+    return Recorded, made
+
+
+def pod_train() -> dict:
+    """``repro_torch.launch.train --simulate-stragglers --n-hosts 400`` on
+    the card and with ``--device cpu``: the ``[start-runtime]`` lines
+    equal, the runtime's summaries equal and its E_S within the Tier-1
+    bound every step."""
+    runs = {}
+    saved = train_entry.StragglerRuntime
+    try:
+        for dev in (DEVICE, "cpu"):
+            train_entry.StragglerRuntime, made = recording_runtime(saved)
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                out = train_entry.main([*POD_TRAIN, "--device", dev])
+            rt, = made
+            runs[dev] = dict(
+                lines=[ln for ln in buf.getvalue().splitlines()
+                       if ln.startswith("[start-runtime]")],
+                es=np.array(rt.es), summary=rt.summary(), out=out,
+                device=rt.cfg.device)
+    finally:
+        train_entry.StragglerRuntime = saved
+    a, b = runs[DEVICE], runs["cpu"]
+    if a["device"] != DEVICE or not np.isfinite(a["out"]["losses"]).all():
+        raise AssertionError(f"launch.train on {a['device']}: {a['out']}")
+    if a["lines"] != b["lines"] or a["summary"] != b["summary"]:
+        raise AssertionError(f"launch.train's runtime: {a['lines']} "
+                             f"{a['summary']} vs {b['lines']} {b['summary']}")
+    rel = es_drift(0, a["es"], b["es"])
+    print(f"[pod] launch.train --simulate-stragglers --n-hosts "
+          f"{PAPER['n_hosts']}: {len(a['lines'])} [start-runtime] lines and "
+          f"the summary equal to --device cpu's ({a['summary']}), E_S over "
+          f"{len(a['es'])} steps within {rel:.3e} (max E_S "
+          f"{a['es'].max():.3e})")
+    return dict(lines=a["lines"], summary=a["summary"], max_rel=rel,
+                steps=len(a["es"]))
+
+
+def pod_phase() -> dict:
+    """Phase 14: every pod policy on a 400-host runtime on the card, each
+    in lockstep with a CPU twin over 200 steps of one trace."""
+    n_hosts = PAPER["n_hosts"]
+    trace = pod_trace(POD_STEPS, n_hosts)
+    igru, igru_ms = pod_igru(pod_trace(POD_WARM_STEPS, n_hosts,
+                                       seed=POD_WARM_SEED))
+    print(f"[pod] IGRU-SD fitted on a {POD_WARM_STEPS}-step warm run "
+          f"({POD_IGRU_EPOCHS} epochs) on the card in {igru_ms:.1f} ms")
+    names = registry.names("pod")
+    if len(names) != 10:
+        raise AssertionError(f"pod policies registered: {names}")
+    out = {"names": names, "igru_pretrain_ms": igru_ms}
+    for name in names:
+        rt_a = StragglerRuntime(pod_config(DEVICE),
+                                policy=pod_policy(name, DEVICE, igru))
+        rt_b = StragglerRuntime(pod_config("cpu"),
+                                policy=pod_policy(name, "cpu", igru))
+        prebuild(rt_a)
+        prebuild(rt_b)
+        lstm_cell.launches = 0
+        r = pod_lockstep(rt_a, rt_b, trace, timed=True,
+                         sync=name == "start-pod-online")
+        launches = lstm_cell.launches
+        if name == "start-pod-online":
+            want = CELLS_PER_STEP * (r["net_predictions"]
+                                     + r["train_steps"])
+        elif name == "start-pod-service":
+            want = CELLS_PER_STEP * sum(bool(x and x.get("ok"))
+                                        for x in r["responses"])
+        else:
+            want = 0
+        if launches != want or (name in POD_PROFILED and not launches):
+            raise AssertionError(f"{name}: {launches} lstm_cell launches, "
+                                 f"expected {want}")
+        ms = r.pop("step_ms")
+        bar = rt_a.sync_barrier_s
+        row = dict(r, launches=launches,
+                   host_ms_median=float(np.median(ms[1:])),
+                   host_ms_mean=float(np.mean(ms[1:])),
+                   barrier_mean_s=float(np.mean(bar)),
+                   barrier_p95_s=float(np.percentile(bar, 95)))
+        row.pop("responses")
+        if name == "start-pod-service":
+            out["tcp"] = pod_tcp(trace, r["responses"])
+        if name in POD_PROFILED:
+            row["profile"] = pod_profile(name, trace)
+        if name == "start-pod-online":
+            row["free_running"] = d = pod_online_drift(trace)
+            g = d["fit_gap"]
+            print(f"[pod] start-pod-online free-running (no weight sync): "
+                  f"E_S drift per window {[f'{x:.1e}' for x in d['per_window']]}"
+                  f", past Tier-1 from step {d['first_past_tier1']}, actions "
+                  f"part at {d['parted_at']}; params apart at the start "
+                  f"{d['start_gap']:.3e}, after fits 1/5/10/20/30/{len(g)}: "
+                  f"{[f'{g[i - 1]:.3e}' for i in (1, 5, 10, 20, 30, len(g)) if i <= len(g)]}"
+                  f"; alpha gap at most {d['max_alpha_gap']:.3e}; E_S vs "
+                  f"Eq. 4 of its own alpha (float64) within "
+                  f"{d['max_own']:.3e} on both devices")
+            for sp in d["spikes"]:
+                print(f"[pod]   spike step {sp['step']}: E_S gap "
+                      f"{sp['es_gap']:.3e}, alpha {sp['alpha']:.4f} gap "
+                      f"{sp['alpha_gap']:.3e} x condition {sp['kappa']:.2f}"
+                      f" = {sp['kappa'] * sp['alpha_gap']:.3e}, params "
+                      f"{sp['fit_gap']:.3e} apart")
+        fit = (f"; fit {np.median(r['fit_ms']):.2f} ms median per window "
+               f"over {len(r['fit_ms'])} windows ({r['train_steps']} "
+               f"train_steps), params {max(r['fit_drift']):.2e} apart "
+               f"after a fit at most" if r["fit_ms"] else "")
+        prof = (f"; device busy {row['profile']['busy_ms']:.4f} ms over "
+                f"{row['profile']['ops']:.1f} ops per step, the cell "
+                f"{row['profile']['cell_device_us']:.3f} us a launch"
+                if "profile" in row else "")
+        print(f"[pod] {name}: card vs cpu over {r['steps']} of "
+              f"{len(trace)} steps (parted at {r['parted_at']}, boundary "
+              f"steps {r['boundary_steps'][:5]}), max rel "
+              f"{r['max_rel']:.3e} (losses {r['max_loss_rel']:.3e}); "
+              f"{r['summary']['backup_shards']} backups, "
+              f"{r['summary']['evictions']} evictions "
+              f"{r['summary']['evicted_hosts']}, sync barrier mean "
+              f"{row['barrier_mean_s']:.4f} p95 {row['barrier_p95_s']:.4f} s; "
+              f"lstm_cell launches {launches}; host "
+              f"{row['host_ms_median']:.3f} ms median / "
+              f"{row['host_ms_mean']:.3f} mean per step{fit}{prof} [{CARD}]")
+        out[name] = row
+    tcp = out["tcp"]
+    print(f"[pod] start-pod-service over TCP: {tcp['steps']} answers equal "
+          f"to the in-process run's (max rel {tcp['max_rel']:.3e}, "
+          f"{tcp['bit_equal']} bit-equal), {tcp['ms_per_step']:.3f} ms per "
+          f"step [{CARD}]")
+    out["train"] = pod_train()
+    return out
+
+
 # --------------------------------- main ------------------------------------
 
 @contextlib.contextmanager
@@ -3304,6 +3918,9 @@ def main() -> None:
     with phase("prediction service"):
         service = service_phase()
         free_cuda()
+    with phase("pod runtime"):
+        pod = pod_phase()
+        free_cuda()
 
     headline = cell["timing"][-1]
     kernels = [dict(
@@ -3329,6 +3946,9 @@ def main() -> None:
                             for t in ("milestone", "per_task")},
             "retrain_train_steps": {t: service[t]["retrain"]["train_steps"]
                                     for t in ("milestone", "per_task")}},
+        launches_pod={k: pod[k]["launches"] for k in POD_PROFILED},
+        device_us_pod={k: pod[k]["profile"]["cell_device_us"]
+                       for k in POD_PROFILED},
         device_us_service=service["timing"]["cell_device_us"],
         bound_us_service=service["timing"]["cell_bound_us"],
         batch_service=service["timing"]["bucket"])]
@@ -3403,6 +4023,7 @@ def main() -> None:
     print(json.dumps({"ssm_fp32": ssm_fp32, "ssm_bf16": ssm_bf16,
                       "train": trained}))
     print(json.dumps({"service": service}))
+    print(json.dumps({"pod": pod}))
     print(f"[time] total: {time.perf_counter() - t_start:.1f} s wall")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,6 +1,10 @@
 """Training driver: seeded params, the synthetic LM data, AdamW steps
 through ``Model.loss_fn`` on one device (the card unless ``--device
-cpu``), with asynchronous checkpoints and a fault drill.
+cpu``), with asynchronous checkpoints, a fault drill and START's
+straggler runtime in simulation mode (``--simulate-stragglers``:
+per-host Pareto step-time telemetry for ``--n-hosts`` hosts -> E_S ->
+backup-shard/evict actions logged each step, the tail fit on
+``--device``).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train \\
@@ -9,21 +13,26 @@ Usage:
       --arch falcon-mamba-7b --reduced --steps 30 --device cpu \\
       --ckpt /tmp/ck --ckpt-every 5 --kill-at 12      # exits 42
   (the same with --resume instead of --kill-at: "resumed from step 10")
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch falcon-mamba-7b --reduced --steps 12 --device cpu \\
+      --simulate-stragglers --n-hosts 400
 
 The JAX driver's flags, plus ``--device``.  The checkpoint of step s
 holds the params and optimizer state entering step s (the JAX driver's
 final checkpoint; its periodic ones hold the state after step s, and
 its resume runs step s a second time), so a resumed run repeats no step
-and its losses equal an uninterrupted run's.  The straggler runtime
-(``--simulate-stragglers``) is not ported yet and raises, naming its
-ROADMAP.md item.
+and its losses equal an uninterrupted run's.
 """
 from __future__ import annotations
 
 import argparse
 import time
 
+import numpy as np
+
 from repro_torch.configs import get_config, get_reduced
+from repro_torch.distributed.straggler_runtime import (RuntimeConfig,
+                                                       StragglerRuntime)
 from repro_torch.models.lm import Model
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.data import DataConfig, SyntheticLM
@@ -46,13 +55,10 @@ def main(argv=None) -> dict:
     ap.add_argument("--kill-at", type=int, default=None,
                     help="fault drill: hard-exit mid-run at this step")
     ap.add_argument("--simulate-stragglers", action="store_true")
+    ap.add_argument("--n-hosts", type=int, default=8)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.simulate_stragglers:
-        raise NotImplementedError(
-            "the straggler runtime (--simulate-stragglers) is not ported "
-            "yet: ROADMAP.md Queue 1 item 4.3 (the pod runtime)")
 
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     model = Model(cfg)
@@ -78,6 +84,12 @@ def main(argv=None) -> dict:
             start = last
             print(f"[train] resumed from step {last}")
 
+    runtime = None
+    host_rng = np.random.default_rng(0)
+    if args.simulate_stragglers:
+        runtime = StragglerRuntime(RuntimeConfig(n_hosts=args.n_hosts,
+                                                 device=args.device))
+
     losses = []
     t0 = time.time()
     for step in range(start, args.steps):
@@ -85,6 +97,14 @@ def main(argv=None) -> dict:
                                              data.batch(step))
         loss = float(metrics["loss"])
         losses.append(loss)
+        if runtime is not None:
+            # synthetic per-host step times: Pareto tail + a chronic host
+            times = 1.0 + 0.05 * host_rng.pareto(2.5, args.n_hosts)
+            times[args.n_hosts - 1] *= 1.0 + 0.8 * (step % 7 == 0)
+            runtime.observe_step(times)
+            for a in runtime.decide():
+                print(f"[start-runtime] step {step}: {a.kind.value} "
+                      f"host={a.host} backup={a.backup}")
         if args.kill_at is not None and step >= args.kill_at:
             if writer is not None:
                 # the drill kills the training loop, not the storage

@@ -4,16 +4,18 @@
 Straggler techniques are *policies*: they read a frozen
 :class:`TelemetryView` snapshot (tasks, hosts, jobs, clocks — never
 engine internals) and emit :class:`Action`s from one shared vocabulary.
-The port's cloud simulator (``repro_torch.sim``) publishes the views and
-executes the actions.  A technique registers with :func:`register`;
-policies that need offline training implement the :class:`Pretrainable`
-protocol (a ``pretrain(ctx)`` classmethod that forwards ``ctx.kwargs``
-to the constructor), and the registry entry carries it.
+Two substrates publish the views and execute the actions: the port's
+cloud simulator (``repro_torch.sim``) and its training-pod runtime
+(``repro_torch.distributed.straggler_runtime``).  A technique registers
+with :func:`register`; policies that need offline training implement
+the :class:`Pretrainable` protocol (a ``pretrain(ctx)`` classmethod that
+forwards ``ctx.kwargs`` to the constructor), and the registry entry
+carries it.
 
-Names the JAX package registers but the port has not ported yet raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item
-(:data:`registry.NOT_PORTED`).  The simulator's techniques register when
-``repro_torch.sim.techniques`` is imported.
+The simulator's techniques register when ``repro_torch.sim.techniques``
+is imported, the pod runtime's four ``start-pod*`` policies when
+``repro_torch.distributed.straggler_runtime`` is; as in the JAX package,
+a name whose module was not imported is unknown.
 """
 from repro_torch.policy.actions import (Action, ActionKind, HOST_KINDS,
                                         TASK_KINDS, host_action)

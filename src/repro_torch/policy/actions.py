@@ -1,5 +1,5 @@
 """Unified mitigation-action vocabulary (one grammar, two substrates; a
-copy of the JAX package's, whose pod runtime the port has not yet).
+copy of the JAX package's).
 
 The cloud simulator historically spoke ``SimAction`` (speculate / rerun /
 clone / delay on *tasks*) and the distributed training runtime spoke

@@ -3,8 +3,9 @@ JAX package's).
 
 A policy never touches a substrate's internals — it reads a
 :class:`~repro_torch.policy.telemetry.TelemetryView` and returns
-:class:`~repro_torch.policy.actions.Action`s; the port's substrate is its
-cloud simulator (``repro_torch.sim``).
+:class:`~repro_torch.policy.actions.Action`s.  The same policy object can
+then run on the port's cloud simulator (``repro_torch.sim``) or its
+training-pod runtime (``repro_torch.distributed.straggler_runtime``).
 """
 from __future__ import annotations
 

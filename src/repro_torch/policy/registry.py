@@ -15,10 +15,6 @@ A class that implements the :class:`~repro_torch.policy.base.Pretrainable`
 protocol (a ``pretrain(ctx)`` classmethod) gets a :class:`PretrainSpec`
 attached automatically; ``epochs_knob`` names the runner attribute that
 feeds ``ctx.epochs``.
-
-A name the JAX package registers that the port does not have yet raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item
-(:data:`NOT_PORTED`), not :class:`UnknownPolicyError`.
 """
 from __future__ import annotations
 
@@ -69,12 +65,6 @@ class PolicyEntry:
 
 
 _REGISTRY: dict[str, PolicyEntry] = {}
-
-_POD = "ROADMAP.md Queue 1 item 4.3 (the pod runtime)"
-#: names the JAX package registers that the port does not have yet, and
-#: the ROADMAP item that ports each
-NOT_PORTED = dict.fromkeys(("start-pod", "start-eager-pod",
-                            "start-pod-online", "start-pod-service"), _POD)
 
 
 class UnknownPolicyError(ValueError):
@@ -134,10 +124,6 @@ def get(name: str) -> PolicyEntry:
     try:
         return _REGISTRY[name]
     except KeyError:
-        if name in NOT_PORTED:
-            raise NotImplementedError(
-                f"technique {name!r} is not ported to repro_torch yet: "
-                f"{NOT_PORTED[name]}") from None
         raise UnknownPolicyError(name) from None
 
 

@@ -1,8 +1,9 @@
 """Frozen telemetry snapshots — the only cluster state policies may read
 (a copy of the JAX package's).
 
-A substrate (the cloud simulator) publishes a :class:`TelemetryView` at
-every decision point; policies consume the view and emit
+A substrate (the cloud simulator, the training-pod runtime) publishes a
+:class:`TelemetryView` at every decision point; policies consume the
+view and emit
 :class:`~repro_torch.policy.actions.Action`s.  Views
 are built **zero-copy**: every array field is a read-only numpy view onto
 the substrate's live buffers, so taking a snapshot costs a few dataclass

@@ -255,6 +255,7 @@ class START(Policy):
 
 
 @register("start-eager", epochs_knob="pretrain_epochs",
+          substrates=("sim", "pod"),
           description="START with the per-task predicted-straggler "
                       "trigger: mitigation starts as soon as the "
                       "predicted set is nonempty (hysteresis + per-task "
@@ -274,8 +275,10 @@ class STARTEager(START):
     pretraining, the utilization-adaptive expected-benefit guard — is
     inherited from :class:`START`.
 
-    The JAX package also runs it on the pod substrate; the port has no
-    pod runtime yet, so a pod view raises ``NotImplementedError``.
+    On the pod substrate the same eager semantics run through
+    :class:`repro_torch.distributed.straggler_runtime.StartEagerPodPolicy`
+    (per-host predicted-straggler streaks -> backup shards, chronic
+    stragglers -> evict), on the runtime's device.
     """
 
     name = "start-eager"
@@ -287,6 +290,7 @@ class STARTEager(START):
         self.score_on = score_on
         self.hysteresis = hysteresis
         self.cooldown = cooldown
+        self._pod = None
         if self._controller is not None:
             self._configure_trigger(self._controller)
 
@@ -301,25 +305,32 @@ class STARTEager(START):
         self._configure_trigger(ctrl)
         return ctrl
 
-    @staticmethod
-    def _refuse_pod(view: TelemetryView) -> None:
-        # the pod runtime publishes its raw step times under ``extra``;
-        # the simulator never does
-        if "step_times" in view.extra:
-            raise NotImplementedError(
-                "start-eager on the pod substrate is not ported to "
-                "repro_torch yet: ROADMAP.md Queue 1 item 4.3 (the pod "
-                "runtime)")
+    # --------------------------- pod substrate -----------------------------
+
+    def _pod_policy(self):
+        if self._pod is None:
+            from repro_torch.distributed.straggler_runtime import \
+                StartEagerPodPolicy
+            self._pod = StartEagerPodPolicy(hysteresis=self.hysteresis,
+                                            cooldown=self.cooldown)
+        return self._pod
 
     def observe(self, view: TelemetryView) -> None:
-        self._refuse_pod(view)
+        from repro_torch.sim.techniques.replication import _on_pod
+        if _on_pod(view):
+            self._pod_policy().observe(view)
+            return
         super().observe(view)
 
     def decide(self, view: TelemetryView) -> list[Action]:
-        self._refuse_pod(view)
+        from repro_torch.sim.techniques.replication import _on_pod
+        if _on_pod(view):
+            return self._pod_policy().decide(view)
         return super().decide(view)
 
     def forget_tasks(self, task_ids) -> None:
+        if self._pod is not None:
+            self._pod.forget_tasks(task_ids)
         if self._controller is not None:
             self._controller.forget_tasks(task_ids)
 

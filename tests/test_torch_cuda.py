@@ -5,7 +5,8 @@ reduced LMs (dense and MoE) served on the card against the same model on
 the CPU, a reduced SSM trained on the card against the CPU, IGRU-SD's
 GRU on the card against the CPU, a 2-worker sweep on the card
 against the serial run, the prediction service on the card against its
-CPU twin and over TCP, and the trainer's checkpoint drill.  They
+CPU twin and over TCP, the trainer's checkpoint drill, and the pod
+runtime's online Encoder-LSTM policy at 400 hosts against its CPU twin.  They
 need an NVIDIA Hopper card and ``nvcc`` and skip elsewhere; run them on
 the card with
 
@@ -864,3 +865,28 @@ def test_launch_train_resumes_on_the_card_bit_for_bit(cuda, tmp_path):
     resumed = train_entry.main([*argv, *ck, "--resume"])
     assert resumed["start"] == 3
     assert resumed["losses"] == full["losses"][3:]
+
+
+def test_online_pod_policy_on_the_card_matches_the_cpu(cuda):
+    """A 400-host ``start-pod-online`` run on the card (40 steps: 8
+    windows, the network predicting from the second) holds to its CPU
+    twin, as the smoke's pod phase holds it (the twin takes the card's
+    weights after every fit): the same actions and summary, E_S within
+    the Tier-1 bound and the epoch losses within 1e-5; every prediction
+    and ``train_step`` launched ``lstm_cell`` 10 times."""
+    from repro_torch.distributed.straggler_runtime import (
+        OnlineStartPodPolicy, StragglerRuntime)
+    card, twin = (StragglerRuntime(chip_smoke.pod_config(dev),
+                                   policy=OnlineStartPodPolicy())
+                  for dev in ("cuda", "cpu"))
+    chip_smoke.prebuild(card)
+    chip_smoke.prebuild(twin)
+    assert card.policy.predictor.device.type == "cuda"
+    before = lstm_cell.launches
+    r = chip_smoke.pod_lockstep(card, twin, chip_smoke.pod_trace(40, 400),
+                                sync=True)
+    launched = lstm_cell.launches - before
+    assert r["parted_at"] is None and r["max_rel"] <= chip_smoke.TIER1_REL
+    assert r["max_loss_rel"] <= 1e-5
+    assert r["net_predictions"] == 40 - 2 * 5 + 1
+    assert launched == 10 * (r["net_predictions"] + r["train_steps"]) > 0

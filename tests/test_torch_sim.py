@@ -6,9 +6,9 @@ policies (``chip_smoke.lockstep``, which holds the card's run against the
 CPU's the same way): E_S and the predicted straggler count within the
 Tier-1 bound every interval, the action streams equal up to a first
 difference that involves a boundary job.  Plus the registry: the pod
-runtime's names, which are not ported yet, and the JAX package's
-``FIELD``, all of which the port makes; and the pod view START-eager
-refuses."""
+runtime's names and the JAX package's ``FIELD``, all of which the port
+makes; and START-eager on a pod view, which it hands to the pod
+runtime's ``StartEagerPodPolicy`` as the JAX policy does."""
 import dataclasses
 
 import jax
@@ -139,9 +139,12 @@ def test_start_pretrains_through_the_registry_on_the_cpu():
                                   "start-pod-online", "start-pod-service",
                                   "FIELD"])
 def test_names_not_ported_yet_raise_with_their_roadmap_item(name):
-    """The pod runtime's four policies raise naming their ROADMAP item;
-    every other name of the JAX package's ``FIELD`` (case ``FIELD``) is
+    """(Named when the pod policies were not ported.)  The pod runtime's
+    four policies are registered for the ``pod`` substrate alone once
+    ``repro_torch.distributed.straggler_runtime`` is imported, and make a
+    policy; every name of the JAX package's ``FIELD`` (case ``FIELD``) is
     registered for the simulator and makes a policy."""
+    import repro_torch.distributed.straggler_runtime  # noqa: F401
     import repro_torch.sim.techniques as techniques
     if name == "FIELD":
         assert techniques.FIELD == jax_techniques.FIELD
@@ -150,22 +153,33 @@ def test_names_not_ported_yet_raise_with_their_roadmap_item(name):
             kw = {"device": "cpu"} if n == "igru-sd" else {}
             assert isinstance(policy.make(n, **kw), policy.Policy), n
     else:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4.3"):
-            policy.make(name)
-        assert name in policy.registry.NOT_PORTED
+        assert policy.get(name).substrates == ("pod",)
+        assert name in policy.names("pod") and name not in policy.names("sim")
+        pol = policy.make(name)
+        assert isinstance(pol, policy.Policy) and pol.name == name
     with pytest.raises(policy.UnknownPolicyError):
         policy.make("no-such-technique")
-    assert set(policy.registry.NOT_PORTED) == {
-        "start-pod", "start-eager-pod", "start-pod-online",
-        "start-pod-service"}
+    assert not hasattr(policy.registry, "NOT_PORTED")
 
 
 def test_start_eager_refuses_a_pod_view():
-    sim = Simulation(scenarios.make_config("planetlab", seed=0, n_hosts=8,
-                                           n_intervals=4),
-                     technique=start_tech.STARTEager(device="cpu"))
-    sim.step()
-    view = dataclasses.replace(sim.snapshot(), extra={"step_times": [1.0]})
-    for hook in (sim.technique.observe, sim.technique.decide):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4.3"):
-            hook(view)
+    """(Named when the port refused a pod view.)  START-eager is
+    registered for both substrates; on a pod view it hands ``observe``,
+    ``decide`` and ``forget_tasks`` to a ``StartEagerPodPolicy`` with its
+    hysteresis and cooldown, builds no controller, and equals the JAX
+    policy over a 16-host, 40-step pod trace (actions, summary, E_S
+    within the Tier-1 bound)."""
+    from repro.distributed import straggler_runtime as J
+    from repro_torch.distributed import straggler_runtime as T
+    assert policy.get("start-eager").substrates == ("sim", "pod")
+    jpol = jax_start_tech.STARTEager(hysteresis=2, cooldown=3)
+    tpol = start_tech.STARTEager(hysteresis=2, cooldown=3, device="cpu")
+    jrt = J.StragglerRuntime(J.RuntimeConfig(n_hosts=16), policy=jpol)
+    trt = T.StragglerRuntime(T.RuntimeConfig(n_hosts=16, device="cpu"),
+                             policy=tpol)
+    r = chip_smoke.pod_lockstep(jrt, trt, chip_smoke.pod_trace(40, 16))
+    assert r["parted_at"] is None and r["max_rel"] <= chip_smoke.TIER1_REL
+    assert r["actions"] > 0
+    assert isinstance(tpol._pod, T.StartEagerPodPolicy)
+    assert (tpol._pod.hysteresis, tpol._pod.cooldown) == (2, 3)
+    assert tpol._controller is None

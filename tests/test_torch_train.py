@@ -20,8 +20,9 @@ CPU, at falcon-mamba-7b's reduced config.
 - The port alone: microbatching, learning, ``launch/train.py`` and its
   checkpoint drill (``--kill-at`` exits 42, ``--resume`` repeats no
   step, so the resumed losses equal an uninterrupted run's bit for bit;
-  3 checkpoints kept), and what is not ported yet raising with its
-  ROADMAP.md item.
+  3 checkpoints kept), ``--simulate-stragglers`` against the JAX
+  package's ``launch.train``, and what is not ported yet raising with
+  its ROADMAP.md item.
 """
 import dataclasses
 import json
@@ -33,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from repro import configs as jconfigs
 from repro.models.lm import Model as JModel
 from repro.train import optimizer as JOpt
@@ -349,10 +351,92 @@ def test_ckpt_every_retention_keeps_3(drill):
         "step_00000006", "step_00000009", "step_00000012"]
 
 
+STRAGGLERS = ["--reduced", "--steps", "12", "--batch", "2", "--seq", "16",
+              "--simulate-stragglers", "--n-hosts", "16"]
+
+
+def _recorded(module, monkeypatch) -> list:
+    """Put ``chip_smoke.recording_runtime``'s subclass in place of
+    ``module``'s (a ``launch.train``) runtime; returns the list the
+    runtimes it builds are appended to."""
+    recorded, made = chip_smoke.recording_runtime(module.StragglerRuntime)
+    monkeypatch.setattr(module, "StragglerRuntime", recorded)
+    return made
+
+
+def _acting(module, monkeypatch) -> list:
+    """As :func:`_recorded`, with a runtime that acts on the driver's
+    trace: k = 1 puts K at the fitted mean, so E_S is several hosts and
+    hosts past K three steps running are evicted."""
+    recorded, made = chip_smoke.recording_runtime(module.StragglerRuntime)
+
+    class Acting(recorded):
+        def __init__(self, cfg, *a, **kw):
+            super().__init__(dataclasses.replace(cfg, k=1.0), *a, **kw)
+
+    monkeypatch.setattr(module, "StragglerRuntime", Acting)
+    return made
+
+
+def _simulated_stragglers(monkeypatch, capsys, patch) -> list:
+    """``--simulate-stragglers`` on the JAX ``launch.train`` and the
+    port's, each runtime replaced by ``patch(module, monkeypatch)``'s:
+    ``(lines, summary, E_S per step)`` of each.  The JAX run trains
+    ``demo-100m``: the runtime's lines do not depend on the model, and
+    the JAX Mamba kernel fails on jax 0.9.0."""
+    from repro.launch import train as jax_train_entry
+    runs = []
+    for module, argv in (
+            (jax_train_entry, ["--arch", "demo-100m", *STRAGGLERS]),
+            (train_entry, ["--arch", ARCH, "--device", "cpu", *STRAGGLERS])):
+        made = patch(module, monkeypatch)
+        capsys.readouterr()
+        module.main(argv)
+        lines = [ln for ln in capsys.readouterr().out.splitlines()
+                 if ln.startswith("[start-runtime]")]
+        rt, = made
+        runs.append((lines, rt.summary(), np.array(rt.es)))
+    return runs
+
+
+def _simulated_stragglers_match_jax(monkeypatch, capsys) -> None:
+    """The same ``default_rng(0)`` trace and runtime calls in both
+    drivers, so equal ``[start-runtime]`` lines (none on this trace: E_S
+    stays near 0.07 and the slowed host is never slow 3 steps running),
+    equal summaries (the sync barrier is the trace's own) and E_S within
+    the Tier-1 bound every step."""
+    (jl, js, je), (tl, ts, te) = _simulated_stragglers(monkeypatch, capsys,
+                                                       _recorded)
+    assert tl == jl and ts == js
+    assert ts["steps"] == 12 and len(te) == 12
+    assert_tier1(te, je)
+
+
+def test_simulated_stragglers_print_actions_as_jax(monkeypatch, capsys):
+    """With a runtime that acts (:func:`_acting`), the two drivers print
+    the same ``[start-runtime]`` evict and backup_shard lines, hosts and
+    backups included, and end with equal summaries."""
+    (jl, js, je), (tl, ts, te) = _simulated_stragglers(monkeypatch, capsys,
+                                                       _acting)
+    kinds = {ln.split(": ")[1].split()[0] for ln in tl}
+    assert kinds == {"evict", "backup_shard"}
+    assert tl == jl and ts == js
+    assert ts["evictions"] > 0 and ts["backup_shards"] > 0
+    assert_tier1(te, je)
+
+
 @pytest.mark.parametrize("flags,item", [
     (["--simulate-stragglers"], "4.3"),
     (["--arch", "yi-6b"], "2.2"), (["--arch", "qwen3-moe-30b-a3b"], "2.3")])
-def test_unported_flags_and_families_name_their_roadmap_item(flags, item):
+def test_unported_flags_and_families_name_their_roadmap_item(
+        flags, item, monkeypatch, capsys):
+    """The families not ported yet raise naming their ROADMAP.md item.
+    Item 4.3, the pod runtime behind ``--simulate-stragglers``, is
+    ported: its case holds ``launch.train``'s runtime against the JAX
+    package's."""
+    if item == "4.3":
+        _simulated_stragglers_match_jax(monkeypatch, capsys)
+        return
     argv = ["--arch", ARCH, "--reduced", "--steps", "1", "--batch", "2",
             "--seq", "4", "--device", "cpu", *flags]
     with pytest.raises(NotImplementedError,
