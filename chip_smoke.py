@@ -27,7 +27,11 @@ Phases:
    a kernel that spins 0 cycles); bf16 decode attention must also lie
    within half a
    bf16 ulp of the fp32 plain version, which a control with P rounded to
-   one bf16 must fail;
+   one bf16 must fail; the scan's serving variant
+   (``mamba_scan_with_state``, y and the final state) against its plain
+   version and timed at falcon-mamba-7b's longest prefill; the flash
+   and router autograd Functions' gradients against autograd through
+   the plain versions, timed beside them and (flash) SDPA's backward;
 4. the decision slice: ``STARTController`` at the paper's width (400
    hosts x 11 features, 10 tasks per job, horizon 5), fed seeded
    telemetry, in both triggers, on the card and on the CPU from the same
@@ -98,14 +102,35 @@ Phases:
    its recompute in the backward launching ``mamba_scan`` and its
    backward ``mamba_scan_bwd``; then from the params before each step the
    same loss through the plain scan (autograd of the plain version),
-   within 1e-5 relative, and step 1's gradients within 1e-4 relative in
-   norm;
+   within 1e-5 relative, step 1's gradients within 1e-4 relative in
+   norm, and step 1 again from its params bit-equal (``train_gate``);
 12. SSM training, bf16: falcon-mamba-7b at full width, 32 of its 64
    layers, batches of 4 x 512 tokens, one warm step and three timed (ms
    per step, tokens/s), one step by its parts (forward / backward /
    optimizer, and the scan backward's share timed inside it),
-   profiler device busy per step, peak memory; and
+   profiler device busy per step, peak memory (``train_timing``); and
    ``repro_torch.launch.train`` once, reduced, on the card;
+12a. SSM serving, fp32: falcon-mamba-7b at full width and depth (64
+   layers), the engine and requests of phase 7; every prefill launches
+   ``mamba_scan_with_state`` once per layer (the decode is plain ops);
+   teacher-forced against the plain scan as in phase 7, and a prefill
+   of S tokens against a prefill of S - 1 and a decode step, within
+   1e-4;
+12b. SSM serving, bf16: the same, timed as in phase 8 (TTFT, ms per
+   token, device busy and ops per token beside the weight-read bound),
+   and ``repro_torch.launch.serve`` once at falcon-mamba-7b;
+12c. dense training: yi-6b at full width, an fp32 gate at 4 layers as
+   phase 11's (attention through ``flash_attention``'s autograd Function,
+   2 launches per layer per step, none in the backward, against autograd
+   through the plain attention); bf16 at 16 layers, 2 x 2048 tokens, as
+   phase 12, with the plain attention backward's share of the step and
+   the plain path's loss curve from the same seed beside the kernels';
+   ``repro_torch.launch.train`` once at its default arch, demo-100m;
+12d. MoE training: qwen3-moe-30b-a3b at full width, the fp32 gate at 2
+   layers (the router's Function also 2 launches per MoE layer per step;
+   the copies the training capacity drops counted; the repeated step
+   bit-equal, so the recompute routes as the forward), bf16 at 4 layers
+   as phase 12c;
 13. the multi-tenant prediction service at the paper's width
    (``Profile(n_hosts=400, max_tasks=10, horizon=5, k=1.5)``), in both
    triggers: a service on the card and its CPU twin from one weight set
@@ -198,17 +223,20 @@ from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
     BF16_EXCESS, bf16_rounding_excess)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_ref, flash_attention)
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.lstm_cell import (  # noqa: E402
     lstm_cell, lstm_cell_ref)
 from repro_torch.kernels.mamba_scan import (  # noqa: E402
     mamba_scan, mamba_scan_bwd, mamba_scan_bwd_ref, mamba_scan_ref,
-    scan_states_ref)
+    mamba_scan_with_state, mamba_scan_with_state_ref, scan_states_ref)
 from repro_torch.kernels.mamba_scan import ops as scan_ops  # noqa: E402
 from repro_torch.kernels.moe_router import (  # noqa: E402
     moe_router, moe_router_ref)
+from repro_torch.kernels.moe_router import ops as router_ops  # noqa: E402
 from repro_torch.launch import serve as serve_entry  # noqa: E402
 from repro_torch.launch import train as train_entry  # noqa: E402
 from repro_torch.models import backend  # noqa: E402
+from repro_torch.models import moe as Moe  # noqa: E402
 from repro_torch.models.lm import Model, full_precision  # noqa: E402
 from repro_torch.policy import wire  # noqa: E402
 from repro_torch.serve.engine import (  # noqa: E402
@@ -269,6 +297,8 @@ FLASH_SWEEP = [(1, 4, 4, 128, 64, True), (1, 4, 2, 256, 64, True),
                (2, 8, 1, 128, 128, True), (1, 2, 2, 192, 64, False),
                (1, 4, 2, 100, 128, True)]
 FLASH_PATH = [(1, 32, 4, s, 128, True) for s in (12, 512, 2048, 3000)]
+# the Function's gradients: yi-6b's head layout at S = 2048
+FLASH_GRAD = (1, 32, 4, 2048, 128, True)
 # timed: bf16 (the tensor-core kernel) at both long prefills, fp32 (the
 # CUDA-core kernel) at 2048
 FLASH_TIMED = {(2048, torch.bfloat16), (2048, torch.float32),
@@ -310,6 +340,14 @@ LM_ARCH = "yi-6b"
 PROMPT_LENS = [12, 64, 300, 1000, 2048, 3000]
 MAX_NEW, N_SLOTS, MAX_LEN = 16, 4, 4096
 LOGIT_TOL = 1e-4             # fp32 engine vs plain path, max abs
+# falcon-mamba-7b's 64 layers: fp32 rounding grows layer by layer, and
+# the plain fp32 path itself lies up to 1.7e-3 from a float64 forward at
+# S = 300 (logits ~4.5; ``ssm_against_fp64`` prints it), as far as the
+# kernel path does; so the SSM's engine is held to 2e-3 against the plain
+# path, and, against a float64 forward, to twice the plain path's own
+# error
+SSM_LOGIT_TOL = 2e-3
+FP64_PROMPTS = 3             # the shortest prompts checked against fp64
 DEVICE = "cuda"
 # MoE serving: qwen3-moe-30b-a3b at full width; the fp32 gate keeps 12 of
 # its 48 layers (8.1 B params, 32.4 GB: all 48 in fp32 are 122 GB)
@@ -322,6 +360,9 @@ NEAR_TIE = 1e-5              # k-th vs (k+1)-th probability, relative
 SCAN_SWEEP = [(1, 64, 128, 16), (2, 128, 64, 16), (1, 96, 256, 8),
               (3, 77, 200, 5), (1, 1, 3, 1), (2, 33, 129, 32)]
 SCAN_PATH = [(2, 256, 8192, 16), (4, 512, 8192, 16)]
+# the serving variant's path: falcon-mamba-7b's prefill of the longest
+# prompt (PROMPT_LENS[-1] tokens)
+SCAN_PREFILL = (1, 3000, 8192, 16)
 # fp32: 1e-5 of max(1, |y|): the states agree bit for bit and y's N-sum
 # runs in another order, which moves y by an ulp of |y|, and |y| grows
 # with L (an fp32 ulp is 1.5e-5 at |y| = 128); bf16: the fp32 y (its
@@ -352,9 +393,21 @@ SFU_PER_S = 16 * 132 * 1.98e9
 SSM_ARCH = "falcon-mamba-7b"
 SSM_GATE_LAYERS, SSM_GATE_BATCH, SSM_GATE_SEQ = 8, 2, 256
 SSM_LAYERS, SSM_BATCH, SSM_SEQ = 32, 4, 512
-SSM_STEPS = 3
-# OptConfig's default lr (3e-4) and launch.train's warmup rule (5 steps)
-SSM_OPT = dict(warmup_steps=5, total_steps=100)
+# dense and MoE training at full width, batches of B x S tokens: the fp32
+# gates at yi-6b's 4 layers (1.23 B params x 16 B of params, gradients and
+# AdamW moments = 19.7 GB) and qwen3-moe-30b-a3b's 2 (1.87 B, 30.0 GB);
+# the bf16 runs at yi-6b's 16 layers (3.31 B params x 12 B = 39.7 GB) and
+# qwen3's 4 (3.12 B, 37.5 GB), with room for the plain attention
+# backward's (B, Hkv, G, S, S) fp32 scores at S = 2048 (1.07 GB a layer)
+DENSE_GATE_LAYERS, MOE_TRAIN_GATE_LAYERS = 4, 2
+LM_GATE_BATCH, LM_GATE_SEQ = 2, 256
+DENSE_LAYERS, MOE_TRAIN_LAYERS = 16, 4
+LM_BATCH, LM_SEQ = 2, 2048
+# LM training: GATE_STEPS steps in each fp32 gate, 1 warm and TIMED_STEPS
+# timed in each bf16 run; OptConfig's default lr (3e-4) and launch.train's
+# warmup rule (5 steps)
+GATE_STEPS = TIMED_STEPS = 3
+LM_OPT = dict(warmup_steps=5, total_steps=100)
 # the port's kernels by their names in a profiler trace
 OUR_KERNELS = ("flash_wgmma_kernel", "flash_attention_kernel",
                "decode_kernel", "router_kernel", "scan_kernel",
@@ -850,12 +903,14 @@ def scan_inputs(b, l, d, n, dtype, seed):
     return [u, delta, a.to("cuda"), bm, cm, skip.to("cuda")]
 
 
-def scan_bound(b, l, d, n, elem) -> tuple[float, str]:
+def scan_bound(b, l, d, n, elem, last: bool = False) -> tuple[float, str]:
     """Least time for one scan: u, delta, b, c read once and y written
-    once over HBM; or its operations, the larger of its fp32 multiplies
-    and adds (6 per state per step, 3 per channel per step) over the fp32
-    peak and its b*l*d*n exponentials over the special-function rate."""
-    nbytes = elem * (3 * b * l * d + 2 * b * l * n) + 4 * (d * n + d)
+    once over HBM (with ``last``, also the (B, D, N) fp32 final state);
+    or its operations, the larger of its fp32 multiplies and adds (6 per
+    state per step, 3 per channel per step) over the fp32 peak and its
+    b*l*d*n exponentials over the special-function rate."""
+    nbytes = (elem * (3 * b * l * d + 2 * b * l * n) + 4 * (d * n + d)
+              + (4 * b * d * n if last else 0))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = max(b * l * d * (6 * n + 3) / FP32_FLOP_PER_S,
                 b * l * d * n / SFU_PER_S) * 1e3
@@ -907,6 +962,211 @@ def check_scan() -> dict:
           f"{worst_rel[torch.float32]:.3e}), bf16 "
           f"{worst[torch.bfloat16]:.3e} (bound 1e-3 + 1e-2 * |y|)")
     return {"worst": worst, "worst_rel": worst_rel, "timing": rows}
+
+
+def check_scan_with_state() -> dict:
+    """The serving variant against its plain version at ``check_scan``'s
+    shapes and a falcon-mamba-7b prefill of the longest prompt: y to the
+    scan's tolerances, the final state bit for bit in fp32 (the kernel
+    steps the states as the plain version does) and within 1e-4 in bf16
+    (ex2.approx).  Timed at the prefill's shape beside the plain version,
+    and at the timed training shape beside ``mamba_scan`` (the cost of
+    the final state's store)."""
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    rows = []
+    for i, (b, l, d, n) in enumerate(SCAN_SWEEP + SCAN_PATH
+                                     + [SCAN_PREFILL]):
+        label = f"B={b} L={l} D={d} N={n}"
+        for dtype in (torch.float32, torch.bfloat16):
+            args = scan_inputs(b, l, d, n, dtype, seed=700 + i)
+            before = mamba_scan_with_state.launches
+            y, h = mamba_scan_with_state(*args)
+            want_y, want_h = mamba_scan_with_state_ref(*args)
+            torch.cuda.synchronize()
+            if mamba_scan_with_state.launches != before + 1:
+                raise AssertionError("mamba_scan_with_state did not launch")
+            if not (torch.isfinite(y.float()).all()
+                    and torch.isfinite(h).all()):
+                raise AssertionError(f"mamba_scan_with_state {label}: "
+                                     f"non-finite output")
+            torch.testing.assert_close(y.float(), want_y.float(),
+                                       **SCAN_TOL[dtype])
+            if dtype == torch.float32:
+                if not torch.equal(h, want_h):
+                    raise AssertionError(f"mamba_scan_with_state {label}: "
+                                         f"fp32 final state differs")
+            else:
+                torch.testing.assert_close(h, want_h, rtol=1e-4, atol=1e-4)
+            err = max((y.float() - want_y.float()).abs().max().item(),
+                      (h - want_h).abs().max().item())
+            worst[dtype] = max(worst[dtype], err)
+            print(f"[kernel] mamba_scan_with_state {label} "
+                  f"{str(dtype)[6:]}: ok, max abs err {err:.3e}")
+            timed = ((b, l, d, n) == SCAN_PREFILL
+                     or ((b, l, d, n) == SCAN_PATH[-1]
+                         and dtype == torch.bfloat16))
+            if not timed:
+                continue
+            k1 = time_auto(lambda: mamba_scan_with_state(*args))
+            s1 = time_auto(lambda: mamba_scan(*args))
+            p1 = time_auto(lambda: mamba_scan_with_state_ref(*args))
+            p2 = time_auto(lambda: mamba_scan_with_state_ref(*args))
+            s2 = time_auto(lambda: mamba_scan(*args))
+            k2 = time_auto(lambda: mamba_scan_with_state(*args))
+            bound_ms, bound_by = scan_bound(b, l, d, n,
+                                            args[0].element_size(),
+                                            last=True)
+            prof = profile_window(
+                f"mamba_scan_with_state {label} {str(dtype)[6:]}",
+                lambda: mamba_scan_with_state(*args), 10)
+            dev = prof["kernels"].get("scan_kernel", {}).get("ms")
+            row = dict(shape=label, dtype=str(dtype)[6:], ms=min(k1, k2),
+                       scan_ms=min(s1, s2), plain_ms=min(p1, p2),
+                       library_ms=None, bound_ms=bound_ms,
+                       bound_by=bound_by, device_ms=dev)
+            rows.append(row)
+            print(f"[kernel] mamba_scan_with_state {label} {row['dtype']}: "
+                  f"kernel {row['ms']:.5f} ms (runs {k1:.5f}, {k2:.5f}; "
+                  f"device {dev} ms per launch), mamba_scan alone "
+                  f"{row['scan_ms']:.5f} ms, plain {row['plain_ms']:.3f} ms, "
+                  f"no PyTorch call computes it, bound {bound_ms:.6f} ms "
+                  f"({bound_by})")
+    print(f"[kernel] mamba_scan_with_state max abs err fp32 "
+          f"{worst[torch.float32]:.3e} (y: 1e-5 * max(1, |y|), final state "
+          f"bit for bit), bf16 {worst[torch.bfloat16]:.3e}")
+    return {"worst": worst, "timing": rows}
+
+
+def check_flash_grad() -> dict:
+    """The flash Function's q, k and v gradients against autograd through
+    ``attention_ref`` (its backward is that VJP, recomputed) at yi-6b's
+    head layout and S = 2048, fp32 and bf16: within 1e-6 relative in norm
+    (reported whether bit for bit).  Timed: the Function's forward and
+    backward, the plain backward alone (the recompute and its VJP, which
+    is the Function's backward), SDPA's backward (``enable_gqa``, the
+    library yardstick) and SDPA's forward and backward."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b, h, hkv, s, d, causal = FLASH_GRAD
+    label = f"B={b} H={h} Hkv={hkv} S={s} D={d} causal={causal}"
+    rows, worst = [], {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator().manual_seed(800)
+        q, k, v, g = (torch.randn(sh, generator=gen).to("cuda", dtype)
+                      for sh in ((b, h, s, d), (b, hkv, s, d),
+                                 (b, hkv, s, d), (b, h, s, d)))
+        xs = [t.clone().requires_grad_() for t in (q, k, v)]
+        ys = [t.clone().requires_grad_() for t in (q, k, v)]
+        zs = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = flash_attention.launches
+        got = torch.autograd.grad(flash_attention(*xs, causal), xs, g)
+        torch.cuda.synchronize()
+        if flash_attention.launches != before + 1:
+            raise AssertionError("the flash Function did not launch once")
+        want = torch.autograd.grad(attention_ref(*ys, causal=causal), ys, g)
+        lib = torch.autograd.grad(sdpa(*zs, is_causal=causal,
+                                       enable_gqa=True), zs, g)
+        rel, bitwise = [], True
+        for name, a, w, c in zip("qkv", got, want, lib):
+            if not torch.isfinite(a.float()).all():
+                raise AssertionError(f"flash Function d{name}: non-finite")
+            r = ((a.double() - w.double()).norm()
+                 / w.double().norm()).item()
+            rel.append(r)
+            bitwise &= torch.equal(a, w)
+            worst[dtype] = max(worst[dtype],
+                               (a.float() - w.float()).abs().max().item())
+            torch.testing.assert_close(c.float(), w.float(),
+                                       **ATTN_TOL[torch.bfloat16])
+        if not max(rel) <= 1e-6:
+            raise AssertionError(f"flash Function gradients differ by {rel}")
+        out_s = sdpa(*zs, is_causal=causal, enable_gqa=True)
+        f1 = time_auto(lambda: torch.autograd.grad(
+            flash_attention(*xs, causal), xs, g))
+        p1 = time_auto(lambda: torch.autograd.grad(
+            attention_ref(*ys, causal=causal), ys, g))
+        s1 = time_auto(lambda: torch.autograd.grad(out_s, zs, g,
+                                                   retain_graph=True))
+        p2 = time_auto(lambda: torch.autograd.grad(
+            attention_ref(*ys, causal=causal), ys, g))
+        f2 = time_auto(lambda: torch.autograd.grad(
+            flash_attention(*xs, causal), xs, g))
+        sf = time_auto(lambda: torch.autograd.grad(
+            sdpa(*zs, is_causal=causal, enable_gqa=True), zs, g))
+        del out_s
+        flops, nbytes = flash_work(b, h, hkv, s, d, causal,
+                                   q.element_size())
+        # the backward's five products (S = Q K^T again, dP = dO V^T,
+        # dQ = dS K, dK = dS^T Q, dV = P^T dO): 2.5x the forward's FLOPs
+        # over the pairs the mask keeps; q, k, v, o, do read once and dq,
+        # dk, dv written once: twice the forward's bytes
+        bound_ms, bound_by = attn_bound(2.5 * flops, 2 * nbytes, dtype)
+        row = dict(shape=label, dtype=str(dtype)[6:], fwd_bwd_ms=min(f1, f2),
+                   plain_bwd_ms=min(p1, p2), sdpa_bwd_ms=s1,
+                   sdpa_fwd_bwd_ms=sf, bound_ms=bound_ms, bound_by=bound_by,
+                   grad_rel=max(rel), bitwise=bitwise)
+        rows.append(row)
+        print(f"[kernel] flash_attention Function {label} {row['dtype']}: "
+              f"dq, dk, dv against autograd through the plain version rel "
+              f"{[f'{r:.2e}' for r in rel]} (bound 1e-6), bit for bit "
+              f"{bitwise}; forward + backward {row['fwd_bwd_ms']:.3f} ms "
+              f"(runs {f1:.3f}, {f2:.3f}), of which the plain backward "
+              f"(recompute + VJP) {row['plain_bwd_ms']:.3f} ms; SDPA "
+              f"backward {s1:.3f} ms, SDPA forward + backward {sf:.3f} ms; "
+              f"backward bound {bound_ms:.4f} ms ({bound_by})")
+        del xs, ys, zs, got, want, lib
+        free_cuda()
+    return {"worst": worst, "timing": rows}
+
+
+def check_router_grad() -> dict:
+    """The router Function's logits gradient against autograd through
+    ``moe_router_ref`` (its sort differentiated) at qwen3-moe-30b-a3b's
+    prefill of 3000 tokens (E = 128, k = 8), fp32 logits: the same
+    indices, the gradient within 1e-5 relative in norm.  Timed: the
+    Function's forward and backward, the plain version's under autograd,
+    and the library's (softmax + topk + renormalise) under autograd."""
+    t, e, k = ROUTER_PATH[-1]
+    gen = torch.Generator().manual_seed(900)
+    logits = torch.randn(t, e, generator=gen).cuda()
+    gw = torch.randn(t, k, generator=gen).cuda()
+    xs, ys, zs = (logits.clone().requires_grad_() for _ in range(3))
+    before = moe_router.launches
+    w, idx = moe_router(xs, k)
+    (got,) = torch.autograd.grad(w, xs, gw)
+    torch.cuda.synchronize()
+    if moe_router.launches != before + 1:
+        raise AssertionError("the router Function did not launch once")
+    wr, ir = moe_router_ref(ys, k)
+    (want,) = torch.autograd.grad(wr, ys, gw)
+    if not torch.equal(idx, ir):
+        raise AssertionError("router Function: indices differ from the plain "
+                             "version's")
+    rel = ((got.double() - want.double()).norm()
+           / want.double().norm()).item()
+    err = (got - want).abs().max().item()
+    if not (torch.isfinite(got).all() and rel <= 1e-5):
+        raise AssertionError(f"router Function gradient differs by {rel}")
+
+    def fwd_bwd(fn, x):
+        def run():
+            return torch.autograd.grad(fn(x, k)[0], x, gw)
+        return run
+
+    f1 = time_auto(fwd_bwd(moe_router, xs))
+    p1 = time_auto(fwd_bwd(moe_router_ref, ys))
+    lib = time_auto(fwd_bwd(router_library, zs))
+    p2 = time_auto(fwd_bwd(moe_router_ref, ys))
+    f2 = time_auto(fwd_bwd(moe_router, xs))
+    row = dict(shape=f"T={t} E={e} k={k}", dtype="float32",
+               fwd_bwd_ms=min(f1, f2), plain_fwd_bwd_ms=min(p1, p2),
+               library_fwd_bwd_ms=lib, grad_rel=rel, max_abs_err=err)
+    print(f"[kernel] moe_router Function T={t} E={e} k={k} fp32: logits "
+          f"gradient against autograd through the plain version rel "
+          f"{rel:.3e} (bound 1e-5), max abs {err:.3e}, same indices; "
+          f"forward + backward {row['fwd_bwd_ms']:.4f} ms (runs {f1:.4f}, "
+          f"{f2:.4f}), plain under autograd {row['plain_fwd_bwd_ms']:.4f} "
+          f"ms, softmax+topk+renorm under autograd {lib:.4f} ms")
+    return row
 
 
 def scan_bwd_bound(b, l, d, n, elem) -> tuple[float, str]:
@@ -961,7 +1221,7 @@ def check_scan_bwd(floor: float) -> dict:
             args = scan_inputs(b, l, d, n, dtype, seed=500 + i)
             g = torch.randn(b, l, d, generator=torch.Generator().manual_seed(
                 600 + i)).to("cuda", dtype)
-            _, states = scan_ops._launch(*args, keep_states=True)
+            _, states, _ = scan_ops._launch(*args, keep_states=True)
             want_states = scan_states_ref(*args[:4])
             if dtype == torch.float32:
                 if not torch.equal(states, want_states):
@@ -2113,19 +2373,22 @@ class Recorder:
 
 @contextlib.contextmanager
 def plain_path():
-    """The model's attention and router through the plain PyTorch
-    versions, on the card (the kernels' wrappers are not called); yields
-    the router's log, with the top-k gaps."""
-    saved = backend.attention, backend.decode_attention
+    """The model's attention, router and SSM prefill scan through the
+    plain PyTorch versions, on the card (the kernels' wrappers are not
+    called); yields the router's log, with the top-k gaps."""
+    saved = (backend.attention, backend.decode_attention,
+             backend.mamba_scan_with_state)
     backend.attention = (lambda q, k, v, *, causal=True:
                          attention_ref(q, k, v, causal=causal))
     backend.decode_attention = (lambda q, k, v, *, kv_len:
                                 decode_attention_ref(q, k, v, kv_len=kv_len))
+    backend.mamba_scan_with_state = mamba_scan_with_state_ref
     try:
         with routed_by(RouteLog(moe_router_ref, with_gap=True)) as log:
             yield log
     finally:
-        backend.attention, backend.decode_attention = saved
+        (backend.attention, backend.decode_attention,
+         backend.mamba_scan_with_state) = saved
 
 
 def kernel_launches() -> dict:
@@ -2133,13 +2396,22 @@ def kernel_launches() -> dict:
                 decode_attention=decode_attention.launches,
                 moe_router=moe_router.launches, lstm_cell=lstm_cell.launches,
                 mamba_scan=mamba_scan.launches,
-                mamba_scan_bwd=mamba_scan_bwd.launches)
+                mamba_scan_bwd=mamba_scan_bwd.launches,
+                mamba_scan_with_state=mamba_scan_with_state.launches)
 
 
 def reset_launches() -> None:
     flash_attention.launches = decode_attention.launches = 0
     moe_router.launches = lstm_cell.launches = mamba_scan.launches = 0
-    mamba_scan_bwd.launches = 0
+    mamba_scan_bwd.launches = mamba_scan_with_state.launches = 0
+
+
+def layer_counts(cfg) -> dict:
+    """Layers of each kind: attention, MoE, SSM."""
+    return dict(attn=sum(cfg.is_attention_layer(i)
+                         for i in range(cfg.n_layers)),
+                moe=sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers)),
+                ssm=cfg.n_layers if cfg.family == "ssm" else 0)
 
 
 def lm_prompts(vocab: int) -> list[np.ndarray]:
@@ -2166,23 +2438,27 @@ def serve_engine(model: Model, params, prompts) -> dict:
     wall = time.perf_counter() - t0
     launches = kernel_launches()
     cfg = model.cfg
-    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    n = layer_counts(cfg)
     decoded = sum(len(r.out) - 1 for r in done)
-    want = dict(flash_attention=cfg.n_layers * len(prompts),
-                decode_attention=LAUNCHES_PER_CALL * cfg.n_layers * decoded,
-                moe_router=n_moe * (len(prompts) + decoded), lstm_cell=0,
-                mamba_scan=0, mamba_scan_bwd=0)
+    want = dict(flash_attention=n["attn"] * len(prompts),
+                decode_attention=LAUNCHES_PER_CALL * n["attn"] * decoded,
+                moe_router=n["moe"] * (len(prompts) + decoded), lstm_cell=0,
+                mamba_scan=0, mamba_scan_bwd=0,
+                mamba_scan_with_state=n["ssm"] * len(prompts))
     if len(done) != len(prompts) or launches != want:
         raise AssertionError(f"engine: {len(done)} requests done, launches "
                              f"{launches}, expected {want}")
     tokens = sum(len(r.out) for r in done)
     print(f"[lm] engine served {len(done)} requests, {tokens} tokens in "
           f"{wall:.3f} s: flash_attention {launches['flash_attention']} "
-          f"launches = {cfg.n_layers} x {len(prompts)} prefills, "
+          f"launches = {n['attn']} x {len(prompts)} prefills, "
           f"decode_attention {launches['decode_attention']} = "
-          f"{LAUNCHES_PER_CALL} x {cfg.n_layers} x {decoded} decoded tokens, "
-          f"moe_router {launches['moe_router']} = {n_moe} x "
-          f"({len(prompts)} prefills + {decoded} decoded tokens)")
+          f"{LAUNCHES_PER_CALL} x {n['attn']} x {decoded} decoded tokens, "
+          f"moe_router {launches['moe_router']} = {n['moe']} x "
+          f"({len(prompts)} prefills + {decoded} decoded tokens), "
+          f"mamba_scan_with_state {launches['mamba_scan_with_state']} = "
+          f"{n['ssm']} x {len(prompts)} prefills (the SSM decode is plain "
+          f"ops)")
     return dict(done=sorted(done, key=lambda r: r.req_id), rec=rec,
                 routes=log.calls, wall_s=wall, tokens=tokens,
                 launches=launches)
@@ -2314,24 +2590,119 @@ def lm_gate(arch: str, n_layers: int | None = None) -> dict:
     for f in tf["flips"]:
         print(f"[lm] fp32 boundary flip: {f}")
     peak = torch.cuda.max_memory_allocated() / 2**30
+    tol = SSM_LOGIT_TOL if cfg.family == "ssm" else LOGIT_TOL
     print(f"[lm] {cfg.name} fp32 engine vs plain path: max abs logit drift "
-          f"{tf['max_abs_drift']:.3e} (bound {LOGIT_TOL}) over {tf['steps']} "
+          f"{tf['max_abs_drift']:.3e} (bound {tol}) over {tf['steps']} "
           f"steps, greedy tokens equal {tf['agree']}/{tf['steps']}, peak "
           f"{peak:.2f} GiB")
     if served["launches"]["moe_router"]:
         print(f"[lm] {cfg.name} fp32 {_routing_line(tf)}")
-    if not tf["max_abs_drift"] <= LOGIT_TOL:
+    if not tf["max_abs_drift"] <= tol:
         raise AssertionError(f"fp32 logits drift {tf['max_abs_drift']}")
-    bad = [f for f in tf["flips"] if f["margin"] >= LOGIT_TOL]
+    bad = [f for f in tf["flips"] if f["margin"] >= tol]
     if bad:
         raise AssertionError(f"fp32 greedy tokens differ away from a top-2 "
                              f"tie: {bad}")
     out = dict(n_layers=cfg.n_layers, launches=served["launches"],
                wall_s=served["wall_s"], tokens=served["tokens"],
-               peak_gib=peak, **tf)
+               peak_gib=peak, logit_tol=tol, **tf)
+    if cfg.family == "ssm":
+        out["fp64"] = ssm_against_fp64(model, params,
+                                       prompts[:FP64_PROMPTS])
+        out["prefill_then_decode"] = prefill_then_decode(
+            model, params, prompts[:3], tol)
     del params, served
     free_cuda()
     return out
+
+
+def _fp64_ssm_logits(model: Model, params, toks):
+    """falcon-mamba's last-token prefill logits in float64, layer by
+    layer from the fp32 params (the plain scan stepped in float64)."""
+    cfg = model.cfg
+    di, n, dtr, k = cfg.d_inner, cfg.ssm_state, cfg.dt_rank, cfg.ssm_conv
+
+    def norm(w, x):
+        return (x * torch.rsqrt((x * x).mean(-1, keepdim=True)
+                                + cfg.norm_eps) * w.double())
+
+    def silu(x):
+        return x * torch.sigmoid(x)
+
+    x = params["embed"][toks].double()
+    ell = x.shape[1]
+    for i in range(cfg.n_layers):
+        p = {kk: v[i].double() for kk, v in params["g0"]["mamba"].items()}
+        xz = norm(params["g0"]["ln1"]["w"][i], x) @ p["in_proj"]
+        xin, z = xz[..., :di], xz[..., di:]
+        xp = torch.nn.functional.pad(xin, (0, 0, k - 1, 0))
+        xc = silu(sum(xp[:, j:j + ell] * p["conv_w"][j] for j in range(k))
+                  + p["conv_b"])
+        proj = xc @ p["x_proj"]
+        delta = torch.nn.functional.softplus(proj[..., :dtr] @ p["dt_proj"]
+                                             + p["dt_bias"])
+        bm, cm = proj[..., dtr:dtr + n], proj[..., dtr + n:]
+        a = -torch.exp(p["a_log"])
+        h = x.new_zeros(x.shape[0], di, n)
+        ys = []
+        for t in range(ell):
+            h = (torch.exp(delta[:, t, :, None] * a) * h
+                 + (delta[:, t] * xc[:, t])[..., None] * bm[:, t, None, :])
+            ys.append(torch.einsum("bdn,bn->bd", h, cm[:, t])
+                      + p["skip"] * xc[:, t])
+        x = x + (torch.stack(ys, 1) * silu(z)) @ p["out_proj"]
+    return norm(params["ln_f"]["w"], x)[:, -1:] @ params["head"].double()
+
+
+def ssm_against_fp64(model: Model, params, prompts) -> dict:
+    """The SSM's prefill logits through the kernel and through the plain
+    scan, each against a float64 forward from the same params: the
+    kernel's error within twice the plain path's own (or LOGIT_TOL)."""
+    out = {}
+    for p in prompts:
+        toks = torch.as_tensor(p, device=DEVICE)[None]
+        with torch.no_grad():
+            kern, _ = model.prefill(params, {"tokens": toks})
+            with plain_path():
+                plain, _ = model.prefill(params, {"tokens": toks})
+            exact = _fp64_ssm_logits(model, params, toks)
+        err = dict(kernel=(kern.double() - exact).abs().max().item(),
+                   plain=(plain.double() - exact).abs().max().item(),
+                   max_logit=exact.abs().max().item())
+        out[len(p)] = err
+        if not err["kernel"] <= max(2 * err["plain"], LOGIT_TOL):
+            raise AssertionError(f"S = {len(p)}: the kernel path is "
+                                 f"{err['kernel']} from float64, the plain "
+                                 f"path {err['plain']}")
+    print(f"[lm] {model.cfg.name} fp32 prefill logits against a float64 "
+          f"forward, max abs by S (the kernel's held to twice the plain "
+          f"path's): {out}")
+    return out
+
+
+def prefill_then_decode(model: Model, params, prompts, tol: float) -> dict:
+    """Prefill of a whole prompt against a prefill of all but its last
+    token and a decode step of that token (for the SSM: the kernel's
+    final state carried into the plain recurrent step): last-token
+    logits within ``tol``, max abs."""
+    drift = {}
+    for p in prompts:
+        toks = torch.as_tensor(p, device=DEVICE)[None]
+        full, _ = model.prefill(params, {"tokens": toks})
+        _, caches = model.prefill(params, {"tokens": toks[:, :-1]})
+        step, _ = model.decode_step(params, pad_to_length(caches, len(p)),
+                                    toks[:, -1:], len(p) - 1)
+        drift[len(p)] = (step - full).abs().max().item()
+        del caches
+    print(f"[lm] {model.cfg.name} fp32 prefill(S) vs prefill(S - 1) + "
+          f"decode: max abs logit drift by S {drift} (bound {tol})")
+    if not max(drift.values()) <= tol:
+        raise AssertionError(f"prefill then decode drifts {drift}")
+    return drift
+
+
+def weight_bytes(params) -> int:
+    return sum(t.numel() * t.element_size() for t in convert.leaves(params))
 
 
 def _sync_ms(fn) -> float:
@@ -2395,14 +2766,26 @@ def lm_timing(arch: str) -> dict:
     prefill_busy = profile_window(
         f"prefill of {len(longest)} tokens", lambda: first_token(longest), 1)
     tok_s = served["tokens"] / served["wall_s"]
+    wbytes = weight_bytes(params)
+    bound_ms = wbytes / HBM_BYTES_PER_S * 1e3
     print(f"[lm] {cfg.name} bf16 TTFT ms by prompt length (warm, alone): "
           f"{ttft}")
+    busy = {n: round(v["device_busy_ms"], 3) for n, v in decode_busy.items()}
+    ops = {n: round(v["device_ops"]) for n, v in decode_busy.items()}
+    routed = ("; a decoded token reads only its routed experts"
+              if cfg.n_experts else "")
+    print(f"[lm] {cfg.name} bf16 per decoded token, by context: host "
+          f"{decode_ms} ms, device busy {busy} ms over {ops} device ops; "
+          f"the weight-read bound {wbytes / 1e9:.2f} GB / "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s = {bound_ms:.2f} ms (all "
+          f"weights read once{routed})")
     print(f"[lm] {cfg.name} bf16 decode ms/token (B=1, warm median) by "
           f"context: {decode_ms}; engine {served['tokens']} tokens in "
           f"{served['wall_s']:.3f} s = {tok_s:.1f} tokens/s "
           f"({len(prompts)} requests, {N_SLOTS} slots, prefill included)")
     out = dict(ttft_ms=ttft, decode_ms=decode_ms, profile=decode_busy,
-               prefill_profile=prefill_busy,
+               prefill_profile=prefill_busy, weight_gb=wbytes / 1e9,
+               weight_read_bound_ms=bound_ms,
                engine_tok_per_s=tok_s, engine_wall_s=served["wall_s"],
                tokens=served["tokens"], launches=served["launches"],
                peak_gib=peak, max_abs_drift=tf["max_abs_drift"],
@@ -2451,28 +2834,36 @@ def profile_decode(model, params, caches, tok, pos, reps: int = 8) -> dict:
                           reps)
 
 
-# ----------------------------- phases 10 and 11 -----------------------------
+# -------------------------- training phases --------------------------------
+# Each family trains through its kernels: the SSM's scan forward and
+# backward kernels, attention through flash_attention's autograd Function
+# (the kernel forward, the plain version's VJP backward), the MoE router
+# through moe_router's (the kernel forward, the weights' gradient at its
+# indices backward).
 
 @contextlib.contextmanager
-def plain_scan():
-    """The model's selective scan through the plain PyTorch version, on
-    the card, differentiated by autograd (neither kernel's wrapper is
-    called)."""
-    saved = backend.mamba_scan
+def plain_training():
+    """The model's attention, router and selective scan through the plain
+    PyTorch versions, on the card, differentiated by autograd (no
+    kernel's wrapper is called)."""
+    saved = backend.attention, backend.moe_router, backend.mamba_scan
+    backend.attention = (lambda q, k, v, *, causal=True:
+                         attention_ref(q, k, v, causal=causal))
+    backend.moe_router = moe_router_ref
     backend.mamba_scan = mamba_scan_ref
     try:
         yield
     finally:
-        backend.mamba_scan = saved
+        backend.attention, backend.moe_router, backend.mamba_scan = saved
 
 
-def _ssm_trainer(n_layers: int, dtype: str | None = None):
-    full = get_config(SSM_ARCH)
+def _trainer(arch: str, n_layers: int, dtype: str | None = None):
+    full = get_config(arch)
     cfg = dataclasses.replace(full, n_layers=n_layers,
                               param_dtype=dtype or full.param_dtype)
     model = Model(cfg)
     return cfg, model, Trainer(model, mesh=None,
-                               opt_cfg=Opt.OptConfig(**SSM_OPT),
+                               opt_cfg=Opt.OptConfig(**LM_OPT),
                                device=DEVICE)
 
 
@@ -2492,75 +2883,126 @@ def tree_rel(got: dict, want: dict) -> tuple[float, float]:
     return (num / den) ** 0.5, worst
 
 
-def ssm_gate() -> dict:
-    """fp32 at full width, ``SSM_GATE_LAYERS`` layers.  The main path:
-    ``Trainer``'s steps through the kernel, launch counts set to 0 just
-    before and read just after.  Then, from the params before each of its
-    steps, the same loss through the plain scan (held to 1e-5 relative),
-    and step 1's gradients both ways (held to 1e-4 relative in norm).
-    Last, reported and not held, the plain path's own steps from the same
-    start: Adam's first steps divide each gradient by its own magnitude,
-    so where a gradient is near 0 the two paths' fp32 noise moves the
-    params apart, and the losses drift apart step by step."""
-    cfg, model, trainer = _ssm_trainer(SSM_GATE_LAYERS, "float32")
+def train_launches(cfg, steps: int) -> dict:
+    """Kernel launches of ``steps`` training steps: every layer's forward
+    and its recompute in the backward launch its kernel (attention, each
+    MoE layer's router, the scan), the scan's backward its two; the
+    attention and router backwards are plain PyTorch."""
+    n = layer_counts(cfg)
+    want = {k: 0 for k in kernel_launches()}
+    want["flash_attention"] = 2 * n["attn"] * steps
+    want["moe_router"] = 2 * n["moe"] * steps
+    want["mamba_scan"] = 2 * n["ssm"] * steps
+    want["mamba_scan_bwd"] = (scan_ops.BWD_LAUNCHES_PER_CALL * n["ssm"]
+                              * steps)
+    return want
+
+
+@contextlib.contextmanager
+def counting_drops():
+    """Yields a list that gets, per ``grouped_ffn`` call (a MoE layer's
+    forward or its recompute), the copies its capacity dropped."""
+    real = Moe.grouped_ffn
+    seen: list[int] = []
+
+    def counting(x, idx, w, wg, wu, wd, capacity):
+        counts = torch.bincount(idx.reshape(-1).long(),
+                                minlength=wg.shape[0])
+        seen.append(int((counts - capacity).clamp_min(0).sum()))
+        return real(x, idx, w, wg, wu, wd, capacity)
+
+    Moe.grouped_ffn = counting
+    try:
+        yield seen
+    finally:
+        Moe.grouped_ffn = real
+
+
+def train_gate(arch: str, n_layers: int, batch: int, seq: int) -> dict:
+    """fp32 at full width, ``n_layers`` layers.  The main path:
+    ``Trainer``'s ``GATE_STEPS`` steps through the kernels, launch counts
+    set to 0 just before and read just after.  Then, from the params
+    before each of its steps, the same loss through the plain versions
+    (held to 1e-5 relative), and step 1's gradients both ways (held to
+    1e-4 relative in norm); step 1 again from its params, which must give
+    the same loss and params bit for bit (a MoE layer's recompute in the
+    backward must route as its forward did).  Last, reported and not
+    held, the plain path's own steps from the same start: Adam's first
+    steps divide each gradient by its own magnitude, so where a gradient
+    is near 0 the two paths' fp32 noise moves the params apart, and the
+    losses drift apart step by step."""
+    cfg, model, trainer = _trainer(arch, n_layers, "float32")
     matmul = torch.backends.cuda.matmul
     if (matmul.allow_tf32 or torch.backends.cudnn.allow_tf32
             or matmul.allow_bf16_reduced_precision_reduction):
         raise AssertionError("reduced-precision products are on")
-    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=SSM_GATE_SEQ,
-                                  global_batch=SSM_GATE_BATCH),
-                       device=DEVICE)
-    batches = [data.batch(i) for i in range(SSM_STEPS)]
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                  global_batch=batch), device=DEVICE)
+    batches = [data.batch(i) for i in range(GATE_STEPS)]
     torch.cuda.reset_peak_memory_stats()
     params, state = trainer.init_state(SEED)
     step = trainer.compile_step()
     snaps, losses = [], []
     torch.cuda.synchronize()
     reset_launches()
-    for batch in batches:
-        snaps.append(clone(params))
-        params, state, m = step(params, state, batch)
-        losses.append(float(m["loss"]))
-    torch.cuda.synchronize()
+    with counting_drops() as drops:
+        for b in batches:
+            snaps.append(clone(params))
+            params, state, m = step(params, state, b)
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
     launches = kernel_launches()
     del params, state
     free_cuda()
     peak = torch.cuda.max_memory_allocated() / 2**30
     _, g_kern = value_and_grad(model, snaps[0], batches[0])
     before = kernel_launches()
-    with plain_scan():
+    with plain_training():
         with torch.no_grad():
             plain = [float(model.loss_fn(p, b))
                      for p, b in zip(snaps, batches)]
         _, g_plain = value_and_grad(model, snaps[0], batches[0])
-        grad_rel, worst_leaf = tree_rel(g_kern, g_plain)
-        del g_kern, g_plain, snaps[1:]
-        free_cuda()
+    plain_launches = {k: v - before[k] for k, v in kernel_launches().items()}
+    grad_rel, worst_leaf = tree_rel(g_kern, g_plain)
+    del g_kern, g_plain, snaps[2:]
+    free_cuda()
+    p, st = clone(snaps[0]), Opt.init(trainer.opt_cfg, snaps[0])
+    p, st, m = step(p, st, batches[0])
+    repeat = dict(loss=float(m["loss"]) == losses[0],
+                  params=all(torch.equal(a, b) for a, b in zip(
+                      convert.leaves(p), convert.leaves(snaps[1]))))
+    del p, st, snaps[1]
+    free_cuda()
+    with plain_training():
         p, st = snaps[0], Opt.init(trainer.opt_cfg, snaps[0])
         own = []
-        for batch in batches:
-            p, st, m = step(p, st, batch)
+        for b in batches:
+            p, st, m = step(p, st, b)
             own.append(float(m["loss"]))
         del p, st, snaps
         free_cuda()
-    plain_launches = {k: v - before[k] for k, v in kernel_launches().items()}
     rel = [abs(k - q) / abs(q) for k, q in zip(losses, plain)]
     own_rel = [abs(k - q) / abs(q) for k, q in zip(losses, own)]
-    print(f"[ssm] {cfg.name} fp32, {cfg.n_layers} layers "
-          f"({cfg.param_count() / 1e9:.3f} B params), batches "
-          f"{SSM_GATE_BATCH} x {SSM_GATE_SEQ}: losses {losses}; the plain "
-          f"scan from the same params {plain}, max rel {max(rel):.3e} "
-          f"(bound 1e-5); step-1 gradients rel {grad_rel:.3e} (bound 1e-4; "
-          f"worst leaf {worst_leaf:.3e}); mamba_scan "
-          f"{launches['mamba_scan']} and mamba_scan_bwd "
-          f"{launches['mamba_scan_bwd']} launches = 2 x {cfg.n_layers} "
-          f"layers x "
-          f"{SSM_STEPS} steps; peak {peak:.2f} GiB. Not held: the plain "
-          f"path's own steps {own}, rel {[f'{r:.3e}' for r in own_rel]}")
-    want = {k: 0 for k in launches}
-    want["mamba_scan"] = 2 * cfg.n_layers * SSM_STEPS
-    want["mamba_scan_bwd"] = (scan_ops.BWD_LAUNCHES_PER_CALL * cfg.n_layers
-                              * SSM_STEPS)
+    want = train_launches(cfg, GATE_STEPS)
+    shown = {k: v for k, v in launches.items() if v or want[k]}
+    n = layer_counts(cfg)
+    dropped = sum(drops) // 2        # each forward ran again in the backward
+    print(f"[train] {cfg.name} fp32, {cfg.n_layers} layers "
+          f"({cfg.param_count() / 1e9:.3f} B params), batches {batch} x "
+          f"{seq}: losses {losses}; the plain path from the same params "
+          f"{plain}, max rel {max(rel):.3e} (bound 1e-5); step-1 gradients "
+          f"rel {grad_rel:.3e} (bound 1e-4; worst leaf {worst_leaf:.3e}); "
+          f"step 1 repeated: loss bit-equal {repeat['loss']}, params "
+          f"bit-equal {repeat['params']}; launches {shown} = 2 x "
+          f"({n['attn']} attention, {n['moe']} MoE, {n['ssm']} SSM) layers "
+          f"x {GATE_STEPS} steps (forward and its recompute; the scan's "
+          f"backward {scan_ops.BWD_LAUNCHES_PER_CALL} per layer); "
+          + (f"copies dropped by capacity {dropped} of "
+             f"{GATE_STEPS * n['moe'] * batch * seq * cfg.top_k} routed "
+             f"({GATE_STEPS} steps x {n['moe']} layers); " if n["moe"]
+             else "")
+          + f"peak {peak:.2f} GiB. Not held: the plain path's own steps "
+          f"{own}, rel {[f'{r:.3e}' for r in own_rel]}")
     if launches != want:
         raise AssertionError(f"kernel path launches {launches}, expected "
                              f"{want}")
@@ -2570,85 +3012,97 @@ def ssm_gate() -> dict:
         raise AssertionError(f"losses {losses} vs plain {plain}")
     if not grad_rel <= 1e-4:
         raise AssertionError(f"step-1 gradients differ by {grad_rel}")
-    return dict(n_layers=cfg.n_layers, losses=losses, plain_losses=plain,
-                max_loss_rel=max(rel), grad_rel=grad_rel,
-                worst_leaf_rel=worst_leaf, own_plain_losses=own,
-                own_plain_rel=own_rel, launches=launches, peak_gib=peak)
+    if not all(repeat.values()):
+        raise AssertionError(f"step 1 repeated differs: {repeat}")
+    return dict(n_layers=cfg.n_layers, batch=batch, seq=seq, losses=losses,
+                plain_losses=plain, max_loss_rel=max(rel),
+                grad_rel=grad_rel, worst_leaf_rel=worst_leaf,
+                repeat_bit_equal=repeat, own_plain_losses=own,
+                own_plain_rel=own_rel, launches=launches,
+                dropped=dropped if n["moe"] else None, peak_gib=peak)
 
 
 @contextlib.contextmanager
-def timed_scan_backward():
-    """Yields a list that gets the host seconds of each call of the scan's
-    backward (the backward kernels), each call between two
-    synchronisations, inside whatever step runs meanwhile."""
-    fn = scan_ops._Scan
-    saved = fn.backward
-    times: list[float] = []
+def timed_backwards():
+    """Yields a dict that gets, per kernel Function (``mamba_scan``,
+    ``flash_attention``, ``moe_router``), the host seconds of each call
+    of its backward, each between two synchronisations, inside whatever
+    step runs meanwhile."""
+    fns = {"mamba_scan": scan_ops._Scan, "flash_attention": flash_ops._Flash,
+           "moe_router": router_ops._Router}
+    saved = {k: fn.backward for k, fn in fns.items()}
+    times: dict[str, list[float]] = {k: [] for k in fns}
 
-    def backward(ctx, g):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = saved(ctx, g)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        return out
+    def timed(name):
+        def backward(ctx, *g):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = saved[name](ctx, *g)
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+            return out
+        return staticmethod(backward)
 
-    fn.backward = staticmethod(backward)
+    for k, fn in fns.items():
+        fn.backward = timed(k)
     try:
         yield times
     finally:
-        fn.backward = staticmethod(saved)
+        for k, fn in fns.items():
+            fn.backward = staticmethod(saved[k])
 
 
-def ssm_timing() -> dict:
-    """bf16, the config's own dtype, full width, ``SSM_LAYERS`` layers:
-    one warm step and ``SSM_STEPS`` timed, then one step taken by its
-    parts (forward, backward, optimizer) and one under the profiler."""
-    cfg, model, trainer = _ssm_trainer(SSM_LAYERS)
+def train_timing(arch: str, n_layers: int, batch: int, seq: int,
+                 plain_curve: bool) -> dict:
+    """bf16, the config's own dtype, full width, ``n_layers`` layers: one
+    warm step and ``TIMED_STEPS`` timed, then one step taken by its parts
+    (forward, backward, optimizer; each kernel Function's backward timed
+    inside it) and one under the profiler.  With ``plain_curve``, the
+    same steps again from the same seed through the plain versions,
+    their losses reported beside the kernels' (the bf16 flash kernel
+    rounds P to bf16 before P @ V, the plain version does not)."""
+    cfg, model, trainer = _trainer(arch, n_layers)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params, state = trainer.init_state(SEED)
     torch.cuda.synchronize()
-    print(f"[ssm] {cfg.name} bf16, {cfg.n_layers} layers: "
+    print(f"[train] {cfg.name} bf16, {cfg.n_layers} layers: "
           f"{cfg.param_count() / 1e9:.3f} B params, init "
           f"{time.perf_counter() - t0:.2f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card "
           f"(params and AdamW moments)")
-    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=SSM_SEQ,
-                                  global_batch=SSM_BATCH), device=DEVICE)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                  global_batch=batch), device=DEVICE)
     step = trainer.compile_step()
+    steps = 1 + TIMED_STEPS
     reset_launches()
     losses, times = [], []
-    for i in range(1 + SSM_STEPS):
-        batch = data.batch(i)
+    for i in range(steps):
+        b = data.batch(i)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        params, state, m = step(params, state, batch)
+        params, state, m = step(params, state, b)
         losses.append(float(m["loss"]))
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     launches = kernel_launches()
-    want = 2 * cfg.n_layers * (1 + SSM_STEPS)
-    want_bwd = scan_ops.BWD_LAUNCHES_PER_CALL * cfg.n_layers * (1 + SSM_STEPS)
-    if (launches["mamba_scan"] != want
-            or launches["mamba_scan_bwd"] != want_bwd
-            or sum(launches.values()) != want + want_bwd):
-        raise AssertionError(f"launches {launches}, expected {want} scans "
-                             f"and {want_bwd} scan backward launches")
+    want = train_launches(cfg, steps)
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
     if not (np.isfinite(losses).all() and max(losses) > min(losses)):
         raise AssertionError(f"bf16 losses {losses}")
     step_ms = float(np.median(times[1:]))
-    tokens = SSM_BATCH * SSM_SEQ
+    tokens = batch * seq
 
-    # one step by its parts, the scan's backward timed inside it
-    batch = data.batch(1 + SSM_STEPS)
+    # one step by its parts, each Function's backward timed inside it
+    b = data.batch(steps)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     xs = [t.detach().requires_grad_() for t in convert.leaves(params)]
-    loss = model.loss_fn(convert.unflatten(params, xs), batch)
+    loss = model.loss_fn(convert.unflatten(params, xs), b)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    with timed_scan_backward() as scan_bwd:
+    with timed_backwards() as bwd:
         grads = torch.autograd.grad(loss, xs)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
@@ -2660,43 +3114,62 @@ def ssm_timing() -> dict:
     del xs, grads, loss
     split = dict(forward_ms=(t1 - t0) * 1e3, backward_ms=(t2 - t1) * 1e3,
                  optimizer_ms=(t3 - t2) * 1e3)
-    if len(scan_bwd) != cfg.n_layers:
-        raise AssertionError(f"{len(scan_bwd)} scan backwards in a step")
-    bwd_ms = sum(scan_bwd) * 1e3
+    n = layer_counts(cfg)
+    calls = {"mamba_scan": n["ssm"], "flash_attention": n["attn"],
+             "moe_router": n["moe"]}
+    if {k: len(v) for k, v in bwd.items()} != calls:
+        raise AssertionError(f"backwards in a step {bwd}, expected {calls}")
     split_ms = (t3 - t0) * 1e3
-    batch = data.batch(2 + SSM_STEPS)
+    bwd_ms = {k: sum(v) * 1e3 for k, v in bwd.items() if v}
+    b = data.batch(steps + 1)
 
     def one_step():
         nonlocal params, state
-        params, state, m = step(params, state, batch)
+        params, state, m = step(params, state, b)
         float(m["loss"])
 
     prof = profile_window(f"{cfg.name} bf16 training step", one_step, 1)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    out = dict(n_layers=cfg.n_layers, batch=SSM_BATCH, seq=SSM_SEQ,
+    out = dict(n_layers=cfg.n_layers, batch=batch, seq=seq,
                step_ms=step_ms, step_ms_all=times, tok_per_s=tokens
                / (step_ms / 1e3), losses=losses, launches=launches, **split,
-               split_step_ms=split_ms, scan_backward_ms=bwd_ms,
-               scan_backward_share=bwd_ms / split_ms,
+               split_step_ms=split_ms, function_backward_ms=bwd_ms,
+               function_backward_share={k: v / split_ms
+                                        for k, v in bwd_ms.items()},
                device_busy_ms=prof["device_busy_ms"],
                idle_share=1 - prof["device_busy_ms"] / step_ms,
                device_ops=prof["device_ops"], top=prof["top"],
                kernels=prof["kernels"], peak_gib=peak)
-    print(f"[ssm] {cfg.name} bf16, {cfg.n_layers} layers, {SSM_BATCH} x "
-          f"{SSM_SEQ} tokens per step: {step_ms:.1f} ms per step (warm "
-          f"median of {SSM_STEPS}; all {[round(t, 1) for t in times]}), "
+    shown = {k: v for k, v in launches.items() if v}
+    parts = "; ".join(
+        f"the {k} backward {v:.1f} ms of it ({calls[k]} calls, "
+        f"{100 * out['function_backward_share'][k]:.1f}%"
+        + (", the plain attention VJP" if k == "flash_attention" else "")
+        + ")" for k, v in bwd_ms.items())
+    print(f"[train] {cfg.name} bf16, {cfg.n_layers} layers, {batch} x "
+          f"{seq} tokens per step: {step_ms:.1f} ms per step (warm median "
+          f"of {TIMED_STEPS}; all {[round(t, 1) for t in times]}), "
           f"{out['tok_per_s']:.1f} tokens/s; split forward "
-          f"{split['forward_ms']:.1f} / backward {split['backward_ms']:.1f} / "
-          f"optimizer {split['optimizer_ms']:.1f} ms; the scan backward "
-          f"{bwd_ms:.1f} ms of it ({cfg.n_layers} calls, "
-          f"{100 * out['scan_backward_share']:.1f}%); device busy "
-          f"{prof['device_busy_ms']:.1f} ms per step (idle "
-          f"{100 * out['idle_share']:.1f}%); losses {losses}; mamba_scan "
-          f"{launches['mamba_scan']} and mamba_scan_bwd "
-          f"{launches['mamba_scan_bwd']} launches = 2 x {cfg.n_layers} x "
-          f"{1 + SSM_STEPS} steps; peak {peak:.2f} GiB")
+          f"{split['forward_ms']:.1f} / backward {split['backward_ms']:.1f} "
+          f"/ optimizer {split['optimizer_ms']:.1f} ms; {parts}; device "
+          f"busy {prof['device_busy_ms']:.1f} ms per step (idle "
+          f"{100 * out['idle_share']:.1f}%); losses {losses}; launches "
+          f"{shown} over {steps} steps; peak {peak:.2f} GiB")
     del params, state
     free_cuda()
+    if plain_curve:
+        params, state = trainer.init_state(SEED)
+        plain = []
+        with plain_training():
+            for i in range(steps):
+                params, state, m = step(params, state, data.batch(i))
+                plain.append(float(m["loss"]))
+        del params, state
+        free_cuda()
+        out["plain_losses"] = plain
+        print(f"[train] {cfg.name} bf16 loss curve, kernels {losses} vs "
+              f"the plain path {plain} from the same seed (reported, not "
+              f"held: the bf16 kernel rounds P to bf16 before P @ V)")
     return out
 
 
@@ -3855,6 +4328,10 @@ def main() -> None:
         router = check_router(floor)
         scan = check_scan()
         scan_bwd = check_scan_bwd(floor)
+        scan_state = check_scan_with_state()
+        flash_grad = check_flash_grad()
+        router_grad = check_router_grad()
+        free_cuda()
 
     n_hosts, max_tasks = PAPER["n_hosts"], PAPER["max_tasks"]
     with phase("decision slice"):
@@ -3906,14 +4383,46 @@ def main() -> None:
                                        "cuda"])
         free_cuda()
     with phase(f"{SSM_ARCH} fp32 training gate ({SSM_GATE_LAYERS} layers)"):
-        ssm_fp32 = ssm_gate()
+        ssm_fp32 = train_gate(SSM_ARCH, SSM_GATE_LAYERS, SSM_GATE_BATCH,
+                              SSM_GATE_SEQ)
+        free_cuda()
     with phase(f"{SSM_ARCH} bf16 training ({SSM_LAYERS} layers) and train"):
-        ssm_bf16 = ssm_timing()
+        ssm_bf16 = train_timing(SSM_ARCH, SSM_LAYERS, SSM_BATCH, SSM_SEQ,
+                                plain_curve=False)
         trained = train_entry.main(["--arch", SSM_ARCH, "--reduced",
                                     "--steps", "5", "--device", "cuda"])
         if not np.isfinite([trained["first_loss"], trained["last_loss"]]
                            ).all():
             raise AssertionError(f"launch.train: {trained}")
+        free_cuda()
+    with phase(f"{SSM_ARCH} fp32 serving gate"):
+        ssm_serve_gate = lm_gate(SSM_ARCH)
+    with phase(f"{SSM_ARCH} bf16 timing and serve"):
+        ssm_serve_timing = lm_timing(SSM_ARCH)
+        ssm_served = serve_entry.main(["--arch", SSM_ARCH, "--device",
+                                       "cuda"])
+        free_cuda()
+    with phase(f"{LM_ARCH} fp32 training gate ({DENSE_GATE_LAYERS} layers)"):
+        dense_fp32 = train_gate(LM_ARCH, DENSE_GATE_LAYERS, LM_GATE_BATCH,
+                                LM_GATE_SEQ)
+        free_cuda()
+    with phase(f"{LM_ARCH} bf16 training ({DENSE_LAYERS} layers) and "
+               f"train"):
+        dense_bf16 = train_timing(LM_ARCH, DENSE_LAYERS, LM_BATCH, LM_SEQ,
+                                  plain_curve=True)
+        # launch.train's default arch, demo-100m, at its full size
+        demo = train_entry.main(["--steps", "5", "--device", "cuda"])
+        if not np.isfinite([demo["first_loss"], demo["last_loss"]]).all():
+            raise AssertionError(f"launch.train: {demo}")
+        free_cuda()
+    with phase(f"{MOE_ARCH} fp32 training gate ({MOE_TRAIN_GATE_LAYERS} "
+               f"layers)"):
+        moe_fp32 = train_gate(MOE_ARCH, MOE_TRAIN_GATE_LAYERS,
+                              LM_GATE_BATCH, LM_GATE_SEQ)
+        free_cuda()
+    with phase(f"{MOE_ARCH} bf16 training ({MOE_TRAIN_LAYERS} layers)"):
+        moe_bf16 = train_timing(MOE_ARCH, MOE_TRAIN_LAYERS, LM_BATCH,
+                                LM_SEQ, plain_curve=True)
         free_cuda()
     with phase("prediction service"):
         service = service_phase()
@@ -3977,6 +4486,15 @@ def main() -> None:
             **{key: res[key] for key in ("bf16_excess",
                                          "bf16_control_excess")
                if key in res}))
+    # training: the Functions' launches per main path (two per layer per
+    # step) and their gradients' checks and times
+    kernels[1].update(launches_train=dense_fp32["launches"][
+        "flash_attention"], launches_train_moe=moe_fp32["launches"][
+        "flash_attention"], grad=flash_grad["timing"],
+        grad_max_abs_err=flash_grad["worst"][torch.float32],
+        grad_max_abs_err_bf16=flash_grad["worst"][torch.bfloat16])
+    kernels[3].update(launches_train=moe_fp32["launches"]["moe_router"],
+                      grad=router_grad)
     # the scan: launches from the fp32 training gate, times at the timed
     # run's shape in bf16 (the config's own dtype); no PyTorch call
     # computes the selective scan, so library_ms is null
@@ -4008,6 +4526,21 @@ def main() -> None:
         bound_by=head["bound_by"], library_ms=None,
         device_ms=head["device_ms"], floor_us=floor, shape=head["shape"],
         per_dtype=scan_bwd["timing"]))
+    # the serving variant: launches from falcon-mamba-7b's fp32 serving
+    # gate (one per layer per prefill), times at its longest prefill in
+    # bf16; no PyTorch call computes the selective scan, so library_ms is
+    # null
+    head = [r for r in scan_state["timing"] if r["dtype"] == "bfloat16"
+            and r["shape"] == "B={} L={} D={} N={}".format(*SCAN_PREFILL)][0]
+    kernels.append(dict(
+        name="mamba_scan_with_state", route="cuda", **SCAN,
+        launches=ssm_serve_gate["launches"]["mamba_scan_with_state"],
+        max_abs_err=scan_state["worst"][torch.float32],
+        max_abs_err_bf16=scan_state["worst"][torch.bfloat16],
+        ms=head["ms"], kernel_ms=head["ms"], plain_ms=head["plain_ms"],
+        bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+        library_ms=None, device_ms=head["device_ms"], shape=head["shape"],
+        per_shape=scan_state["timing"]))
     print(json.dumps({"slice": slice_stats, "ms_per_interval": buckets}))
     print(json.dumps({"start_train_gate": start_gate,
                       "start_train": start_timing,
@@ -4022,6 +4555,15 @@ def main() -> None:
                       "moe_bf16": moe_timing, "moe_serve": moe_served}))
     print(json.dumps({"ssm_fp32": ssm_fp32, "ssm_bf16": ssm_bf16,
                       "train": trained}))
+    print(json.dumps({"ssm_serve_fp32": {k: v for k, v in
+                                         ssm_serve_gate.items()
+                                         if k != "flips"},
+                      "ssm_serve_bf16": ssm_serve_timing,
+                      "ssm_serve": ssm_served}))
+    print(json.dumps({"dense_train_fp32": dense_fp32,
+                      "dense_train_bf16": dense_bf16, "demo_train": demo,
+                      "moe_train_fp32": moe_fp32,
+                      "moe_train_bf16": moe_bf16}))
     print(json.dumps({"service": service}))
     print(json.dumps({"pod": pod}))
     print(f"[time] total: {time.perf_counter() - t_start:.1f} s wall")

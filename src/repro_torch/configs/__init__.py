@@ -1,8 +1,8 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig (exact + reduced).
 
-The same ids as the JAX package's registry.  The port runs the dense
-configurations and qwen3's MoE (serving) and falcon-mamba's SSM
-(training) so far; asking for another arch raises
+The same ids as the JAX package's registry.  The port serves and trains
+the dense configurations (yi-6b, demo-100m), qwen3's MoE and
+falcon-mamba's SSM so far; asking for another arch raises
 ``NotImplementedError`` naming the ``ROADMAP.md`` item that ports it.
 """
 from __future__ import annotations

@@ -5,8 +5,12 @@ On CUDA tensors it launches the kernel of their dtype on the current
 stream, or raises; on CPU tensors it runs the plain version
 (:func:`attention_ref`).  It never pads: the kernels mask the ragged edge
 of the sequence.
-Inference only — inputs that require grad are refused until the kernel
-has a ``torch.autograd.Function`` (training).
+
+It is differentiable through a ``torch.autograd.Function``: the forward
+is the kernel (or the plain version on the CPU) and keeps q, k and v;
+the backward runs :func:`attention_ref` again under autograd and returns
+its vector-Jacobian product, as the JAX package's custom VJP does (its
+``_bwd``).  There is no backward kernel.
 """
 from __future__ import annotations
 
@@ -36,9 +40,6 @@ def _launcher(dtype: torch.dtype):
 
 def _check(q, k, v) -> None:
     ts = (q, k, v)
-    if any(t.requires_grad for t in ts):
-        raise ValueError("flash_attention is inference-only: an input "
-                         "requires grad")
     if any(t.device != q.device for t in ts):
         raise ValueError("flash_attention inputs lie on different devices")
     if any(t.dtype != q.dtype for t in ts) or q.dtype not in _SYMBOLS:
@@ -56,14 +57,8 @@ def _check(q, k, v) -> None:
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
 
 
-def flash_attention(q, k, v, causal: bool = True,
-                    sm_scale: float | None = None):
-    """GQA attention: q (B, H, Sq, D); k, v (B, Hkv, Sk, D), H % Hkv == 0;
-    query head h reads KV head ``h // (H / Hkv)``.  Causal keeps
-    ``qpos >= kpos``.  fp32 softmax, output in q's dtype.
-    ``flash_attention.launches`` counts kernel launches (CPU calls do not
-    launch and do not count)."""
-    _check(q, k, v)
+def _forward(q, k, v, causal: bool, sm_scale: float | None):
+    """The kernel of q's dtype (CUDA) or the plain version (CPU)."""
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, sm_scale=sm_scale)
     if q.device.type != "cuda":
@@ -99,6 +94,42 @@ def flash_attention(q, k, v, causal: bool = True,
     flash_attention.launches += (1 if q.dtype == torch.bfloat16
                                  else -(-(b * h) // _MAX_GRID_Y))
     return out
+
+
+class _Flash(torch.autograd.Function):
+    """Forward: :func:`_forward`, keeping q, k and v.  Backward: the VJP
+    of :func:`attention_ref` recomputed under autograd, the gradients in
+    the inputs' dtypes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale):
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        ctx.save_for_backward(q, k, v)
+        return _forward(q, k, v, causal, sm_scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        xs = [t.detach().requires_grad_(w)
+              for t, w in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            o = attention_ref(*xs, causal=ctx.causal, sm_scale=ctx.sm_scale)
+            want = [t for t in xs if t.requires_grad]
+            got = iter(torch.autograd.grad(o, want, g))
+        return tuple(next(got) if t.requires_grad else None
+                     for t in xs) + (None, None)
+
+
+def flash_attention(q, k, v, causal: bool = True,
+                    sm_scale: float | None = None):
+    """GQA attention: q (B, H, Sq, D); k, v (B, Hkv, Sk, D), H % Hkv == 0;
+    query head h reads KV head ``h // (H / Hkv)``.  Causal keeps
+    ``qpos >= kpos``.  fp32 softmax, output in q's dtype.  Differentiable
+    in q, k and v (the backward is the plain version's).
+    ``flash_attention.launches`` counts kernel launches, forward ones
+    only, a recompute under ``torch.utils.checkpoint`` included (CPU
+    calls do not launch and do not count)."""
+    _check(q, k, v)
+    return _Flash.apply(q, k, v, causal, sm_scale)
 
 
 flash_attention.launches = 0

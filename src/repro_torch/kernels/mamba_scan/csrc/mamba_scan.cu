@@ -50,7 +50,10 @@
 // 0.16 ms; the next chunk's loads in flight in registers or by cp.async
 // did not move it.  When a backward will follow, the forward also writes
 // the state entering each chunk, (B, ceil(L / 32), D, N) fp32 (33.6 MB at
-// the training shape, ~0.02 ms of writes).
+// the training shape, ~0.02 ms of writes).  For serving (the prefill that
+// hands its recurrent state to decode) it writes instead, or as well, the
+// state after the last step, (B, D, N) fp32, once per (b, d, n): 8 MB at
+// falcon-mamba-7b's D = 8192, N = 16 and B = 1.
 //
 // Backward design.  The sweep needs h_{t-1} in reverse order, and
 // h_{t-1} = (h_t - delta u B) / a_t is useless where a_t underflows.  So
@@ -162,8 +165,9 @@ __global__ void __launch_bounds__(kChannels * kGroups,
     scan_kernel(const T* __restrict__ u, const T* __restrict__ delta,
                 const float* __restrict__ a, const T* __restrict__ bm,
                 const T* __restrict__ cm, const float* __restrict__ skip,
-                T* __restrict__ y, float* __restrict__ states, int len,
-                int dim, int n, int d_blocks) {
+                T* __restrict__ y, float* __restrict__ states,
+                float* __restrict__ h_last, int len, int dim, int n,
+                int d_blocks) {
   constexpr int kS = kN / kGroups;              // states per thread
   constexpr int kThreads = kChannels * kGroups;
   constexpr int kUD = kChunk / kGroups;         // steps a thread stages
@@ -249,6 +253,13 @@ __global__ void __launch_bounds__(kChannels * kGroups,
               __fadd_rn(acc, __fmul_rn(dskip, s_u[tt][ch])));
     }
     __syncthreads();  // s_u, s_dt, s_bc free
+  }
+  // past L every step kept h as it was: h is the state after step L - 1
+  if (h_last != nullptr && live) {
+    float* hp = h_last + ((size_t)row * dim + d) * n;
+#pragma unroll
+    for (int s = 0; s < kS; ++s)
+      if (n0 + s < n) hp[n0 + s] = h[s];
   }
 }
 
@@ -611,7 +622,7 @@ bool shape_ok(int batch, int len, int dim, int n) {
 template <typename T>
 int launch(const void* u, const void* delta, const void* a, const void* b,
            const void* c, const void* skip, void* y, void* states,
-           int batch, int len, int dim, int n, void* stream) {
+           void* h_last, int batch, int len, int dim, int n, void* stream) {
   if (!shape_ok(batch, len, dim, n)) return (int)cudaErrorInvalidValue;
   const int d_blocks = (dim + kChannels - 1) / kChannels;
   if ((long long)batch * d_blocks > 0x7fffffffLL)
@@ -619,8 +630,8 @@ int launch(const void* u, const void* delta, const void* a, const void* b,
   const cudaStream_t s = (cudaStream_t)stream;
 #define SCAN_ARGS                                                       \
   (const T*)u, (const T*)delta, (const float*)a, (const T*)b,          \
-      (const T*)c, (const float*)skip, (T*)y, (float*)states, len, dim, \
-      n, d_blocks
+      (const T*)c, (const float*)skip, (T*)y, (float*)states,         \
+      (float*)h_last, len, dim, n, d_blocks
   const unsigned grid = (unsigned)(batch * d_blocks);
   constexpr int kThreads = kChannels * kGroups;
   if (n <= 8)
@@ -718,23 +729,25 @@ int launch_bwd(const void* u, const void* delta, const void* a,
 // (batch, len, dim) and b, c, db, dc (batch, len, n) of the entry's dtype;
 // a, da (dim, n), skip, dskip (dim,) fp32; states (batch, ceil(len / 32),
 // dim, n) fp32, which the forward writes unless it is null and the
-// backward reads; workspace mamba_scan_bwd_workspace(...) floats.
+// backward reads; h_last (batch, dim, n) fp32, the state after the last
+// step, which the forward writes unless it is null; workspace
+// mamba_scan_bwd_workspace(...) floats.
 extern "C" int mamba_scan_f32(const void* u, const void* delta,
                               const void* a, const void* b, const void* c,
                               const void* skip, void* y, void* states,
-                              int batch, int len, int dim, int n,
-                              void* stream) {
-  return launch<float>(u, delta, a, b, c, skip, y, states, batch, len, dim,
-                       n, stream);
+                              void* h_last, int batch, int len, int dim,
+                              int n, void* stream) {
+  return launch<float>(u, delta, a, b, c, skip, y, states, h_last, batch,
+                       len, dim, n, stream);
 }
 
 extern "C" int mamba_scan_bf16(const void* u, const void* delta,
                                const void* a, const void* b, const void* c,
                                const void* skip, void* y, void* states,
-                               int batch, int len, int dim, int n,
-                               void* stream) {
-  return launch<__nv_bfloat16>(u, delta, a, b, c, skip, y, states, batch,
-                               len, dim, n, stream);
+                               void* h_last, int batch, int len, int dim,
+                               int n, void* stream) {
+  return launch<__nv_bfloat16>(u, delta, a, b, c, skip, y, states, h_last,
+                               batch, len, dim, n, stream);
 }
 
 extern "C" long long mamba_scan_bwd_workspace(int batch, int len, int dim,

@@ -10,6 +10,10 @@ the forward kernel also keeps the state entering every chunk of
 before sweeping it in reverse.  The gradients are the JAX package's
 (``jax.vjp`` of the reference in its custom VJP); there the reference is
 differentiated, here both directions are kernels.
+
+:func:`mamba_scan_with_state` is the serving variant, inference only:
+the same forward kernel also stores the state after the last step, which
+a prefill hands to the recurrent decode.
 """
 from __future__ import annotations
 
@@ -19,13 +23,14 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.mamba_scan.ref import (CHUNK, mamba_scan_bwd_ref,
-                                                mamba_scan_ref)
+                                                mamba_scan_ref,
+                                                mamba_scan_with_state_ref)
 
 _SYMBOLS = {torch.float32: "mamba_scan_f32",
             torch.bfloat16: "mamba_scan_bf16"}
 _BWD_SYMBOLS = {torch.float32: "mamba_scan_bwd_f32",
                 torch.bfloat16: "mamba_scan_bwd_bf16"}
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 4
                  + [ctypes.c_void_p])
 MAX_STATE = 32                # the kernels keep N fp32 states in registers
@@ -86,25 +91,31 @@ def _check_kernel(u, delta, a, b, c, skip) -> None:
                          f"exceeds its grid")
 
 
-def _launch(u, delta, a, b, c, skip, keep_states: bool):
-    """y, and the states entering each chunk (or None)."""
+def _launch(u, delta, a, b, c, skip, keep_states: bool,
+            keep_last: bool = False):
+    """y, the states entering each chunk (or None), and the state after
+    the last step (or None)."""
     bsz, ell, d = u.shape
     n = a.shape[1]
     y = torch.empty_like(u)
     states = (torch.empty(bsz, -(-ell // CHUNK), d, n, device=u.device,
                           dtype=torch.float32) if keep_states else None)
-    if y.numel() == 0:
-        return y, states
+    last = (torch.empty(bsz, d, n, device=u.device, dtype=torch.float32)
+            if keep_last else None)
+    if y.numel() == 0:     # no step: the state is the zeros it started as
+        return y, states, None if last is None else last.zero_()
     rc = _function(_SYMBOLS[u.dtype], _ARGTYPES)(
         u.data_ptr(), delta.data_ptr(), a.data_ptr(), b.data_ptr(),
         c.data_ptr(), skip.data_ptr(), y.data_ptr(),
-        None if states is None else states.data_ptr(), bsz, ell, d, n,
+        None if states is None else states.data_ptr(),
+        None if last is None else last.data_ptr(), bsz, ell, d, n,
         torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"mamba_scan kernel launch failed: CUDA error "
                            f"{rc}")
-    mamba_scan.launches += 1
-    return y, states
+    # the serving variant counts apart from the training scan
+    (mamba_scan_with_state if keep_last else mamba_scan).launches += 1
+    return y, states, last
 
 
 def mamba_scan_bwd(u, delta, a, b, c, skip, g, states):
@@ -154,7 +165,8 @@ class _Scan(torch.autograd.Function):
         if u.device.type == "cpu":
             y, states = mamba_scan_ref(u, delta, a, b, c, skip), None
         else:
-            y, states = _launch(u, delta, a, b, c, skip, keep_states)
+            y, states, _ = _launch(u, delta, a, b, c, skip,
+                                   keep_states)
         ctx.save_for_backward(u, delta, a, b, c, skip, states)
         return y
 
@@ -185,5 +197,26 @@ def mamba_scan(u, delta, a, b, c, skip):
     return _Scan.apply(u, delta, a, b, c, skip, keep)
 
 
+def mamba_scan_with_state(u, delta, a, b, c, skip):
+    """As :func:`mamba_scan`, and the state after the last step: (y
+    (B, L, D) in u's dtype, h_last (B, D, N) fp32), the plain version
+    :func:`mamba_scan_with_state_ref`.  Inference only: inputs that
+    require grad are refused.  ``mamba_scan_with_state.launches`` counts
+    its kernel launches (CPU calls do not count)."""
+    _check(u, delta, a, b, c, skip)
+    if any(t.requires_grad for t in (u, delta, a, b, c, skip)):
+        raise ValueError("mamba_scan_with_state is inference-only: an "
+                         "input requires grad")
+    if u.device.type == "cpu":
+        return mamba_scan_with_state_ref(u, delta, a, b, c, skip)
+    if u.device.type != "cuda":
+        raise ValueError(f"mamba_scan has no kernel for {u.device}")
+    _check_kernel(u, delta, a, b, c, skip)
+    y, _, last = _launch(u, delta, a, b, c, skip, keep_states=False,
+                         keep_last=True)
+    return y, last
+
+
 mamba_scan.launches = 0
 mamba_scan_bwd.launches = 0
+mamba_scan_with_state.launches = 0

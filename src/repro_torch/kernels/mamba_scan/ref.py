@@ -23,6 +23,13 @@ def mamba_scan_ref(u, delta, a, b, c, skip, h0=None):
         h_t = exp(delta_t * a) * h_{t-1} + (delta_t * u_t) * b_t
         y_t = <c_t, h_t> + skip * u_t
     """
+    return mamba_scan_with_state_ref(u, delta, a, b, c, skip, h0)[0]
+
+
+def mamba_scan_with_state_ref(u, delta, a, b, c, skip, h0=None):
+    """:func:`mamba_scan_ref`'s y and the state after the last step,
+    (B, D, N) fp32: the JAX package's ``_scan_with_state`` (the SSM
+    prefill's scan), op for op."""
     bsz, _, d = u.shape
     n = a.shape[1]
     uf, df, af, bf, cf = (t.float() for t in (u, delta, a, b, c))
@@ -37,8 +44,8 @@ def mamba_scan_ref(u, delta, a, b, c, skip, h0=None):
         h = decay * h + (dt_t * u_t)[..., None] * b_t[:, None, :]
         ys.append(torch.einsum("bdn,bn->bd", h, c_t) + skip[None] * u_t)
     if not ys:
-        return u.new_empty(bsz, 0, d)
-    return torch.stack(ys, dim=1).to(u.dtype)
+        return u.new_empty(bsz, 0, d), h
+    return torch.stack(ys, dim=1).to(u.dtype), h
 
 
 def scan_states_ref(u, delta, a, b, chunk: int = CHUNK):

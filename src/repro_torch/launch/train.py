@@ -6,7 +6,10 @@ per-host Pareto step-time telemetry for ``--n-hosts`` hosts -> E_S ->
 backup-shard/evict actions logged each step, the tail fit on
 ``--device``).
 
-Usage:
+Usage (every ported arch trains: demo-100m, the default, and yi-6b
+dense, qwen3-moe-30b-a3b MoE, falcon-mamba-7b SSM):
+  PYTHONPATH=src python -m repro_torch.launch.train --reduced --steps 30 \\
+      --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch falcon-mamba-7b --reduced --steps 30 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train \\

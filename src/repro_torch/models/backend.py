@@ -11,11 +11,14 @@ from repro_torch.kernels.decode_attention import (decode_attention as
 from repro_torch.kernels.flash_attention import (flash_attention as
                                                  _flash_kernel)
 from repro_torch.kernels.mamba_scan import mamba_scan as _scan_kernel
+from repro_torch.kernels.mamba_scan import (mamba_scan_with_state as
+                                            _scan_state_kernel)
 from repro_torch.kernels.moe_router import moe_router as _router_kernel
 
 
 def attention(q, k, v, *, causal: bool = True):
-    """q (B, H, Sq, D); k, v (B, Hkv, Sk, D) -> (B, H, Sq, D)."""
+    """q (B, H, Sq, D); k, v (B, Hkv, Sk, D) -> (B, H, Sq, D),
+    differentiable (the backward is the plain version's)."""
     return _flash_kernel(q, k, v, causal)
 
 
@@ -31,6 +34,13 @@ def mamba_scan(u, delta, a, b, c, skip):
     return _scan_kernel(u, delta, a, b, c, skip)
 
 
+def mamba_scan_with_state(u, delta, a, b, c, skip):
+    """As :func:`mamba_scan`, inference only -> (y (B, L, D), the state
+    after the last step (B, D, N) fp32)."""
+    return _scan_state_kernel(u, delta, a, b, c, skip)
+
+
 def moe_router(logits, k: int):
-    """logits (T, E) -> (weights (T, k) fp32, indices (T, k) int32)."""
+    """logits (T, E) -> (weights (T, k) fp32, indices (T, k) int32),
+    differentiable in the weights (the indices take no gradient)."""
     return _router_kernel(logits, k)

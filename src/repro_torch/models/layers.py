@@ -3,10 +3,11 @@ GQA attention, in the JAX package's functional form (``*_init`` builds
 param dicts, ``*_apply`` consumes them) and with its casts: norms and
 RoPE compute in fp32 and cast back to the activation dtype.
 
-Attention has three entry points: full causal (``attn_apply``),
-prefill (causal, returns the KV cache) and decode (one token against a
-cache, written in place).  The score and P @ V products are the kernels'
-(``backend``); the projections and the MLP are plain ``torch.matmul``.
+Attention has three entry points: full causal (``attn_apply``, the
+training path, differentiable), prefill (causal, returns the KV cache)
+and decode (one token against a cache, written in place).  The score and
+P @ V products are the kernels' (``backend``); the projections and the
+MLP are plain ``torch.matmul``.
 """
 from __future__ import annotations
 
@@ -103,22 +104,29 @@ def _heads_first(x):
     return x.transpose(1, 2).contiguous()
 
 
-def attn_apply(p: dict, cfg: ModelConfig, x, cos, sin, *,
-               causal: bool = True):
-    """Full-sequence attention."""
-    return attn_prefill(p, cfg, x, cos, sin, causal=causal)[0]
-
-
-def attn_prefill(p: dict, cfg: ModelConfig, x, cos, sin, *,
-                 causal: bool = True):
-    """Causal attention returning the (B, Hkv, S, hd) KV cache."""
+def _attend(p, cfg: ModelConfig, x, cos, sin, causal: bool):
+    """Full-sequence GQA attention: (out (B, S, d), k and v (B, Hkv, S,
+    hd))."""
     b, s, _ = x.shape
     q, k, v = _qkv(p, cfg, x)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     kc, vc = _heads_first(k), _heads_first(v)
     o = backend.attention(_heads_first(q), kc, vc, causal=causal)
-    out = o.transpose(1, 2).reshape(b, s, -1) @ p["wo"]
+    return o.transpose(1, 2).reshape(b, s, -1) @ p["wo"], kc, vc
+
+
+def attn_apply(p: dict, cfg: ModelConfig, x, cos, sin, *,
+               causal: bool = True):
+    """Full-sequence attention, the training path: differentiable
+    (``flash_attention``'s autograd Function), no cache returned."""
+    return _attend(p, cfg, x, cos, sin, causal)[0]
+
+
+def attn_prefill(p: dict, cfg: ModelConfig, x, cos, sin, *,
+                 causal: bool = True):
+    """Causal attention returning the (B, Hkv, S, hd) KV cache."""
+    out, kc, vc = _attend(p, cfg, x, cos, sin, causal)
     return out, {"k": kc, "v": vc}
 
 

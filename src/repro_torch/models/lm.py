@@ -12,9 +12,10 @@ Three execution modes share the layer code: ``loss_fn`` (training: the
 causal LM loss, each layer and the head under activation checkpointing
 as JAX's ``jax.checkpoint``), ``prefill`` (returns the layer-stacked
 caches) and ``decode_step`` (one token against them, written in place).
-The port trains the ``ssm`` family and serves ``dense`` and ``moe``;
-the other pairs raise ``NotImplementedError`` naming their ROADMAP.md
-item.
+Every family both trains and serves: attention trains through
+``flash_attention``'s autograd Function, the MoE router through
+``moe_router``'s, and the SSM scan through the scan's forward and
+backward kernels; its serving caches are the recurrent state.
 """
 from __future__ import annotations
 
@@ -29,18 +30,6 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba as Mb
 from repro_torch.models import moe as Moe
 from repro_torch.models.config import ModelConfig
-
-# where the unported (family, mode) pairs wait (ROADMAP.md, Queue 1)
-_SSM_SERVING = ("SSM serving (mamba_prefill/mamba_decode and the "
-                "engine's recurrent caches) is not ported yet: ROADMAP.md "
-                "Queue 1 item 2.1")
-_TRAINING = {
-    "dense": "training the dense family is not ported yet: ROADMAP.md "
-             "Queue 1 item 2.2 (an autograd Function for flash_attention)",
-    "moe": "training the moe family is not ported yet: ROADMAP.md Queue 1 "
-           "item 2.3 (the capacity dispatch and aux_load_balance_loss)",
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class Group:
@@ -185,6 +174,9 @@ class Model:
     def _attn_sublayer(self, p, x, cos, sin, mode, cache, pos, causal):
         cfg = self.cfg
         h = L.rms_norm(p["ln1"], x, cfg.norm_eps)
+        if mode == "train":
+            return x + L.attn_apply(p["attn"], cfg, h, cos, sin,
+                                    causal=causal), None
         if mode == "prefill":
             o, c = L.attn_prefill(p["attn"], cfg, h, cos, sin,
                                   causal=causal)
@@ -192,50 +184,67 @@ class Model:
         o, c = L.attn_decode(p["attn"], cfg, h, cache, pos, cos, sin)
         return x + o, c
 
-    def _ff_sublayer(self, p, x):
+    def _ff_sublayer(self, p, x, mode="train"):
         """Routed experts or the dense MLP: JAX adds whichever the layer
-        has to zeros (exact), and no config gives a layer both."""
+        has to zeros (exact), and no config gives a layer both.  Training
+        routes with the capacity factor's drops, serving dropless
+        (JAX's ``_routed``)."""
         cfg = self.cfg
         h = L.rms_norm(p["ln2"], x, cfg.norm_eps)
         if "moe" in p:
-            return x + Moe.moe_apply(p["moe"], cfg, h)
+            return x + Moe.moe_apply(p["moe"], cfg, h,
+                                     inference=mode != "train")
         return x + L.mlp_apply(p["mlp"], h)
 
     def _std_layer(self, p, x, cos, sin, mode, cache, pos, causal):
         x, c = self._attn_sublayer(p, x, cos, sin, mode, cache, pos, causal)
-        return self._ff_sublayer(p, x), c
+        return self._ff_sublayer(p, x, mode), c
 
-    def _ssm_layer(self, p, x):
-        """The training mode of JAX's ``_ssm_layer``."""
-        h = L.rms_norm(p["ln1"], x, self.cfg.norm_eps)
-        return x + Mb.mamba_apply(p["mamba"], self.cfg, h)
+    def _ssm_layer(self, p, x, mode, cache):
+        cfg = self.cfg
+        h = L.rms_norm(p["ln1"], x, cfg.norm_eps)
+        if mode == "train":
+            return x + Mb.mamba_apply(p["mamba"], cfg, h), None
+        if mode == "prefill":
+            o, c = Mb.mamba_prefill(p["mamba"], cfg, h)
+            return x + o, c
+        o, c = Mb.mamba_decode(p["mamba"], cfg, h, cache)
+        return x + o, c
 
     # ----------------------------- group loop ------------------------------
+
+    def _layer_fn(self, g: Group, cos, sin, mode, pos):
+        """Group g's layer body as (params, x, cache) -> (x, cache)."""
+        if g.kind == "ssm":
+            return lambda p, x, c: self._ssm_layer(p, x, mode, c)
+        return lambda p, x, c: self._std_layer(p, x, cos, sin, mode, c, pos,
+                                               g.causal)
 
     def _run_group(self, gi: int, g: Group, params, x, cos, sin, mode,
                    caches=None, pos=None):
         """Run group gi's layers in order.  Prefill returns the caches
-        stacked over layers, {"k", "v"}: (L, B, Hkv, S, hd); decode writes
-        into ``caches`` in place and returns it."""
+        stacked over layers ({"k", "v"}: (L, B, Hkv, S, hd) for attention,
+        {"h": (L, B, Di, N) fp32, "conv": (L, B, K-1, Di)} for SSM
+        layers); decode writes into ``caches`` in place and returns it."""
         p_stack = params[f"g{gi}"]
+        body = self._layer_fn(g, cos, sin, mode, pos)
         if mode == "train":
             # remat per layer, as JAX's scan over jax.checkpoint: only the
             # layer inputs live across the backward
+            def run(p_layer, x):
+                return body(p_layer, x, None)[0]
+
             for p_layer in _unstacked(p_stack, g.n):
-                x = checkpoint(self._ssm_layer, p_layer, x,
-                               use_reentrant=False)
+                x = checkpoint(run, p_layer, x, use_reentrant=False)
             return x, None
         if mode == "prefill":
-            ks, vs = [], []
+            cs = []
             for i in range(g.n):
-                x, c = self._std_layer(layer(p_stack, i), x, cos, sin,
-                                       mode, None, None, g.causal)
-                ks.append(c["k"])
-                vs.append(c["v"])
-            return x, {"k": torch.stack(ks), "v": torch.stack(vs)}
+                x, c = body(layer(p_stack, i), x, None)
+                cs.append(c)
+            return x, {k: torch.stack([c[k] for c in cs]) for k in cs[0]}
         for i in range(g.n):
-            x, _ = self._std_layer(layer(p_stack, i), x, cos, sin, mode,
-                                   layer(caches, i), pos, g.causal)
+            x, _ = body(layer(p_stack, i), x, layer(caches, i))
         return x, caches
 
     # ------------------------------- embed ---------------------------------
@@ -259,25 +268,19 @@ class Model:
         under ``checkpoint`` (recomputed in the backward, as JAX's
         ``jax.checkpoint``), so the (tokens, vocab) fp32 logits do not
         live across the backward."""
-        for g in self.groups:
-            if g.kind != "ssm":
-                raise NotImplementedError(_TRAINING[g.kind])
         cfg = self.cfg
         x = self._embed(params, batch)
+        cos, sin = L.rope_table(x.shape[1], self._rope_dim(),
+                                cfg.rope_theta, x.device)
         for gi, g in enumerate(self.groups):
-            x, _ = self._run_group(gi, g, params, x, None, None, "train")
+            x, _ = self._run_group(gi, g, params, x, cos, sin, "train")
         x = L.rms_norm(params["ln_f"], x, cfg.norm_eps)
         return checkpoint(_head_loss, params["head"], x, batch["labels"],
                           use_reentrant=False)
 
-    def _serving(self) -> None:
-        if any(g.kind == "ssm" for g in self.groups):
-            raise NotImplementedError(_SSM_SERVING)
-
     def prefill(self, params, batch):
         """batch["tokens"]: (B, S) int.  Returns (last-token logits
         (B, 1, V) fp32, caches list per group)."""
-        self._serving()
         cfg = self.cfg
         x = self._embed(params, batch)
         s = x.shape[1]
@@ -294,7 +297,6 @@ class Model:
         """tokens: (B, 1) int; pos: host int, the current position.
         Returns (logits (B, 1, V) fp32, caches), the caches updated in
         place."""
-        self._serving()
         cfg = self.cfg
         x = params["embed"][tokens].to(cfg.dtype)
         cos_t, sin_t = self._rope_at(pos, x.device)

@@ -1,4 +1,6 @@
-"""Mamba-1 block (falcon-mamba), the full-sequence (training) path.
+"""Mamba-1 block (falcon-mamba): the full-sequence (training) path, and
+the serving pair, a prefill that also returns the recurrent state and a
+one-token decode step against it.
 
 in_proj -> (x, z); causal depthwise conv1d + silu on x; data-dependent
 (delta, B, C) from x_proj; the selective scan (``backend.mamba_scan``:
@@ -10,8 +12,9 @@ in fp32, TF32 would round elsewhere), silu is ``layers.silu``, softplus
 is ``logaddexp(x, 0)`` on fp32, and delta goes back to the activation
 dtype before the scan.
 
-The recurrent serving path (``mamba_prefill``/``mamba_decode``) is not
-ported yet: ROADMAP.md Queue 1 item 2.1 (SSM serving).
+The prefill's scan is ``backend.mamba_scan_with_state`` (the same kernel,
+also storing the final (B, D, N) state); the decode step is plain ops,
+as in JAX, where no kernel runs it either.
 """
 from __future__ import annotations
 
@@ -79,3 +82,48 @@ def mamba_apply(p: dict, cfg: ModelConfig, x):
     a = -torch.exp(p["a_log"])
     y = backend.mamba_scan(xc, delta, a, bmat, cmat, p["skip"])
     return (y * silu(z)) @ p["out_proj"]
+
+
+def mamba_prefill(p: dict, cfg: ModelConfig, x):
+    """Full-sequence pass that also returns the recurrent decode state.
+    x: (B, L, d) -> (out (B, L, d), {"h": (B, Di, N) fp32, "conv":
+    (B, K-1, Di) the last K-1 conv inputs, left-padded with zeros when
+    L < K-1})."""
+    di, k = cfg.d_inner, cfg.ssm_conv
+    ell = x.shape[1]
+    xz = x @ p["in_proj"]
+    xin, z = xz[..., :di], xz[..., di:]
+    xc = silu(_conv1d_causal(xin, p["conv_w"], p["conv_b"]))
+    delta, bmat, cmat = _ssm_inputs(p, cfg, xc)
+    a = -torch.exp(p["a_log"])
+    y, hf = backend.mamba_scan_with_state(xc, delta, a, bmat, cmat,
+                                          p["skip"])
+    out = (y * silu(z)) @ p["out_proj"]
+    conv_state = (xin[:, ell - (k - 1):, :] if ell >= k - 1
+                  else F.pad(xin, (0, 0, k - 1 - ell, 0)))
+    return out, {"h": hf, "conv": conv_state.contiguous()}
+
+
+def mamba_decode(p: dict, cfg: ModelConfig, x, state: dict):
+    """Single-token recurrent step. x: (B, 1, d); state {"h": (B, Di, N)
+    fp32, "conv": (B, K-1, Di)}, written in place (the JAX package
+    returns the new state; the values are the same).  Returns (out
+    (B, 1, d), state)."""
+    di = cfg.d_inner
+    xz = x @ p["in_proj"]
+    xin, z = xz[..., :di], xz[..., di:]                    # (B, 1, Di)
+    window = torch.cat([state["conv"], xin], dim=1)        # (B, K, Di)
+    xc = torch.einsum("bkd,kd->bd", window, p["conv_w"]) + p["conv_b"]
+    xc = silu(xc)[:, None, :]                              # (B, 1, Di)
+    delta, bmat, cmat = _ssm_inputs(p, cfg, xc)
+    a = -torch.exp(p["a_log"])
+    dt = delta[:, 0].float()                               # (B, Di)
+    decay = torch.exp(dt[..., None] * a[None])
+    h = decay * state["h"] + (dt * xc[:, 0])[..., None] \
+        * bmat[:, 0].float()[:, None, :]
+    y = torch.einsum("bdn,bn->bd", h, cmat[:, 0].float()) \
+        + p["skip"] * xc[:, 0]
+    out = (y[:, None].to(x.dtype) * silu(z)) @ p["out_proj"]
+    state["h"].copy_(h)
+    state["conv"].copy_(window[:, 1:])
+    return out, state

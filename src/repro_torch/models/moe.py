@@ -17,9 +17,14 @@ activation dtype after each add, so bf16 rounds where JAX's does.
 (``index_add_`` on the card adds with atomics, in an order that changes
 from run to run.)
 
-Not ported: expert parallelism (JAX's ``shard_map``/``psum`` branch),
-shared experts and ``aux_load_balance_loss`` raise, naming their
-``ROADMAP.md`` item.
+Training (``inference=False``, JAX's default) keeps each expert's first
+``_capacity(T, E, k, capacity_factor)`` copies and drops the rest; the
+combine weights are differentiable through the router's autograd
+Function, and the dropped copies add zero.  Serving passes
+``inference=True`` (dropless up to 1024 tokens).
+
+Not ported: expert parallelism (JAX's ``shard_map``/``psum`` branch) and
+shared experts raise, naming their ``ROADMAP.md`` item.
 """
 from __future__ import annotations
 
@@ -67,16 +72,19 @@ def grouped_ffn(x, idx, w, wg, wu, wd, capacity: int):
     counts = torch.bincount(flat_e, minlength=wg.shape[0]).tolist()
     tok = order // k
     xs = x[tok]                          # the copies, sorted by expert
-    pieces, start = [], 0
-    for e, n in enumerate(counts):
+    pieces = []
+    # split and unbind, not an index per expert: an index's backward
+    # would fill and add a gradient the size of all the copies (or of a
+    # whole expert stack) for every expert
+    for xe, n, g, u, dn in zip(xs.split(counts), counts, wg.unbind(0),
+                               wu.unbind(0), wd.unbind(0)):
         if n == 0:
             continue
         kept = min(n, capacity)
-        xe = xs[start:start + kept]
-        pieces.append((silu(xe @ wg[e]) * (xe @ wu[e])) @ wd[e])
+        xe = xe[:kept]
+        pieces.append((silu(xe @ g) * (xe @ u)) @ dn)
         if kept < n:                     # dropped copies add zero
             pieces.append(xs.new_zeros(n - kept, d))
-        start += n
     y = torch.cat(pieces) * w.reshape(-1)[order][:, None]
     # regroup by token (stable: each token's copies stay in expert order)
     _, by_tok = torch.sort(tok, stable=True)
@@ -97,11 +105,12 @@ def _capacity(tokens: int, n_experts: int, top_k: int, cf: float) -> int:
     return max(8, -(-c // 8) * 8)  # round up to 8 for tiling
 
 
-def moe_apply(p: dict, cfg: ModelConfig, x, ep=None):
-    """x (B, S, d) -> (B, S, d), the JAX package's inference dispatch
-    (``inference=True``; the port serves, it does not train): capacity =
-    T rounded up to 8, dropless, capped at twice the capacity factor's
-    for T > 1024."""
+def moe_apply(p: dict, cfg: ModelConfig, x, ep=None,
+              inference: bool = False):
+    """x (B, S, d) -> (B, S, d), the JAX package's dispatch.  Training
+    (the default): capacity = ``_capacity(T, E, k, capacity_factor)``,
+    over-capacity copies dropped.  ``inference``: capacity = T rounded up
+    to 8, dropless, capped at twice the capacity factor's for T > 1024."""
     if ep is not None:
         raise NotImplementedError(f"expert parallelism is not ported yet: "
                                   f"{_LATER}")
@@ -113,15 +122,25 @@ def moe_apply(p: dict, cfg: ModelConfig, x, ep=None):
     w, idx = _route(p["router"], xt, cfg.top_k)
     w = w.to(x.dtype)
     t = b * s
-    cap = max(8, -(-t // 8) * 8)
-    if t > 1024:
-        cap = min(cap, _capacity(t, cfg.n_experts, cfg.top_k,
-                                 2.0 * cfg.capacity_factor))
+    if inference:
+        cap = max(8, -(-t // 8) * 8)
+        if t > 1024:
+            cap = min(cap, _capacity(t, cfg.n_experts, cfg.top_k,
+                                     2.0 * cfg.capacity_factor))
+    else:
+        cap = _capacity(t, cfg.n_experts, cfg.top_k, cfg.capacity_factor)
     y = grouped_ffn(xt, idx, w, p["wg"], p["wu"], p["wd"], cap)
     return y.reshape(b, s, d)
 
 
 def aux_load_balance_loss(p: dict, cfg: ModelConfig, x):
-    raise NotImplementedError("the load-balance loss (training) is not "
-                              "ported yet: ROADMAP.md Queue 1 item 2.3 "
-                              "(MoE training)")
+    """Switch-style load-balance auxiliary loss (E * sum over experts of
+    the fraction of routed copies times the mean probability), the JAX
+    package's, which no loss of either package adds."""
+    b, s, d = x.shape
+    logits = x.reshape(b * s, d).float() @ p["router"]
+    probs = torch.softmax(logits, dim=-1)
+    _, idx = backend.moe_router(logits.detach(), cfg.top_k)
+    frac = torch.bincount(idx.reshape(-1).long(),
+                          minlength=cfg.n_experts).float() / idx.numel()
+    return cfg.n_experts * (frac * probs.mean(0)).sum()

@@ -2,12 +2,14 @@
 straggler re-dispatch, in PyTorch.
 
 The engine runs a fixed set of slots.  Requests queue in; a free slot
-prefills its request (one ``flash_attention`` launch per layer on the
-card), pads the caches to ``max_len`` once, and joins the decode loop,
-which decodes every active slot one token per step (one
-``decode_attention`` call per layer, writing the cache in place at the
-slot's position).  START integration: per-slot decode latency telemetry
-feeds the port's ``STARTController``; slots whose replica is a predicted
+prefills its request (one ``flash_attention`` launch per attention layer
+on the card, one ``mamba_scan_with_state`` per SSM layer), pads the
+caches to ``max_len`` once, and joins the decode loop, which decodes
+every active slot one token per step (one ``decode_attention`` call per
+attention layer, writing the cache in place at the slot's position; an
+SSM layer steps its recurrent state in place).  START integration:
+per-slot decode latency telemetry feeds the port's
+``STARTController``; slots whose replica is a predicted
 straggler are speculatively re-dispatched to the healthiest replica —
 the serving analogue of Algorithm 1's SPECULATION branch.
 """

@@ -1,7 +1,8 @@
 """KV-cache utilities for the serving engine.
 
 Caches are the model-defined pytrees (per layer group, stacked over
-layers: k and v are (L, B, Hkv, S, hd)).  This module allocates them at a
+layers: k and v are (L, B, Hkv, S, hd); an SSM group's h and conv are
+(L, B, Di, N) and (L, B, K-1, Di)).  This module allocates them at a
 fixed max length, which decode then writes in place at each position,
 and keeps the slot bookkeeping for continuous batching: each batch row is
 a slot that can be re-assigned to a new request when its sequence
@@ -38,7 +39,8 @@ def alloc_like(cache_specs, batch: int | None = None):
 def pad_to_length(caches, target_len: int):
     """Every attention cache's seq axis right-padded with zeros to
     ``target_len``: one allocation of the full length per cache, with the
-    prefill's keys and values copied in."""
+    prefill's keys and values copied in.  An SSM layer's recurrent state
+    (``h``, ``conv``) has no seq axis and passes as it is."""
 
     def walk(node):
         if not isinstance(node, dict):

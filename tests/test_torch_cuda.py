@@ -1,8 +1,11 @@
 """On-card tests of the port: the CUDA kernels against their plain
-versions, the decision step's launches, START's training through the
-cell's kernel and a START simulation on the card against the CPU,
-reduced LMs (dense and MoE) served on the card against the same model on
-the CPU, a reduced SSM trained on the card against the CPU, IGRU-SD's
+versions (the flash and router autograd Functions' gradients and the
+scan's serving variant too), the decision step's launches, START's
+training through the cell's kernel and a START simulation on the card
+against the CPU,
+reduced LMs (dense, MoE and SSM) served on the card against the same
+model on the CPU, reduced LMs of each family trained on the card against
+the CPU, IGRU-SD's
 GRU on the card against the CPU, a 2-worker sweep on the card
 against the serial run, the prediction service on the card against its
 CPU twin and over TCP, the trainer's checkpoint drill, and the pod
@@ -37,7 +40,10 @@ from repro_torch.kernels.flash_attention import (attention_ref,
 from repro_torch.kernels.lstm_cell import lstm_cell, lstm_cell_ref
 from repro_torch.kernels.mamba_scan import (mamba_scan, mamba_scan_bwd,
                                             mamba_scan_bwd_ref,
-                                            mamba_scan_ref, scan_states_ref)
+                                            mamba_scan_ref,
+                                            mamba_scan_with_state,
+                                            mamba_scan_with_state_ref,
+                                            scan_states_ref)
 from repro_torch.kernels.mamba_scan import ops as scan_ops
 from repro_torch.kernels.moe_router import moe_router, moe_router_ref
 from repro_torch.launch import train as train_entry
@@ -439,7 +445,62 @@ def test_moe_router_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     assert moe_router.launches == before
 
 
-@pytest.mark.parametrize("arch", ["yi-6b", "qwen3-moe-30b-a3b"])
+@pytest.mark.parametrize("b,h,hkv,s,d,causal", [
+    (1, 4, 4, 128, 64, True), (2, 8, 2, 100, 128, True),
+    (1, 4, 2, 77, 32, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_gradients_through_the_function(cuda, b, h, hkv, s,
+                                                        d, causal, dtype):
+    """Through the Function: the kernel forward once, no launch in the
+    backward (the VJP of the plain version, recomputed), the gradients
+    in the inputs' dtypes and equal to autograd through the plain
+    version within 1e-6 relative in norm."""
+    q, k, v = _qkv(((b, h, s, d), (b, hkv, s, d), (b, hkv, s, d)), dtype,
+                   s + d, cuda)
+    g = torch.randn(b, h, s, d, generator=torch.Generator().manual_seed(s)
+                    ).to(cuda, dtype)
+    xs = [t.clone().requires_grad_() for t in (q, k, v)]
+    ys = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = flash_attention.launches
+    out = flash_attention(*xs, causal)
+    torch.cuda.synchronize()
+    launched = flash_attention.launches - before
+    got = torch.autograd.grad(out, xs, g)
+    torch.cuda.synchronize()
+    assert launched >= 1 and flash_attention.launches - before == launched
+    want = torch.autograd.grad(attention_ref(*ys, causal=causal), ys, g)
+    for x, gt, w in zip(xs, got, want):
+        assert gt.dtype == x.dtype and torch.isfinite(gt.float()).all()
+        assert (gt.double() - w.double()).norm() <= 1e-6 * w.double().norm()
+
+
+@pytest.mark.parametrize("t,e,k", [(3000, 128, 8), (300, 256, 8),
+                                   (64, 16, 2)])
+def test_moe_router_gradient_through_the_function(cuda, t, e, k):
+    """The kernel forward once; the logits' gradient (at its indices)
+    against autograd through the plain version, 1e-5 relative in norm,
+    tie rows included."""
+    logits = torch.randn(t, e, generator=torch.Generator().manual_seed(t))
+    logits[: 3] = torch.tensor([0.0, 1.0, 2.0]).repeat(e)[:e] \
+        .reshape(1, e).expand(3, e)
+    logits = logits.to(cuda)
+    gw = torch.randn(t, k, generator=torch.Generator().manual_seed(k)
+                     ).to(cuda)
+    x, y = (logits.clone().requires_grad_() for _ in range(2))
+    before = moe_router.launches
+    w, idx = moe_router(x, k)
+    (got,) = torch.autograd.grad(w, x, gw)
+    torch.cuda.synchronize()
+    assert moe_router.launches == before + 1
+    wr, ir = moe_router_ref(y, k)
+    (want,) = torch.autograd.grad(wr, y, gw)
+    assert torch.equal(idx, ir)
+    assert (got.double() - want.double()).norm() <= \
+        1e-5 * want.double().norm()
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "qwen3-moe-30b-a3b",
+                                  "falcon-mamba-7b"])
 def test_reduced_engine_on_the_card_matches_the_cpu(cuda, arch):
     cfg = dataclasses.replace(get_reduced(arch), param_dtype="float32")
     params = Model(cfg).init(0, "cpu")
@@ -454,19 +515,24 @@ def test_reduced_engine_on_the_card_matches_the_cpu(cuda, arch):
                                                              5 + 7 * i),
                                max_new=6))
         f0, d0 = flash_attention.launches, decode_attention.launches
-        r0 = moe_router.launches
+        r0, s0 = moe_router.launches, mamba_scan_with_state.launches
         streams.append({r.req_id: r.out for r in eng.run()})
         launches.append((flash_attention.launches - f0,
                          decode_attention.launches - d0,
-                         moe_router.launches - r0))
+                         moe_router.launches - r0,
+                         mamba_scan_with_state.launches - s0))
     assert streams[0] == streams[1]
-    assert launches[0] == (0, 0, 0)
-    # one flash launch per layer per prefill, one decode launch per layer
-    # per decoded token (5 of the 6 tokens of each request), one router
-    # launch per MoE layer per prefill and per decoded token
+    assert launches[0] == (0, 0, 0, 0)
+    # one flash launch per attention layer per prefill, one decode launch
+    # per attention layer per decoded token (5 of the 6 tokens of each
+    # request), one router launch per MoE layer per prefill and per
+    # decoded token, one scan launch per SSM layer per prefill (the SSM
+    # decode is plain ops)
+    n_attn = sum(cfg.is_attention_layer(i) for i in range(cfg.n_layers))
     n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
-    assert launches[1] == (4 * cfg.n_layers, 4 * 5 * cfg.n_layers,
-                           4 * 6 * n_moe)
+    n_ssm = cfg.n_layers - n_attn
+    assert launches[1] == (4 * n_attn, 4 * 5 * n_attn, 4 * 6 * n_moe,
+                           4 * n_ssm)
 
 
 def _scan_inputs(b, l, d, n, dtype, device, seed):
@@ -510,6 +576,34 @@ def test_mamba_scan_kernel_matches_plain_version(cuda, b, l, d, n, dtype,
     assert got.dtype == dtype and got.shape == (b, l, d)
     torch.testing.assert_close(got.float(), mamba_scan_ref(*args).float(),
                                rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("b,l,d,n", SCAN_SHAPES)
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 1e-5, 1e-5),
+                                             (torch.bfloat16, 1e-2, 1e-3)])
+def test_mamba_scan_with_state_kernel_matches_plain_version(cuda, b, l, d,
+                                                            n, dtype, rtol,
+                                                            atol):
+    """The serving variant: y as ``mamba_scan``'s, the final state bit
+    for bit in fp32 (the states step as the plain version's) and within
+    1e-4 in bf16 (ex2.approx), one launch."""
+    args = _scan_inputs(b, l, d, n, dtype, cuda, seed=b * l + d + 1)
+    before = mamba_scan_with_state.launches, mamba_scan.launches
+    y, h = mamba_scan_with_state(*args)
+    torch.cuda.synchronize()
+    assert (mamba_scan_with_state.launches, mamba_scan.launches) == (
+        before[0] + 1, before[1])
+    want_y, want_h = mamba_scan_with_state_ref(*args)
+    assert h.dtype == torch.float32 and h.shape == (b, d, n)
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=rtol,
+                               atol=atol)
+    if dtype == torch.float32:
+        assert torch.equal(h, want_h)
+    else:
+        torch.testing.assert_close(h, want_h, rtol=1e-4, atol=1e-4)
+    assert torch.equal(y, mamba_scan(*args))
+    with pytest.raises(ValueError, match="inference-only"):
+        mamba_scan_with_state(args[0].clone().requires_grad_(), *args[1:])
 
 
 # Gradients of the backward kernel against a plain version, per input,
@@ -565,7 +659,7 @@ def test_mamba_scan_backward_kernel_matches_plain_versions(cuda, b, l, d, n,
     args = _scan_inputs(b, l, d, n, dtype, cuda, seed=b + l + d)
     g = torch.randn(b, l, d, generator=torch.Generator().manual_seed(2)
                     ).to(cuda, dtype)
-    _, states = scan_ops._launch(*args, keep_states=True)
+    _, states, _ = scan_ops._launch(*args, keep_states=True)
     want_states = scan_states_ref(*args[:4])
     if dtype == torch.float32:
         assert torch.equal(states, want_states)
@@ -594,7 +688,7 @@ def test_mamba_scan_backward_takes_unaligned_inputs(cuda, dtype):
     args = _scan_inputs(2, 70, 256, 16, dtype, cuda, seed=5)
     g = torch.randn(2, 70, 256, generator=torch.Generator().manual_seed(5)
                     ).to(cuda, dtype)
-    _, states = scan_ops._launch(*args, keep_states=True)
+    _, states, _ = scan_ops._launch(*args, keep_states=True)
 
     def shifted(t):
         return torch.cat([t.new_zeros(1), t.reshape(-1)])[1:].view(t.shape)
@@ -616,7 +710,7 @@ def test_mamba_scan_takes_batches_past_the_grid_limit(cuda, dtype):
     args = _scan_inputs(70000, 3, 5, 4, dtype, cuda, seed=3)
     g = torch.randn(70000, 3, 5, generator=torch.Generator().manual_seed(3)
                     ).to(cuda, dtype)
-    y, states = scan_ops._launch(*args, keep_states=True)
+    y, states, _ = scan_ops._launch(*args, keep_states=True)
     tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
            else dict(rtol=1e-2, atol=1e-3))
     torch.testing.assert_close(y.float(), mamba_scan_ref(*args).float(),
@@ -689,6 +783,49 @@ def test_reduced_ssm_training_on_the_card_matches_the_cpu(cuda):
     per_step = 2 * cfg.n_layers * 3
     assert launches == [(0, 0), (per_step, per_step)]
     np.testing.assert_allclose(losses[1], losses[0], rtol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "qwen3-moe-30b-a3b"])
+def test_reduced_attention_training_on_the_card_matches_the_cpu(cuda, arch):
+    """Three AdamW steps of the reduced dense and MoE models in fp32 on
+    the card and on the CPU from the same params: each layer's forward
+    launches flash_attention (and the MoE router) twice per step (the
+    forward, and its recompute in the backward) and nothing in the
+    backward; a repeated step on the card is bit-equal."""
+    cfg = dataclasses.replace(get_reduced(arch), param_dtype="float32")
+    params = Model(cfg).init(0, "cpu")
+    losses, launches, finals = [], [], []
+    for dev in ("cpu", cuda):
+        tr = Trainer(Model(cfg), mesh=None, device=dev)
+        p = convert.tree_map(lambda t: t.to(dev, copy=True), params)
+        state = Opt.init(tr.opt_cfg, p)
+        data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                      global_batch=4), device=dev)
+        step = tr.compile_step()
+        before = flash_attention.launches, moe_router.launches
+        out = []
+        for i in range(3):
+            p, state, m = step(p, state, data.batch(i))
+            out.append(float(m["loss"]))
+        launches.append((flash_attention.launches - before[0],
+                         moe_router.launches - before[1]))
+        losses.append(out)
+        finals.append(p)
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    assert launches == [(0, 0), (2 * cfg.n_layers * 3, 2 * n_moe * 3)]
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-5)
+    # the same step again from the same start: bit for bit
+    tr = Trainer(Model(cfg), mesh=None, device=cuda)
+    again = []
+    for _ in range(2):
+        p = convert.tree_map(lambda t: t.to(cuda, copy=True), params)
+        p, _, m = tr.compile_step()(p, Opt.init(tr.opt_cfg, p), SyntheticLM(
+            DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4),
+            device=cuda).batch(0))
+        again.append((float(m["loss"]), p))
+    assert again[0][0] == again[1][0] == losses[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(
+        convert.leaves(again[0][1]), convert.leaves(again[1][1])))
 
 
 def _gru_inputs(seed: int = 0):

@@ -1,7 +1,7 @@
 """The port's LM (configs, layers, ``Model.prefill`` and ``decode_step``)
-against the JAX package's, on the CPU, at the reduced configs of every
-arch the port serves (yi-6b, demo-100m, qwen3-moe-30b-a3b; the configs
-also at falcon-mamba-7b, which the port trains, ``test_torch_mamba.py``),
+against the JAX package's, on the CPU, at the reduced configs of the
+attention archs (yi-6b, demo-100m, qwen3-moe-30b-a3b; falcon-mamba-7b's
+SSM serving is held against JAX in ``test_torch_mamba.py``),
 with weights from ``convert.from_jax`` and token ids from numpy.
 
 fp32 (``param_dtype="float32"``) is held to 2e-5 with equal greedy
@@ -21,7 +21,8 @@ module is held against the Pallas kernel in
 ``test_torch_decode_attention.py``).  The MoE model reaches its router
 kernel in prefill and in decode.  Inside the port, prefill of S tokens
 equals prefill of S - 1 and a decode step, in fp32 within the 2e-4 of
-the JAX package's own test (``tests/test_models.py``).
+the JAX package's own test (``tests/test_models.py``), at every ported
+arch, falcon-mamba-7b's recurrent state included.
 """
 import contextlib
 import dataclasses
@@ -45,7 +46,7 @@ from repro_torch.models import moe as TMoe
 from repro_torch.models.lm import Model, layer
 from repro_torch.serve.kv_cache import pad_to_length as tpad
 
-# the ported archs the port serves (SSM serving is not ported yet)
+# the ported attention archs (the SSM's serving: test_torch_mamba.py)
 ARCHS = [a for a in configs.PORTED
          if configs.get_reduced(a).family != "ssm"]
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
@@ -291,7 +292,7 @@ def test_unported_families_raise():
         Model(cfg)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", configs.PORTED)
 def test_prefill_equals_prefill_then_decode(arch):
     """prefill(S) last-token logits == prefill(S - 1), then a decode step
     of token S - 1, in fp32 within the JAX package's 2e-4, at B = 2."""

@@ -1,0 +1,149 @@
+"""Training the attention families in the port (``Model.loss_fn`` of the
+``dense`` and ``moe`` groups: attention through ``flash_attention``'s
+autograd Function, the router through ``moe_router``'s, each layer under
+``checkpoint``) against ``jax.value_and_grad`` of the JAX model's
+``loss_fn``, on the CPU, at the reduced yi-6b, demo-100m and
+qwen3-moe-30b-a3b, with weights from ``convert.from_jax`` and tokens
+from numpy.
+
+fp32 against the compiled JAX model: the loss within 1e-5 relative
+(observed <= 1.6e-7) and every leaf's gradient within 1e-4 relative in
+norm (observed <= 1.6e-6; the SSM's bounds, ``test_torch_mamba.py``).
+bf16, the configs' own dtype, against the JAX model run op by op
+(``jax.disable_jit``), where its roundings fall where the port's do up
+to the order of each bf16 product's sum: at this batch torch's bf16
+matmul and XLA's land a few attention outputs one bf16 ulp apart, which
+the MoE layers carry further (the experts' combine weights follow
+them).  So the loss within 2e-4 relative (observed 2.4e-6 dense, 9.1e-5
+MoE) and each leaf's gradient within 3e-2 relative in norm (observed
+<= 1.1e-2; the backward's bf16 roundings follow each framework's own
+transpose rules, as for the SSM).  The MoE
+batch is large enough that the training capacity drops copies
+(``_capacity``: 1.25 T k / E rounded up to 8), and the port routes and
+drops them as JAX does.
+"""
+import contextlib
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.models.lm import Model as JModel
+from repro_torch import configs, convert
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.moe_router import moe_router
+from repro_torch.models import moe as TMoe
+from repro_torch.models.lm import Model
+from repro_torch.train.trainer import value_and_grad
+
+ARCHS = ["yi-6b", "demo-100m", "qwen3-moe-30b-a3b"]
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+LOSS_TOL = {"float32": 1e-5, "bfloat16": 2e-4}
+SHAPE = {"yi-6b": (2, 16), "demo-100m": (2, 16),
+         "qwen3-moe-30b-a3b": (4, 32)}
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: many tiny ops, beside the suite's parallel
+    workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _np(x):
+    return x.detach().float().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x, np.float32)
+
+
+def _rel(got, want) -> float:
+    want = np.asarray(want, np.float64)
+    return float(np.linalg.norm(_np(got) - want) / np.linalg.norm(want))
+
+
+def _jax_reference(dtype):
+    return jax.disable_jit() if dtype == "bfloat16" \
+        else contextlib.nullcontext()
+
+
+@pytest.fixture(scope="module",
+                params=[(a, d) for a in ARCHS
+                        for d in ("float32", "bfloat16")],
+                ids=lambda p: f"{p[0]}-{p[1]}")
+def pair(request):
+    arch, dtype = request.param
+    jcfg = dataclasses.replace(jconfigs.get_reduced(arch),
+                               param_dtype=dtype)
+    tcfg = dataclasses.replace(configs.get_reduced(arch), param_dtype=dtype)
+    jm, tm = JModel(jcfg), Model(tcfg)
+    jp = jm.init(jax.random.PRNGKey(2))
+    tp = convert.from_jax(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+    toks = np.random.default_rng(6).integers(
+        0, tcfg.vocab, (SHAPE[arch][0], SHAPE[arch][1] + 1))
+    jb = {"tokens": jnp.asarray(toks[:, :-1], jnp.int32),
+          "labels": jnp.asarray(toks[:, 1:], jnp.int32)}
+    tb = {"tokens": torch.as_tensor(toks[:, :-1]),
+          "labels": torch.as_tensor(toks[:, 1:])}
+    return dict(arch=arch, dtype=dtype, jm=jm, tm=tm, jp=jp, tp=tp, jb=jb,
+                tb=tb, tcfg=tcfg)
+
+
+def test_loss_and_gradients_match_jax(pair):
+    dt = pair["dtype"]
+    with _jax_reference(dt):
+        jloss, jg = jax.value_and_grad(pair["jm"].loss_fn)(pair["jp"],
+                                                           pair["jb"])
+    loss, grads = value_and_grad(pair["tm"], pair["tp"], pair["tb"])
+    assert loss.dtype == torch.float32 and loss.dim() == 0
+    assert abs(float(loss) - float(jloss)) <= LOSS_TOL[dt] * abs(
+        float(jloss)), \
+        (float(loss), float(jloss))
+    got = convert.to_numpy(grads)
+    for path, w in jax.tree_util.tree_flatten_with_path(jg)[0]:
+        g = got
+        for k in path:
+            g = g[k.key]
+        assert _rel(g, w) <= GRAD_TOL[dt], (jax.tree_util.keystr(path),
+                                            _rel(g, w))
+    for t, gt in zip(convert.leaves(pair["tp"]), convert.leaves(grads)):
+        assert gt.dtype == t.dtype and gt.shape == t.shape
+    # CPU tensors never launch a kernel
+    assert flash_attention.launches == moe_router.launches == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_training_mode_drops_copies(dtype, monkeypatch):
+    """The MoE layers route with the training capacity: at this batch
+    some copies are dropped in the loss's forward (counted by wrapping
+    ``grouped_ffn``)."""
+    arch = "qwen3-moe-30b-a3b"
+    cfg = dataclasses.replace(configs.get_reduced(arch), param_dtype=dtype)
+    model = Model(cfg)
+    params = model.init(2, "cpu")
+    b, s = SHAPE[arch]
+    toks = torch.as_tensor(np.random.default_rng(6).integers(
+        0, cfg.vocab, (b, s)))
+    seen = []
+    real = TMoe.grouped_ffn
+
+    def counting(x, idx, w, wg, wu, wd, capacity):
+        counts = torch.bincount(idx.reshape(-1).long(),
+                                minlength=cfg.n_experts)
+        seen.append((capacity, int((counts - capacity).clamp_min(0).sum())))
+        return real(x, idx, w, wg, wu, wd, capacity)
+
+    monkeypatch.setattr(TMoe, "grouped_ffn", counting)
+    with torch.no_grad():
+        loss = model.loss_fn(params, {"tokens": toks, "labels": toks})
+    assert torch.isfinite(loss)
+    cap = TMoe._capacity(b * s, cfg.n_experts, cfg.top_k,
+                         cfg.capacity_factor)
+    assert len(seen) == cfg.n_layers
+    assert all(c == cap for c, _ in seen)
+    assert sum(d for _, d in seen) > 0, seen

@@ -17,7 +17,18 @@ framework's own transpose rules.  So ``mamba_apply`` is held to the
 kernel sweep's bf16 2e-2 (observed: one ulp, 3.9e-3 at magnitude ~2),
 the loss to 1e-5 relative (observed ~2e-7) and each leaf's gradient to
 3e-2 relative in norm (observed <= 1.1e-2).
+
+Serving (``mamba_prefill``, ``mamba_decode``, the ``ssm`` group's
+``Model.prefill`` and ``decode_step``): fp32 against the compiled JAX
+functions within the Tier-1 bound of ``tests/tolerance.py``, relative
+1e-5 to each tensor's largest magnitude (the outputs' products sum in
+another order; the states ``h`` and the conv window agree to an fp32
+ulp); bf16 against JAX run op by op, the outputs within the sweep's
+2e-2 and the fp32 state within 1e-5 of its largest magnitude.  The
+prefill's caches carry between the packages both ways
+(``convert.from_jax``, ``convert.to_numpy``).
 """
+import contextlib
 import dataclasses
 
 import jax
@@ -33,7 +44,9 @@ from repro_torch import configs
 from repro_torch import convert
 from repro_torch.models import mamba as TMb
 from repro_torch.models.lm import Model, layer
+from repro_torch.serve.kv_cache import pad_to_length
 from repro_torch.train.trainer import value_and_grad
+from tolerance import TIER1_REL
 
 ARCH = "falcon-mamba-7b"
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
@@ -178,24 +191,118 @@ def test_falcon_mamba_is_the_published_shape():
     assert cfg.param_count() == jconfigs.get_config(ARCH).param_count()
 
 
-def test_ssm_serving_names_its_roadmap_item():
-    cfg = configs.get_reduced(ARCH)
-    model = Model(cfg)
-    params = model.init(0, "cpu")
-    toks = torch.zeros(1, 4, dtype=torch.long)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1 item 2.1"):
-        model.prefill(params, {"tokens": toks})
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1 item 2.1"):
-        model.decode_step(params, [None], toks[:, :1], 4)
+def _to_scale(got, want, dtype, what):
+    """fp32: Tier-1's relative bound against the tensor's largest
+    magnitude; bf16 (the activations'): the sweep's 2e-2."""
+    got, want = _np(got), _np(want)
+    if dtype == "float32":
+        err = np.abs(got.astype(np.float64) - want).max()
+        assert err <= TIER1_REL * np.abs(want).max(), (what, err)
+    else:
+        np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-2,
+                                   err_msg=what)
+
+
+def _jax_ref(dtype):
+    """Compiled for fp32, op by op for bf16 (see the module docstring)."""
+    return jax.disable_jit() if dtype == "bfloat16" \
+        else contextlib.nullcontext()
+
+
+@pytest.mark.parametrize("ell", [11, 2])
+def test_mamba_prefill_and_decode_match(pair, ell):
+    """A prefill of ``ell`` tokens (2 < K - 1: the conv window is
+    left-padded), then three decode steps, each against JAX's; the
+    decode writes the state in place."""
+    dt, jcfg, tcfg = pair["dtype"], pair["jcfg"], pair["tcfg"]
+    x = np.random.default_rng(ell).standard_normal((2, ell + 3,
+                                                    tcfg.d_model))
+    jx = jnp.asarray(x, jcfg.dtype)
+    tx = torch.tensor(np.asarray(jx, np.float32), dtype=tcfg.dtype)
+    jl = jax.tree_util.tree_map(lambda a: a[0], pair["jp"]["g0"]["mamba"])
+    tl = layer(pair["tp"]["g0"], 0)["mamba"]
+    with _jax_ref(dt):
+        jo, js = JMb.mamba_prefill(jl, jcfg, jx[:, :ell])
+    to, ts = TMb.mamba_prefill(tl, tcfg, tx[:, :ell])
+    assert to.dtype == tcfg.dtype and ts["h"].dtype == torch.float32
+    assert ts["conv"].shape == (2, tcfg.ssm_conv - 1, tcfg.d_inner)
+    _to_scale(to, jo, dt, "prefill out")
+    _to_scale(ts["h"], js["h"], "float32", "prefill h")
+    _to_scale(ts["conv"], js["conv"], dt, "prefill conv")
+    for j in range(ell, ell + 3):
+        with _jax_ref(dt):
+            jo, js = JMb.mamba_decode(jl, jcfg, jx[:, j:j + 1], js)
+        h = ts["h"]
+        to, ts2 = TMb.mamba_decode(tl, tcfg, tx[:, j:j + 1], ts)
+        assert ts2 is ts and ts["h"] is h        # written in place
+        _to_scale(to, jo, dt, f"decode out {j}")
+        _to_scale(ts["h"], js["h"], "float32", f"decode h {j}")
+        _to_scale(ts["conv"], js["conv"], dt, f"decode conv {j}")
+
+
+def test_ssm_serving_names_its_roadmap_item(pair):
+    """SSM serving (ROADMAP.md Queue 1 item 2.1) is ported: the ``ssm``
+    group's ``Model.prefill`` and teacher-forced ``decode_step``s against
+    the JAX model's, logits and the layer-stacked caches, which convert
+    between the packages both ways."""
+    dt, jm, tm, jp, tp = (pair[k] for k in ("dtype", "jm", "tm", "jp",
+                                             "tp"))
+    cfg = pair["tcfg"]
+    toks = np.random.default_rng(3).integers(0, cfg.vocab, (2, 12))
+    with _jax_ref(dt):
+        jl, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks, jnp.int32)})
+    tl, tc = tm.prefill(tp, {"tokens": torch.as_tensor(toks)})
+    assert tl.shape == (2, 1, cfg.vocab) and tl.dtype == torch.float32
+    assert tc[0]["h"].shape == (cfg.n_layers, 2, cfg.d_inner,
+                                cfg.ssm_state)
+    assert tc[0]["conv"].shape == (cfg.n_layers, 2, cfg.ssm_conv - 1,
+                                   cfg.d_inner)
+    _to_scale(tl, jl, dt, "prefill logits")
+    _to_scale(tc[0]["h"], jc[0]["h"], "float32", "h")
+    _to_scale(tc[0]["conv"], jc[0]["conv"], dt, "conv")
+    # the caches convert both ways
+    back = convert.from_jax(jax.tree_util.tree_map(np.asarray, jc), "cpu")
+    assert back[0]["conv"].dtype == cfg.dtype
+    _to_scale(back[0]["h"], tc[0]["h"], "float32", "from_jax h")
+    mine = convert.to_numpy(tc)
+    _to_scale(mine[0]["conv"], jc[0]["conv"], dt, "to_numpy conv")
+    # the engine pads the caches: the SSM state passes untouched
+    padded = pad_to_length(tc, 64)
+    assert padded[0]["h"] is tc[0]["h"] and padded[0]["conv"] is \
+        tc[0]["conv"]
+    for i in range(4):
+        tok = np.argmax(_np(jl)[:, -1], -1)[:, None]
+        with _jax_ref(dt):
+            jl, jc = jm.decode_step(jp, jc, jnp.asarray(tok, jnp.int32),
+                                    jnp.asarray(12 + i, jnp.int32))
+        tl, tc = tm.decode_step(tp, tc, torch.as_tensor(tok), 12 + i)
+        _to_scale(tl, jl, dt, f"decode logits {i}")
+        _to_scale(tc[0]["h"], jc[0]["h"], "float32", f"decode h {i}")
 
 
 @pytest.mark.parametrize("arch,item", [("yi-6b", "2.2"),
                                        ("qwen3-moe-30b-a3b", "2.3")])
 def test_training_the_attention_families_names_its_roadmap_item(arch, item):
-    model = Model(configs.get_reduced(arch))
-    toks = torch.zeros(1, 4, dtype=torch.long)
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md Queue 1 item {item}"):
-        model.loss_fn({}, {"tokens": toks, "labels": toks})
+    """Training the dense (ROADMAP.md Queue 1 item 2.2) and MoE (item 2.3)
+    families is ported: ``loss_fn`` and its gradients at the reduced
+    config in fp32 against ``jax.value_and_grad`` of the JAX model's,
+    the loss within 1e-5 relative and every leaf's gradient within 1e-4
+    relative in norm (``tests/test_torch_lm_train.py`` holds more
+    shapes, bf16 and demo-100m)."""
+    jcfg = dataclasses.replace(jconfigs.get_reduced(arch),
+                               param_dtype="float32")
+    tcfg = dataclasses.replace(configs.get_reduced(arch),
+                               param_dtype="float32")
+    jm, tm = JModel(jcfg), Model(tcfg)
+    jp = jm.init(jax.random.PRNGKey(1))
+    tp = convert.from_jax(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+    jb, tb = _batch(tcfg.vocab, (2, 12), seed=4)
+    jloss, jg = jax.value_and_grad(jm.loss_fn)(jp, jb)
+    loss, grads = value_and_grad(tm, tp, tb)
+    assert abs(float(loss) - float(jloss)) <= 1e-5 * abs(float(jloss))
+    got = convert.to_numpy(grads)
+    for path, w in jax.tree_util.tree_flatten_with_path(jg)[0]:
+        g = got
+        for k in path:
+            g = g[k.key]
+        assert _rel(g, w) <= 1e-4, (jax.tree_util.keystr(path), _rel(g, w))

@@ -14,8 +14,11 @@ reference at the same shapes and at chunk lengths that do and do not
 divide L, fp32 relative 1e-5 in norm (observed <= 3e-7: the sums run in
 another order) and bf16 within the sweep's 5e-2; and against autograd of
 the port's plain scan.  Gradients of all six inputs through the Function
-against ``jax.vjp``, fp32, relative 1e-4 in norm.  The kernels
-themselves are held against the plain versions on the card
+against ``jax.vjp``, fp32, relative 1e-4 in norm.  The serving variant
+(``mamba_scan_with_state``, y and the final state) against the JAX
+package's ``_scan_with_state`` (the SSM prefill's scan) in the sweep's
+tolerances, the final state fp32 within 1e-5 (observed <= 1e-6).  The
+kernels themselves are held against the plain versions on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
 import jax
@@ -25,9 +28,13 @@ import pytest
 import torch
 
 from repro.kernels.mamba_scan.ref import mamba_scan_ref as jax_ref
+from repro.models.mamba import _scan_with_state as jax_with_state
 from repro_torch.kernels.mamba_scan import (CHUNK, mamba_scan,
                                             mamba_scan_bwd_ref,
-                                            mamba_scan_ref, scan_states_ref)
+                                            mamba_scan_ref,
+                                            mamba_scan_with_state,
+                                            mamba_scan_with_state_ref,
+                                            scan_states_ref)
 
 # (b, l, d, n): tests/test_kernels.py MAMBA_SWEEP, then ragged shapes
 MAMBA_SWEEP = [(1, 64, 128, 16), (2, 128, 64, 16), (1, 96, 256, 8)]
@@ -226,3 +233,48 @@ def test_wrapper_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="different devices"):
         mamba_scan(meta[0], *tx[1:])
     assert mamba_scan.launches == before
+
+
+@pytest.mark.parametrize("b,l,d,n", MAMBA_SWEEP + RAGGED)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_scan_with_state_matches_jax_scan_with_state(b, l, d, n, dtype):
+    """The plain serving variant (which the wrapper runs on the CPU)
+    against the JAX prefill's ``_scan_with_state``: y in the sweep's
+    tolerance, the final state (fp32 in both) within 1e-5; its y is the
+    plain scan's bit for bit."""
+    jx, tx = _both(_inputs(b, l, d, n, seed=b + l * d), dtype)
+    jy, jh = jax_with_state(*jx)
+    y, h = mamba_scan_with_state(*tx)
+    assert y.dtype == tx[0].dtype and y.shape == (b, l, d)
+    assert h.dtype == torch.float32 and h.shape == (b, d, n)
+    np.testing.assert_allclose(_np(y), _np(jy), **TOL[dtype])
+    np.testing.assert_allclose(_np(h), _np(jh), rtol=1e-5, atol=1e-5)
+    assert torch.equal(y, mamba_scan_ref(*tx))
+    y2, h2 = mamba_scan_with_state_ref(*tx)
+    assert torch.equal(y2, y) and torch.equal(h2, h)
+
+
+def test_scan_with_state_continues_from_its_final_state():
+    """The final state of the first part, as h0 of the plain scan over
+    the rest, gives the whole sequence's y bit for bit."""
+    _, tx = _both(_inputs(2, 40, 24, 6, seed=11), "float32")
+    y, _ = mamba_scan_with_state(*tx)
+    first = [t[:, :25] if t.dim() == 3 else t for t in tx]
+    rest = [t[:, 25:] if t.dim() == 3 else t for t in tx]
+    _, h = mamba_scan_with_state(*first)
+    assert torch.equal(mamba_scan_ref(*rest, h0=h), y[:, 25:])
+    empty = [t[:, :0] if t.dim() == 3 else t for t in tx]
+    y0, h0 = mamba_scan_with_state(*empty)
+    assert y0.shape == (2, 0, 24) and not h0.any()
+
+
+def test_scan_with_state_is_inference_only():
+    _, tx = _both(_inputs(1, 8, 16, 4, seed=12), "float32")
+    before = mamba_scan.launches
+    with pytest.raises(ValueError, match="inference-only"):
+        mamba_scan_with_state(tx[0].requires_grad_(), *tx[1:])
+    with pytest.raises(ValueError, match="shapes"):
+        mamba_scan_with_state(tx[0].detach(), tx[1], tx[2], tx[3][:, :4],
+                              tx[4], tx[5])
+    assert mamba_scan.launches == before
+    assert mamba_scan_with_state.launches == 0    # CPU calls never launch

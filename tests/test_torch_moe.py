@@ -5,12 +5,17 @@ numpy.  fp32 is held to 2e-5 against the compiled JAX layer; bf16 to the
 kernel sweep's 2e-2 against the JAX layer run op by op
 (``jax.disable_jit``), where its roundings fall where the port's do.
 
-The inference dispatch (``inference=True`` in JAX; the port serves and
-has no other) is dropless up to 1024 tokens.  Above, copies past an
-expert's capacity are dropped: a router skewed towards expert 0 makes
-that happen, and both layers drop the same copies (read off ``grouped_ffn`` with every expert mapping 1 to
-silu(1) and copy j weighted 2**j, so a token's output spells out which of
-its copies were kept)."""
+The inference dispatch (``inference=True``) is dropless up to 1024
+tokens.  Above, copies past an expert's capacity are dropped: a router
+skewed towards expert 0 makes that happen, and both layers drop the same
+copies (read off ``grouped_ffn`` with every expert mapping 1 to silu(1)
+and copy j weighted 2**j, so a token's output spells out which of its
+copies were kept).  The training dispatch (``inference=False``, the
+default in both) drops past ``_capacity(T, E, k, capacity_factor)`` at
+every T, held the same way, and its gradients in the layer's params and
+input against ``jax.grad`` (fp32, 1e-4 relative in norm; observed
+<= 3e-7).  ``aux_load_balance_loss`` against JAX's within 1e-6 relative
+(observed ~1e-7)."""
 import contextlib
 import dataclasses
 
@@ -83,7 +88,7 @@ def test_moe_apply_matches_jax(b, s, dtype):
     jx, tx = _x(b * s, (b, s, tcfg.d_model), dtype)
     with _jax_reference(dtype):
         want = JMoe.moe_apply(jp, jcfg, jx, inference=True)
-    got = TMoe.moe_apply(tp, tcfg, tx)
+    got = TMoe.moe_apply(tp, tcfg, tx, inference=True)
     assert got.dtype == tx.dtype and got.shape == tx.shape
     np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
 
@@ -97,7 +102,7 @@ def test_capacity_drops_the_same_copies(t, cap, dtype):
     jx, tx = _x(5, (1, t, tcfg.d_model), dtype, mean=0.5)
     with _jax_reference(dtype):
         want = JMoe.moe_apply(jp, jcfg, jx, inference=True)
-    got = TMoe.moe_apply(tp, tcfg, tx)
+    got = TMoe.moe_apply(tp, tcfg, tx, inference=True)
     np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
 
     _, idx = TMoe._route(tp["router"], tx.reshape(t, -1), tcfg.top_k)
@@ -114,11 +119,63 @@ def test_capacity_drops_the_same_copies(t, cap, dtype):
 
 
 def test_unported_moe_options_name_their_roadmap_item():
-    jcfg, tcfg, _, tp = _layer("float32")
+    jcfg, tcfg, jp, tp = _layer("float32")
     x = torch.zeros(1, 2, tcfg.d_model)
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
         TMoe.moe_apply(tp, tcfg, x, ep=object())
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
         TMoe.moe_apply(dict(tp, shared={}), tcfg, x)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        TMoe.aux_load_balance_loss(tp, tcfg, x)
+    # the load-balance loss is ported: it matches JAX's
+    jx, tx = _x(11, (2, 24, tcfg.d_model), "float32")
+    want = float(JMoe.aux_load_balance_loss(jp, jcfg, jx))
+    got = TMoe.aux_load_balance_loss(tp, tcfg, tx)
+    assert got.dtype == torch.float32 and got.dim() == 0
+    assert abs(float(got) - want) <= 1e-6 * abs(want)
+
+
+@pytest.mark.parametrize("t,cap", [(300, 96), (40, 16)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_training_dispatch_drops_the_same_copies(t, cap, dtype):
+    """``inference=False``: the capacity is 1.25 T k / E rounded up to 8
+    at every T, and a router skewed towards expert 0 overflows it."""
+    jcfg, tcfg, jp, tp = _layer(dtype, skew=1.0)
+    jx, tx = _x(6, (1, t, tcfg.d_model), dtype, mean=0.5)
+    with _jax_reference(dtype):
+        want = JMoe.moe_apply(jp, jcfg, jx)
+    got = TMoe.moe_apply(tp, tcfg, tx)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
+    assert cap == TMoe._capacity(t, tcfg.n_experts, tcfg.top_k,
+                                 tcfg.capacity_factor)
+    _, idx = TMoe._route(tp["router"], tx.reshape(t, -1), tcfg.top_k)
+    _, jidx = JMoe._route(jp["router"], jx.reshape(t, -1), jcfg.top_k)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    kept = _kept(TMoe.grouped_ffn, idx.numpy(), cap, tcfg.n_experts, True)
+    jkept = _kept(JMoe.grouped_ffn, np.asarray(jidx), cap, jcfg.n_experts,
+                  False)
+    counts = np.bincount(idx.numpy().ravel(), minlength=tcfg.n_experts)
+    assert (~kept).sum() == np.maximum(counts - cap, 0).sum() > 0
+    np.testing.assert_array_equal(kept, jkept)
+
+
+def test_training_dispatch_gradients_match_jax():
+    """Gradients of sum(y * g) in the router, the experts and the input,
+    through the router's autograd Function and the dropped copies."""
+    jcfg, tcfg, jp, tp = _layer("float32", skew=1.0)
+    jx, tx = _x(8, (2, 60, tcfg.d_model), "float32", mean=0.5)
+    g = np.random.default_rng(9).standard_normal(tx.shape, np.float32)
+
+    def jloss(p, x):
+        return jnp.sum(JMoe.moe_apply(p, jcfg, x) * g)
+
+    jgp, jgx = jax.grad(jloss, argnums=(0, 1))(jp, jx)
+    tp = {k: v.clone().requires_grad_() for k, v in tp.items()}
+    x = tx.clone().requires_grad_()
+    y = TMoe.moe_apply(tp, tcfg, x)
+    names = sorted(tp)
+    grads = torch.autograd.grad((y * torch.tensor(g)).sum(),
+                                [tp[k] for k in names] + [x])
+    for name, got, want in zip(names + ["x"], grads,
+                               [jgp[k] for k in names] + [jgx]):
+        want = np.asarray(want, np.float64)
+        err = np.linalg.norm(_np(got) - want) / np.linalg.norm(want)
+        assert err <= 1e-4, (name, err)

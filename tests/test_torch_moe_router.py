@@ -5,7 +5,16 @@ sweep's shapes and one token, with the same numpy-seeded logits.  Index
 sets must be equal and the weights, taken expert by expert, within
 rtol 1e-5 / atol 1e-6 (the JAX sweep's tolerance); every row sums to 1.
 Exact ties go to the lower expert index in all three, and so do
-probabilities that underflow to 0."""
+probabilities that underflow to 0.
+
+The wrapper's autograd Function (the training path: the weights'
+gradient in the logits, taken at the forward's indices) is held against
+``jax.grad`` through ``moe_router_ref``, the only router the JAX package
+can differentiate (its Pallas kernel cannot be linearised), tie rows
+included: fp32 within 1e-5 relative in norm (observed <= 9e-8), bf16
+logits within one bf16 ulp, 2^-8 relative (observed <= 3e-8: both
+round nearly the same fp32 gradient to bf16)."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,7 +22,8 @@ import torch
 
 from repro.kernels.moe_router import moe_router as jax_router
 from repro.kernels.moe_router import moe_router_ref as jax_ref
-from repro_torch.kernels.moe_router import moe_router, moe_router_ref
+from repro_torch.kernels.moe_router import (moe_router, moe_router_ref,
+                                            router_weights)
 from test_kernels import ROUTER_SWEEP
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -125,6 +135,66 @@ def test_wrapper_refuses_non_contiguous_and_integer_logits():
         moe_router(torch.zeros(16, 8).t(), 2)
     with pytest.raises(TypeError):
         moe_router(torch.zeros(4, 8, dtype=torch.int32), 2)
+
+
+def _tie_rows(e):
+    """The exact-tie rows of :func:`test_exact_ties_take_the_lower_index`
+    widened to ``e`` experts."""
+    rows = np.zeros((4, e), np.float32)
+    rows[1, [5, 9, 12]] = 2.0
+    rows[2, 2], rows[2, [7, 1]] = 3.0, 2.0
+    rows[3] = np.arange(e) % 4
+    return rows
+
+
+GRAD_REL = {"float32": 1e-5, "bfloat16": 2.0 ** -8}
+
+
+@pytest.mark.parametrize("t,e,k", [(64, 16, 2), (300, 128, 8),
+                                   (1, 32, 4)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_function_gradient_matches_jax_grad_of_the_reference(t, e, k,
+                                                             dtype):
+    jl, tl = _logits(t * e + k, (t, e), dtype)
+    ties = _tie_rows(e)
+    jl = jnp.concatenate([jl, jnp.asarray(ties, jl.dtype)])
+    tl = torch.cat([tl, torch.tensor(ties, dtype=tl.dtype)])
+    gw = np.random.default_rng(k).standard_normal((t + 4, k), np.float32)
+    _, vjp = jax.vjp(lambda x: jax_ref(x, k)[0], jl)
+    (want,) = vjp(jnp.asarray(gw))
+    x = tl.clone().requires_grad_()
+    w, idx = moe_router(x, k)
+    assert not idx.requires_grad and w.requires_grad
+    (got,) = torch.autograd.grad(w, x, torch.tensor(gw))
+    assert got.dtype == tl.dtype and got.shape == tl.shape
+    want = np.asarray(want, np.float64)
+    err = np.linalg.norm(got.float().numpy() - want) / np.linalg.norm(want)
+    assert err <= GRAD_REL[dtype], err
+    # the tie rows route to the lower indices; w_i = exp(x_i) over the
+    # chosen ones' sum, so an unchosen logit's gradient is 0 up to rounding
+    assert idx[t + 1, :3].tolist() == [5, 9, 12][:k]
+    chosen = torch.zeros_like(got, dtype=torch.bool).scatter_(
+        1, idx.long(), True)
+    assert got[~chosen].abs().max() <= 1e-6 * got.abs().max()
+
+
+def test_function_backward_keeps_the_forward_indices():
+    """The backward differentiates the weights at the forward's indices:
+    on an exact tie across the k cut it does not look again."""
+    logits = torch.tensor([[2.0, 1.0, 1.0, 0.0]], requires_grad=True)
+    w, idx = moe_router(logits, 2)
+    assert idx.tolist() == [[0, 1]]
+    (got,) = torch.autograd.grad(w[:, 1].sum(), logits)
+    x = logits.detach().requires_grad_()
+    (want,) = torch.autograd.grad(router_weights(x, idx)[:, 1].sum(), x)
+    assert torch.equal(got, want)
+    # expert 2 ties expert 1 and was not chosen: its logit gets (up to
+    # rounding) no gradient, where choosing it would have given it all
+    assert got[0, 2:].abs().max() <= 1e-6 * got.abs().max()
+    x = logits.detach().requires_grad_()
+    (other,) = torch.autograd.grad(router_weights(
+        x, torch.tensor([[0, 2]]))[:, 1].sum(), x)
+    assert other[0, 2] == got[0, 1] and other[0, 1].abs() <= 1e-6
 
 
 @pytest.mark.cuda

@@ -3,7 +3,7 @@ greedy == a hand-rolled decode loop, the slot manager and START replica
 re-dispatch (``tests/test_serve.py``'s cases), plus the JAX engine and
 the port's giving equal token streams from the same converted fp32
 params and seeded requests for every ported arch, and the serving entry
-point end to end (dense and MoE)."""
+point end to end (dense, MoE and SSM)."""
 import dataclasses
 
 import jax
@@ -128,11 +128,10 @@ def test_jax_and_port_engines_give_equal_token_streams():
     _engines_give_equal_token_streams("yi-6b")
 
 
-@pytest.mark.parametrize("arch", [
-    a for a in PORTED if a != "yi-6b" and get_reduced(a).family != "ssm"])
+@pytest.mark.parametrize("arch", [a for a in PORTED if a != "yi-6b"])
 def test_every_ported_arch_gives_the_jax_engines_token_streams(arch):
-    """The other ported archs the port serves (yi-6b is the test above;
-    SSM serving is not ported yet)."""
+    """The other ported archs (yi-6b is the test above), falcon-mamba-7b's
+    recurrent caches included."""
     _engines_give_equal_token_streams(arch)
 
 
@@ -167,6 +166,13 @@ def test_serve_entry_point_runs_on_the_cpu():
 
 def test_serve_entry_point_serves_the_moe_arch_on_the_cpu():
     out = serve.main(["--arch", "qwen3-moe-30b-a3b", "--reduced",
+                      "--device", "cpu", "--requests", "3", "--max-new",
+                      "4"])
+    assert out["requests_done"] == 3 and out["tokens"] >= 12
+
+
+def test_serve_entry_point_serves_the_ssm_arch_on_the_cpu():
+    out = serve.main(["--arch", "falcon-mamba-7b", "--reduced",
                       "--device", "cpu", "--requests", "3", "--max-new",
                       "4"])
     assert out["requests_done"] == 3 and out["tokens"] >= 12

@@ -1,6 +1,7 @@
 """The port's training substrate (``train/data.py``, ``optimizer.py``,
 ``trainer.py``, ``launch/train.py``) against the JAX package's, on the
-CPU, at falcon-mamba-7b's reduced config.
+CPU, at falcon-mamba-7b's reduced config, and the trainer and driver
+also at the dense (yi-6b, demo-100m) and MoE (qwen3-moe-30b-a3b) ones.
 
 - ``SyntheticLM``: the same numpy draws, so the batches are equal.
 - ``schedule`` and ``update`` (adamw with clipping, adafactor): on the
@@ -12,11 +13,19 @@ CPU, at falcon-mamba-7b's reduced config.
   ``b1 * m + (1 - b1) * g`` subtract numbers of the leaf's size, so a
   result near 0 carries their rounding (observed max 3e-8 absolute,
   ~4e-4 of a value near 0).
-- Three ``make_train_step`` steps from converted params, fp32, adamw:
-  losses within 1e-5 relative (observed ~1e-7) and every leaf of the
-  params within 1e-5 relative in norm of JAX's jitted step (observed
-  <= 2.7e-6: Adam's normalisation carries the gradients' fp32 noise
-  into the update, and three steps compound it).
+- Three ``make_train_step`` steps from converted params, fp32, adamw,
+  for each family (ssm, dense, moe): losses within 1e-5 relative
+  (observed ~1e-7) and every leaf of the params within 1e-5 relative in
+  norm of JAX's jitted step (observed <= 2.7e-6: Adam's normalisation
+  carries the gradients' fp32 noise into the update, and three steps
+  compound it).
+- ``launch/train.py`` against the JAX driver (``repro.launch.train``)
+  from the JAX driver's own initial params, converted: the configs'
+  bf16 and the same ``SyntheticLM`` batches, so every step's loss within
+  1e-2 relative of the JAX driver's jitted step (observed <= 1.1e-3:
+  XLA fuses the bf16 roundings, and Adam's first steps carry a bf16 ulp
+  of a gradient into the update), the first within 1e-3 (observed <=
+  2.4e-4).
 - The port alone: microbatching, learning, ``launch/train.py`` and its
   checkpoint drill (``--kill-at`` exits 42, ``--resume`` repeats no
   step, so the resumed losses equal an uninterrupted run's bit for bit;
@@ -71,9 +80,9 @@ def _np(x):
         else np.asarray(x, np.float32)
 
 
-def _converted(dtype="float32", seed=0):
-    jcfg = dataclasses.replace(jconfigs.get_reduced(ARCH), param_dtype=dtype)
-    tcfg = dataclasses.replace(configs.get_reduced(ARCH), param_dtype=dtype)
+def _converted(dtype="float32", seed=0, arch=ARCH):
+    jcfg = dataclasses.replace(jconfigs.get_reduced(arch), param_dtype=dtype)
+    tcfg = dataclasses.replace(configs.get_reduced(arch), param_dtype=dtype)
     jm, tm = JModel(jcfg), Model(tcfg)
     jp = jm.init(jax.random.PRNGKey(seed))
     tp = convert.from_jax(jax.tree_util.tree_map(np.asarray, jp), "cpu")
@@ -216,8 +225,9 @@ def test_adafactor_state_smaller_than_adam():
 
 # --------------------------------- trainer ---------------------------------
 
-def test_three_train_steps_match_jax():
-    jm, tm, jp, tp = _converted()
+@pytest.mark.parametrize("arch", [ARCH, "yi-6b", "qwen3-moe-30b-a3b"])
+def test_three_train_steps_match_jax(arch):
+    jm, tm, jp, tp = _converted(arch=arch)
     kw = dict(lr=1e-2, warmup_steps=2, total_steps=100)
     jstep = jax.jit(j_make_train_step(jm, JOpt.OptConfig(**kw),
                                       JTrainConfig()))
@@ -425,23 +435,70 @@ def test_simulated_stragglers_print_actions_as_jax(monkeypatch, capsys):
     assert_tier1(te, je)
 
 
+DRIVER = ["--reduced", "--steps", "6", "--batch", "2", "--seq", "16",
+          "--log-every", "100"]
+
+
+def _drivers_from_jax_params(argv, monkeypatch) -> tuple[list, list]:
+    """The JAX ``launch.train`` and the port's on ``argv``, the port's
+    from the JAX driver's initial params (converted): each one's loss per
+    step."""
+    from repro.launch import train as jax_train_entry
+    jax_losses, init = [], []
+
+    class Recording(jax_train_entry.Trainer):
+        def init_state(self, seed=0):
+            p, s = super().init_state(seed)
+            init.append(jax.tree_util.tree_map(np.asarray, p))
+            return p, s
+
+        def compile_step(self):
+            step = super().compile_step()
+
+            def recorded(*args):
+                out = step(*args)
+                jax_losses.append(float(out[2]["loss"]))
+                return out
+            return recorded
+
+    class FromJax(train_entry.Trainer):
+        def init_state(self, seed=0):
+            p = convert.from_jax(init[0], self.device)
+            return p, Opt.init(self.opt_cfg, p)
+
+    monkeypatch.setattr(jax_train_entry, "Trainer", Recording)
+    monkeypatch.setattr(train_entry, "Trainer", FromJax)
+    jax_train_entry.main(argv)
+    out = train_entry.main([*argv, "--device", "cpu"])
+    return jax_losses, out["losses"]
+
+
+def _hold_driver_losses(jax_losses, losses) -> None:
+    assert len(losses) == len(jax_losses) == 6
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, jax_losses)]
+    assert rel[0] <= 1e-3 and max(rel) <= 1e-2, rel
+
+
+def test_launch_train_default_arch_matches_the_jax_driver(monkeypatch):
+    """No ``--arch``: both drivers train their default, demo-100m."""
+    _hold_driver_losses(*_drivers_from_jax_params(DRIVER, monkeypatch))
+
+
 @pytest.mark.parametrize("flags,item", [
     (["--simulate-stragglers"], "4.3"),
     (["--arch", "yi-6b"], "2.2"), (["--arch", "qwen3-moe-30b-a3b"], "2.3")])
 def test_unported_flags_and_families_name_their_roadmap_item(
         flags, item, monkeypatch, capsys):
-    """The families not ported yet raise naming their ROADMAP.md item.
-    Item 4.3, the pod runtime behind ``--simulate-stragglers``, is
-    ported: its case holds ``launch.train``'s runtime against the JAX
-    package's."""
+    """Each case is a ROADMAP.md item that is ported now, held against
+    the JAX package's ``launch.train``: item 4.3, the pod runtime behind
+    ``--simulate-stragglers``, by its runtime; items 2.2 (dense
+    training) and 2.3 (MoE training) by the losses of yi-6b and
+    qwen3-moe-30b-a3b from the JAX driver's params."""
     if item == "4.3":
         _simulated_stragglers_match_jax(monkeypatch, capsys)
         return
-    argv = ["--arch", ARCH, "--reduced", "--steps", "1", "--batch", "2",
-            "--seq", "4", "--device", "cpu", *flags]
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md Queue 1 item {item}"):
-        train_entry.main(argv)
+    _hold_driver_losses(*_drivers_from_jax_params([*flags, *DRIVER],
+                                                  monkeypatch))
 
 
 def test_a_mesh_names_its_roadmap_item():
