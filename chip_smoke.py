@@ -72,6 +72,20 @@ Phases:
    launches ``lstm_cell`` 10 times per interval that predicts); and a
    2-worker ``sweep.run`` of start, igru-sd and grass x seeds (0, 1)
    bit-equal, field by field, to the serial run;
+6b. the sweep fabric: that serial grid served by a ``FabricCoordinator``
+   here (``REPRO_FABRIC_KEY`` set, the kernel libraries shipped with the
+   grid) through ``sweep.run(spec, fabric=...)`` to two node agents
+   spawned on localhost, one running cells inline and one over a local
+   pool of two lanes: every cell bit-equal to serial, START and IGRU-SD
+   cells run on the card in agents, each START cell launching
+   ``lstm_cell`` in its agent as often as serially (counted per cell in
+   the process that ran it), no library built again, every current
+   library shipped and byte-equal once installed elsewhere; then the same
+   grid to two single-lane agents with ``REPRO_TEST_KILL_CELL`` armed, one
+   SIGKILLed mid-unit holding a CUDA context (exit code -9), the grid
+   still bit-equal; the fabric's wall time beside the serial and pool
+   times, the cells of each node, steals and dropped duplicates, and the
+   bytes shipped;
 7. LM serving, fp32: yi-6b at full width and depth (seeded weights),
    ``Engine(n_slots=4, max_len=4096)`` serving 6 seeded requests
    (prompts of 12 to 3000 tokens, 16 new tokens each); every prefill
@@ -183,18 +197,23 @@ result.  Without a CUDA card it exits non-zero in phase 1.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
+import functools
 import gc
 import io
 import json
+import multiprocessing
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import types
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -246,7 +265,7 @@ from repro_torch.service import (  # noqa: E402
     PredictionService, Profile, ServiceClient, ServiceConfig, ServiceDaemon)
 from repro_torch.sim.config import SimConfig  # noqa: E402
 from repro_torch.sim.engine import Simulation  # noqa: E402
-from repro_torch.sim import sweep  # noqa: E402
+from repro_torch.sim import fabric, sweep  # noqa: E402
 from repro_torch.sim.scenarios import make_config  # noqa: E402
 from repro_torch.sim.techniques import FIELD  # noqa: E402
 from repro_torch.sim.techniques import baselines, start_tech  # noqa: E402
@@ -2266,13 +2285,34 @@ def cells_in_workers(res: sweep.SweepResult, techniques,
     return out
 
 
-def sweep_parity() -> dict:
+def hold_cells(serial: sweep.SweepResult, other: sweep.SweepResult,
+               label: str) -> None:
+    """Fails unless every cell of ``other`` lines up with ``serial``'s and
+    its ``deterministic_summary`` is equal bit for bit, field by field."""
+    differ = []
+    for a, b in zip(serial.cells, other.cells, strict=True):
+        da = sweep.deterministic_summary(a.summary)
+        db = sweep.deterministic_summary(b.summary)
+        key = (a.scenario, a.technique, a.seed)
+        if key != (b.scenario, b.technique, b.seed) or set(da) != set(db):
+            raise AssertionError(f"cells {key} and {b.technique, b.seed} "
+                                 f"do not line up")
+        differ += [f"{a.technique}/seed {a.seed}: {k} {da[k]!r} != "
+                   f"{db[k]!r}" for k in da if da[k] != db[k]]
+    if differ:
+        raise AssertionError(f"serial and {label} sweeps differ: "
+                             + "; ".join(differ))
+
+
+def sweep_parity() -> tuple[dict, sweep.SweepResult]:
     """``PARITY`` x ``PARITY_SEEDS`` on planetlab at the paper's width,
     serially and on ``PARITY_WORKERS`` spawned workers (warmed first, so
     the parent does not run the grid alone while they import): every
     cell's ``deterministic_summary`` must be equal bit for bit, field by
     field; START and IGRU-SD must each run a cell on the card in a
-    worker, and no worker may build a kernel library again."""
+    worker, and no worker may build a kernel library again.  Returns the
+    numbers and the serial result (the fabric phase holds its grid to
+    it)."""
     spec = paper_spec(PARITY, PARITY_SEEDS)
     serial = sweep.run(spec)
     libs = built_libraries()
@@ -2288,19 +2328,7 @@ def sweep_parity() -> dict:
                              f"{built_libraries()} in the parallel run")
     in_workers = cells_in_workers(parallel, ("start", "igru-sd"),
                                   torch.device(DEVICE).type)
-    differ = []
-    for a, b in zip(serial.cells, parallel.cells):
-        da = sweep.deterministic_summary(a.summary)
-        db = sweep.deterministic_summary(b.summary)
-        key = (a.scenario, a.technique, a.seed)
-        if key != (b.scenario, b.technique, b.seed) or set(da) != set(db):
-            raise AssertionError(f"cells {key} and {b.technique, b.seed} "
-                                 f"do not line up")
-        differ += [f"{a.technique}/seed {a.seed}: {k} {da[k]!r} != "
-                   f"{db[k]!r}" for k in da if da[k] != db[k]]
-    if differ:
-        raise AssertionError("serial and parallel sweeps differ: "
-                             + "; ".join(differ))
+    hold_cells(serial, parallel, "parallel")
     print(f"[paper] serial vs {PARITY_WORKERS} workers: {len(serial.cells)} "
           f"cells ({', '.join(PARITY)} x seeds {PARITY_SEEDS}) bit-equal in "
           f"every field; in the workers (seeds): {in_workers}, no library "
@@ -2309,7 +2337,188 @@ def sweep_parity() -> dict:
           f"{spawn_s:.1f} s)")
     return dict(cells=len(serial.cells), serial_s=serial.wall_s,
                 parallel_s=parallel.wall_s, spawn_s=spawn_s,
-                in_workers=in_workers)
+                in_workers=in_workers), serial
+
+
+# --------------------------------- phase 6b ---------------------------------
+# the sweep fabric: the parity grid served to node agents
+
+FABRIC_KEY = "chip-smoke-fabric"    # REPRO_FABRIC_KEY while the phase runs
+FABRIC_LANES = (1, 2)               # one agent inline, one over a local pool
+FABRIC_KILL_LANES = (1, 1)          # the kill must land in an agent itself
+FABRIC_KILL = ("planetlab", "start", 1)
+FABRIC_TIMEOUT = 300.0              # a grid; agents are joined for 60 s
+
+
+def _children(pid: int) -> list[int]:
+    """The processes whose parent is ``pid`` (an agent's pool lanes)."""
+    out = []
+    for d in Path("/proc").iterdir():
+        try:
+            ppid = int((d / "stat").read_text().rsplit(")", 1)[1].split()[1])
+        except (OSError, ValueError, IndexError):
+            continue
+        if ppid == pid:
+            out.append(int(d.name))
+    return out
+
+
+def fabric_grid(spec: sweep.SweepSpec, lanes) -> dict:
+    """Serve ``spec`` from a ``FabricCoordinator`` in this process (kernel
+    libraries shipped with the grid) to node agents spawned on localhost,
+    one per entry of ``lanes``; every agent is joined, or killed with its
+    lanes.  Returns the result, the agents' exit codes and pids, the
+    coordinator's stats and what the grid reply shipped."""
+    ctx = multiprocessing.get_context("spawn")
+    with fabric.FabricCoordinator(ship_cache=True) as coord:
+        # an agent with a local pool has children: it cannot be daemonic
+        procs = [ctx.Process(target=fabric.worker_main,
+                             args=(coord.host, coord.port),
+                             kwargs=dict(node=f"agent{i}", lanes=n),
+                             daemon=n == 1)
+                 for i, n in enumerate(lanes)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        try:
+            # the user's entry point, its grid bounded in time
+            res = sweep.run(spec, fabric=types.SimpleNamespace(
+                run_grid=functools.partial(coord.run_grid,
+                                           timeout=FABRIC_TIMEOUT)))
+            wall_s = time.perf_counter() - t0
+            shipped = dict(coord._cache_files)
+            payload_bytes = len(coord._payload_blob)
+        finally:
+            for p in procs:
+                p.join(timeout=60)
+                if p.is_alive():
+                    for child in _children(p.pid):
+                        os.kill(child, signal.SIGKILL)
+                    p.kill()
+                    p.join(timeout=10)
+        # after the agents left: a stolen copy still running when the
+        # grid completed is counted once its agent reports it
+        stats = coord.stats()
+    return dict(res=res, wall_s=wall_s, stats=stats, shipped=shipped,
+                payload_bytes=payload_bytes,
+                exitcodes=[p.exitcode for p in procs],
+                pids=[p.pid for p in procs])
+
+
+def fabric_launches(serial: sweep.SweepResult,
+                    res: sweep.SweepResult) -> int:
+    """The ``lstm_cell`` launches of ``res``'s START cells, each counted
+    in the process that ran it (``CellResult.lstm_cell_launches``); each
+    must equal the serial run's count for that cell, which on the card is
+    not 0."""
+    total = 0
+    on_card = torch.device(DEVICE).type == "cuda"
+    for a, b in zip(serial.cells, res.cells):
+        if a.technique.startswith("start"):
+            if (on_card and not a.lstm_cell_launches) \
+                    or b.lstm_cell_launches != a.lstm_cell_launches:
+                raise AssertionError(
+                    f"{b.technique}/seed {b.seed}: {b.lstm_cell_launches} "
+                    f"lstm_cell launches in pid {b.pid}, "
+                    f"{a.lstm_cell_launches} serially")
+            total += b.lstm_cell_launches
+    return total
+
+
+def fabric_phase(serial: sweep.SweepResult, parity: dict) -> dict:
+    """``sweep_parity``'s grid (``serial.spec``: start, igru-sd and grass x
+    seeds 0, 1 at the paper's width, the networks on the card) served by
+    the fabric with ``REPRO_FABRIC_KEY`` set: first to agents of
+    ``FABRIC_LANES`` lanes, then, with ``REPRO_TEST_KILL_CELL`` armed at
+    ``FABRIC_KILL``, to two single-lane agents one of which dies mid-unit
+    holding a CUDA context.  Each grid must equal the serial one bit for
+    bit; START and IGRU-SD must run cells on the card in agents, each
+    START cell launching ``lstm_cell`` as often as serially; no library
+    may be built again; the grid reply must ship every current library,
+    and installing them elsewhere must give the same bytes."""
+    spec = serial.spec
+    libs = built_libraries()
+    env = {k: os.environ.get(k) for k in ("REPRO_FABRIC_KEY",
+                                         "REPRO_TEST_KILL_CELL")}
+    os.environ["REPRO_FABRIC_KEY"] = FABRIC_KEY
+    try:
+        lstm_cell.launches = 0
+        run = fabric_grid(spec, FABRIC_LANES)
+        here = lstm_cell.launches
+        with tempfile.TemporaryDirectory() as tmp:
+            marker = Path(tmp) / "killed-once"
+            os.environ["REPRO_TEST_KILL_CELL"] = ":".join(
+                map(str, (*FABRIC_KILL, marker)))
+            killed = fabric_grid(spec, FABRIC_KILL_LANES)
+            fired = marker.exists()
+            del os.environ["REPRO_TEST_KILL_CELL"]
+            current = {_build.target(src).name: src
+                       for src in _build.sources().values()}
+            installed = Path(tmp) / "kernels"
+            fabric.install_cache_files(run["shipped"], str(installed))
+            same = set(run["shipped"]) == set(current) and all(
+                (installed / n).read_bytes()
+                == (_build.BUILD_DIR / n).read_bytes() for n in current)
+    finally:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    res = run["res"]
+    hold_cells(serial, res, "fabric")
+    hold_cells(serial, killed["res"], "killed-agent fabric")
+    on_card = torch.device(DEVICE).type
+    in_agents = cells_in_workers(res, ("start", "igru-sd"), on_card)
+    launches = fabric_launches(serial, res)
+    fabric_launches(serial, killed["res"])
+    if on_card == "cuda" and (not libs or built_libraries() != libs):
+        raise AssertionError(f"kernel libraries {libs} became "
+                             f"{built_libraries()} in the fabric's runs")
+    if on_card == "cuda" and not same:
+        raise AssertionError(f"the grid shipped {sorted(run['shipped'])}, "
+                             f"the checkout's libraries are "
+                             f"{sorted(current)} (bytes equal: {same})")
+    if run["exitcodes"] != [0] * len(FABRIC_LANES) or here:
+        raise AssertionError(f"agents exited {run['exitcodes']}; "
+                             f"{here} launches in this process")
+    if not fired or sorted(killed["exitcodes"]) != [-9, 0]:
+        raise AssertionError(f"kill drill: marker {fired}, agents exited "
+                             f"{killed['exitcodes']}")
+    by_pid = collections.Counter(c.pid for c in res.cells)
+    first = run["pids"][0]
+    nodes = {f"agent0 (lanes 1, pid {first})": by_pid.pop(first, 0),
+             "agent1 (lanes 2), by lane": dict(by_pid)}
+    shipped = sum(map(len, run["shipped"].values()))
+    out = dict(cells=len(res.cells), wall_s=run["wall_s"],
+               killed_wall_s=killed["wall_s"], serial_s=parity["serial_s"],
+               pool_s=parity["parallel_s"], nodes=nodes,
+               in_agents=in_agents, lstm_cell_launches=launches,
+               stats=run["stats"], killed_stats=killed["stats"],
+               killed_exitcodes=killed["exitcodes"],
+               libraries_shipped=len(run["shipped"]),
+               library_bytes=shipped, payload_bytes=run["payload_bytes"])
+    print(f"[fabric] {len(res.cells)} cells ({', '.join(PARITY)} x seeds "
+          f"{PARITY_SEEDS}) served to agents of {FABRIC_LANES} lanes with "
+          f"REPRO_FABRIC_KEY: bit-equal to serial in every field; "
+          f"{run['wall_s']:.1f} s wall from spawning the agents (serial "
+          f"{parity['serial_s']:.1f} s, {PARITY_WORKERS} warm pool workers "
+          f"{parity['parallel_s']:.1f} s) [{CARD}]")
+    print(f"[fabric] cells by node: {nodes}; START and IGRU-SD in agents "
+          f"on {on_card} (seeds): {in_agents}; lstm_cell {launches} "
+          f"launches in the agents' START cells, each as serially, "
+          f"{here} in this process")
+    print(f"[fabric] steals {run['stats']['steals']}, duplicates dropped "
+          f"{run['stats']['duplicates']}; shipped {len(run['shipped'])} "
+          f"libraries, {shipped} bytes (every current one, installed "
+          f"elsewhere byte-equal: {same}), "
+          f"and {run['payload_bytes']} bytes of pretrained policies; no "
+          f"library rebuilt")
+    print(f"[fabric] kill drill: an agent SIGKILLed at {FABRIC_KILL} "
+          f"(exit codes {killed['exitcodes']}), the grid bit-equal in "
+          f"{killed['wall_s']:.1f} s, steals {killed['stats']['steals']}, "
+          f"duplicates {killed['stats']['duplicates']}")
+    return out
 
 
 # ------------------------------- phases 6 to 9 -------------------------------
@@ -4367,7 +4576,9 @@ def main() -> None:
         igru_gate = igru_train_gate()
         igru_sims = igru_lockstep()
         grid = paper_grid()
-        parity = sweep_parity()
+        parity, parity_serial = sweep_parity()
+    with phase("fabric"):
+        fabric_stats = fabric_phase(parity_serial, parity)
 
     with phase(f"{LM_ARCH} fp32 gate"):
         gate = lm_gate(LM_ARCH)
@@ -4449,6 +4660,7 @@ def main() -> None:
         launches_grid={k: v["lstm_cell_launches"]
                        for k, v in grid["cells"].items()
                        if v["lstm_cell_launches"]},
+        launches_fabric=fabric_stats["lstm_cell_launches"],
         launches_service={
             "per_tick": service["timing"]["cell_launches_per_tick"],
             "per_retrain": {t: service[t]["retrain"]["launches"]
@@ -4547,6 +4759,7 @@ def main() -> None:
                       "start_sim": start_sims}))
     print(json.dumps({"igru_train_gate": igru_gate, "igru_sim": igru_sims,
                       "grid": grid, "sweep_parity": parity}))
+    print(json.dumps({"fabric": fabric_stats}, default=str))
     print(json.dumps({"lm_fp32": {k: v for k, v in gate.items()
                                   if k != "flips"},
                       "lm_bf16": timing, "serve": served}))

@@ -1,6 +1,7 @@
 """Batched scenario-sweep subsystem for the port's cloud simulator (a
-copy of the JAX package's ``repro.sim.sweep``, without its distributed
-fabric and its XLA compilation cache).
+copy of the JAX package's ``repro.sim.sweep`` without its XLA
+compilation cache; ``run(spec, fabric=...)`` serves the grid to the node
+agents of ``repro_torch.sim.fabric``).
 
 The paper's headline results (Figs. 6-10, Table 4) are comparative grids —
 techniques x seeds x regimes — previously run serially through hand-rolled
@@ -62,6 +63,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.predictor import resolve_device
+from repro_torch.kernels.lstm_cell import lstm_cell
 from repro_torch.policy import Policy, PretrainContext
 from repro_torch.sim import scenarios as S
 from repro_torch.sim.config import SimConfig
@@ -99,6 +101,10 @@ class SweepSpec:
     csv_prefix: str = "sweep"
     pretrain_epochs: int = 8        # START encoder-LSTM pretraining epochs
     igru_epochs: int = 40           # IGRU-SD warmup-fit epochs
+    # extra ((knob, value), ...) pairs for third-party Pretrainable
+    # policies whose registry entry names an ``epochs_knob`` other than
+    # the two built-ins above (a dict is accepted, like ``overrides``)
+    pretrain_knobs: tuple = ()
     # per-technique constructor keywords, ((name, ((kw, value), ...)), ...)
     # — a dict-of-dicts is accepted: technique_kwargs={"single-fork":
     # {"p": 0.7}} sweeps a policy's own knobs without registering a
@@ -108,11 +114,18 @@ class SweepSpec:
     # in ``repro_torch.policy``); ``device`` places START, START-eager
     # and IGRU-SD ({"igru-sd": {"device": "cpu"}})
     technique_kwargs: tuple = ()
+    # pretrain on the scenario base config with only dimension-changing
+    # overrides (n_hosts/max_tasks, see _PRETRAIN_KEYS) kept — so a sweep
+    # over regime/QoS knobs (arrival_rate, reserved_utilization, ...)
+    # shares one trained controller per scenario.  Set False to train
+    # inside every cell's exact regime instead.
+    shared_pretrain: bool = True
 
     def __post_init__(self):
-        if isinstance(self.overrides, dict):     # accept dict spelling
-            object.__setattr__(self, "overrides",
-                               tuple(self.overrides.items()))
+        for f in ("overrides", "pretrain_knobs"):  # accept dict spelling
+            if isinstance(getattr(self, f), dict):
+                object.__setattr__(self, f,
+                                   tuple(getattr(self, f).items()))
         tk = self.technique_kwargs
         if isinstance(tk, dict):
             tk = tuple(tk.items())
@@ -120,7 +133,7 @@ class SweepSpec:
             (name, tuple(sorted(kw.items())) if isinstance(kw, dict)
              else tuple(kw)) for name, kw in tk))
         for f in ("techniques", "seeds", "scenarios", "overrides",
-                  "metrics"):
+                  "metrics", "pretrain_knobs"):
             object.__setattr__(self, f, tuple(getattr(self, f)))
         # an empty grid axis would surface as a bare IndexError deep in
         # pretrain_payload (spec.seeds[0]) or a silently empty CSV from
@@ -167,10 +180,8 @@ class SweepSpec:
         return S.make_config(scenario, seed=seed, **sizing, **extra)
 
     def pretrain_config(self, scenario: str, seed: int) -> SimConfig:
-        """Where a cell's technique pretrains: the scenario base with only
-        the dimension overrides (regime/QoS overrides stripped), so a
-        sweep over regime knobs shares one trained controller per
-        scenario."""
+        """Shared-pretrain environment: scenario base + dimension
+        overrides only (regime/QoS overrides stripped)."""
         extra = {k: v for k, v in dict(self.overrides).items()
                  if k in self._PRETRAIN_KEYS}
         return S.make_config(scenario, seed=seed,
@@ -188,6 +199,7 @@ class CellResult:
     wall_s: float
     pid: int = 0                # the process that ran the cell
     device: str | None = None   # the technique's ``device``, if it has one
+    lstm_cell_launches: int = 0  # kernel launches the cell made
 
 
 # --------------------- technique construction (cached) ---------------------
@@ -218,20 +230,22 @@ def _warm_view(cfg: SimConfig):
 def make_technique(name: str, cfg: SimConfig, *, pretrain_cfg=None,
                    pretrain_epochs: int = 8,
                    igru_epochs: int = 40,
+                   extra_knobs: dict | None = None,
                    technique_kwargs: dict | None = None,
                    pretrained: bytes | None = None) -> Policy:
     """Fresh technique instance for one cell.
 
     Dispatch is fully generic: the registry entry says whether (and how)
     a technique pretrains — ``entry.pretrain.fn`` builds the trained
-    instance, ``entry.pretrain.epochs_knob`` names which of this
-    function's two epoch keywords feeds it (any other knob raises rather
-    than silently training at a default).  Trained
+    instance, ``entry.pretrain.epochs_knob`` names which epoch knob
+    feeds it (one of this function's two built-in keywords, or a key in
+    ``extra_knobs`` — SweepSpec's ``pretrain_knobs``; an undeclared knob
+    raises rather than silently training at a default).  Trained
     policies are cached pickled per (name, base config[, epochs],
     kwargs) per process on fixed seeds (7 train / 9 warmup); every call
     returns a NEW object — safe to bind to a Simulation.
     ``pretrain_cfg`` decouples the training environment from the cell
-    config (``SweepSpec.pretrain_config``).  ``technique_kwargs`` are
+    config (shared-pretrain sweeps).  ``technique_kwargs`` are
     constructor keywords (SweepSpec's per-technique knobs); pretrained
     policies receive them via ``PretrainContext.kwargs``.
     ``pretrained`` (pickled policy bytes, as produced by
@@ -242,7 +256,7 @@ def make_technique(name: str, cfg: SimConfig, *, pretrain_cfg=None,
     entry, key, pcfg, epochs, tkw = _pretrain_entry(
         name, cfg, pretrain_cfg=pretrain_cfg,
         pretrain_epochs=pretrain_epochs, igru_epochs=igru_epochs,
-        technique_kwargs=technique_kwargs)
+        extra_knobs=extra_knobs, technique_kwargs=technique_kwargs)
     if entry.pretrain is None:
         return entry.factory(**tkw)
     if key not in _PRETRAINED:
@@ -258,6 +272,7 @@ def make_technique(name: str, cfg: SimConfig, *, pretrain_cfg=None,
 
 def _pretrain_entry(name: str, cfg: SimConfig, *, pretrain_cfg=None,
                     pretrain_epochs: int = 8, igru_epochs: int = 40,
+                    extra_knobs: dict | None = None,
                     technique_kwargs: dict | None = None):
     """Resolve a technique's registry entry and its pretrain cache key —
     shared by cell-side construction and the parent's payload broadcast."""
@@ -271,12 +286,15 @@ def _pretrain_entry(name: str, cfg: SimConfig, *, pretrain_cfg=None,
     pcfg = pretrain_cfg if pretrain_cfg is not None else cfg
     # key on the epoch knob the technique actually consumes, so an
     # irrelevant knob changing doesn't evict/duplicate a trained entry
-    knobs = {"pretrain_epochs": pretrain_epochs, "igru_epochs": igru_epochs}
+    knobs = {"pretrain_epochs": pretrain_epochs,
+             "igru_epochs": igru_epochs, **(extra_knobs or {})}
     epochs_knob = entry.pretrain.epochs_knob
     if epochs_knob is not None and epochs_knob not in knobs:
         raise ValueError(
             f"technique {name!r} declares epochs_knob={epochs_knob!r}, "
-            f"which is not a sweep knob ({sorted(knobs)})")
+            f"which is not a built-in sweep knob ({sorted(knobs)}); pass "
+            f"it via SweepSpec(pretrain_knobs={{{epochs_knob!r}: ...}}) "
+            f"or make_technique(extra_knobs=...)")
     epochs = knobs.get(epochs_knob)
     key = (name, _base_key(pcfg), tuple(sorted(tkw.items()))) \
         + ((epochs,) if epochs_knob else ())
@@ -298,8 +316,9 @@ def pretrain_payload(spec: SweepSpec, scenario: str,
     seed = int(spec.seeds[0])
     entry, key, pcfg, epochs, tkw = _pretrain_entry(
         technique, spec.cell_config(scenario, seed),
-        pretrain_cfg=spec.pretrain_config(scenario, seed),
+        pretrain_cfg=_shared_pretrain_config(spec, scenario, seed),
         pretrain_epochs=spec.pretrain_epochs, igru_epochs=spec.igru_epochs,
+        extra_knobs=dict(spec.pretrain_knobs),
         technique_kwargs=spec.kwargs_for(technique))
     if entry.pretrain is None:
         return None
@@ -309,6 +328,16 @@ def pretrain_payload(spec: SweepSpec, scenario: str,
                               kwargs=dict(tkw))
         _PRETRAINED[key] = pickle.dumps(entry.pretrain.fn(ctx))
     return _PRETRAINED[key]
+
+
+def _shared_pretrain_config(spec: SweepSpec, scenario: str,
+                            seed: int) -> SimConfig | None:
+    """Where a cell's technique pretrains when it is not its own cell
+    config: ``spec.pretrain_config`` for a shared-pretrain spec with
+    overrides, else ``None`` (the cell config)."""
+    if spec.shared_pretrain and spec.overrides:
+        return spec.pretrain_config(scenario, seed)
+    return None
 
 
 # ------------------------------ cell runner --------------------------------
@@ -323,11 +352,14 @@ def run_cell(spec: SweepSpec, scenario: str, technique: str, seed: int,
     _maybe_kill_for_test(scenario, technique, seed)
     cfg = spec.cell_config(scenario, seed)
     tech = make_technique(technique, cfg,
-                          pretrain_cfg=spec.pretrain_config(scenario, seed),
+                          pretrain_cfg=_shared_pretrain_config(
+                              spec, scenario, seed),
                           pretrain_epochs=spec.pretrain_epochs,
                           igru_epochs=spec.igru_epochs,
+                          extra_knobs=dict(spec.pretrain_knobs),
                           technique_kwargs=spec.kwargs_for(technique),
                           pretrained=pretrained)
+    launches = lstm_cell.launches
     t0 = time.perf_counter()
     sim = Simulation(cfg, technique=tech)
     summary = sim.run()
@@ -335,7 +367,8 @@ def run_cell(spec: SweepSpec, scenario: str, technique: str, seed: int,
                       summary=summary,
                       wall_s=time.perf_counter() - t0, pid=os.getpid(),
                       device=str(tech.device) if hasattr(tech, "device")
-                      else None)
+                      else None,
+                      lstm_cell_launches=lstm_cell.launches - launches)
 
 
 def _run_unit(spec: SweepSpec, cells: tuple,
@@ -356,7 +389,10 @@ def _worker_init(n_threads: int) -> None:
     (so a worker's CPU reductions split as the parent's do), then pay the
     import cost (torch + simulator stack + techniques) up front — spawn
     overlaps the parent's pretraining and first locally-run units.  The
-    serial == parallel bitwise assertions cover every sweep."""
+    serial == parallel bitwise assertions cover every sweep.  Workers
+    are not pinned to a core each (the JAX sweep pins them because XLA
+    sizes its pool from the affinity): ``n_threads`` threads on one
+    core would oversubscribe it."""
     torch.set_num_threads(n_threads)
     import repro_torch.sim.techniques  # noqa: F401
 
@@ -574,6 +610,7 @@ def _prebuild_kernels(spec: SweepSpec) -> None:
     built libraries instead of each starting its own ``nvcc``.  Raises
     when the card is asked for and absent, before any worker starts."""
     from repro_torch import policy
+    import repro_torch.sim.techniques  # noqa: F401  (registers them)
 
     on_card = False
     for tech in spec.techniques:
@@ -599,6 +636,26 @@ def _build_payloads(spec: SweepSpec) -> dict:
     return payloads
 
 
+def warm_pool_caches(spec: SweepSpec, n_workers: int) -> float:
+    """Populate every worker's pretrain caches for ``spec`` (each worker
+    runs the first-seed cell of every technique, so it unpickles each
+    trained policy and loads the kernels it uses); returns the wall
+    seconds.  Like :func:`warm_pool` this moves one-time bring-up cost
+    out of the first measured grid."""
+    t0 = time.perf_counter()
+    _prebuild_kernels(spec)
+    warm_pool(n_workers)
+    payloads = _build_payloads(spec)
+    # the first-seed slice of the grid covers every (scenario, technique)
+    unit = tuple((sc, tech, int(spec.seeds[0]))
+                 for sc in spec.scenarios for tech in spec.techniques)
+    pool = _pool(n_workers)
+    for f in [pool.submit(_run_unit_star, (spec, unit, payloads))
+              for _ in range(n_workers)]:
+        f.result()
+    return time.perf_counter() - t0
+
+
 def _schedule_units(spec: SweepSpec, n_workers: int) -> list[tuple]:
     """Partition the grid into ordered scheduling units.
 
@@ -619,10 +676,16 @@ def _schedule_units(spec: SweepSpec, n_workers: int) -> list[tuple]:
     return units
 
 
-def run(spec: SweepSpec) -> SweepResult:
+def run(spec: SweepSpec, *, fabric=None) -> SweepResult:
     """Execute the sweep grid; parallel over the persistent spawned process
     pool unless ``spec.max_workers <= 1``. Cell order in the result is
     deterministic (scenario-major, as produced by ``spec.cells()``).
+
+    ``fabric`` accepts a started :class:`repro_torch.sim.fabric.
+    FabricCoordinator`: the grid is then served to its node agents
+    instead of the local pool — same units, same payloads, same bitwise
+    guarantee (every cell stays a pure function of the spec, wherever it
+    runs).
 
     Parallel scheduling (all bitwise-neutral — every cell is a pure
     function of the spec, wherever it runs):
@@ -637,6 +700,8 @@ def run(spec: SweepSpec) -> SweepResult:
         steals back not-yet-started submissions — a cold-pool sweep is
         never slower than running serially.
     """
+    if fabric is not None:
+        return fabric.run_grid(spec)
     cells = spec.cells()
     n_workers = spec.max_workers
     if n_workers is None:

@@ -2,8 +2,9 @@
 ``chip_smoke.py`` imports ``jax`` or the JAX package ``repro``, and
 building and running the port's controller, its LM serving engine
 (dense and MoE), its SSM trainer, START's pretraining and a START-eager
-simulation, and a prediction service's tick and a daemon's TCP round
-trip on the CPU loads neither."""
+simulation, a prediction service's tick and a daemon's TCP round trip,
+and a sweep grid served by the fabric to an in-thread node agent on the
+CPU loads neither."""
 import ast
 import os
 import subprocess
@@ -70,7 +71,9 @@ def test_the_scan_sees_every_port_module():
             "src/repro_torch/train/checkpoint.py",
             "src/repro_torch/chaos/__init__.py",
             "src/repro_torch/chaos/clock.py",
-            "src/repro_torch/chaos/proxy.py"} <= names
+            "src/repro_torch/chaos/proxy.py",
+            "src/repro_torch/sim/sweep.py",
+            "src/repro_torch/sim/fabric.py"} <= names
     assert _imported_roots(ROOT / "src" / "repro" / "core" / "start.py") \
         >= {"repro", "numpy"}
 
@@ -136,6 +139,23 @@ def test_running_the_port_loads_no_jax():
         "    r = c.snapshot(snap)\n"
         "    c.bye()\n"
         "assert r['jobs'] == p.result['jobs']\n"
+        "import threading\n"
+        "from repro_torch.sim import sweep\n"
+        "from repro_torch.sim.fabric import FabricCoordinator, "
+        "FabricWorker\n"
+        "spec = sweep.SweepSpec(techniques=('none', 'start'), "
+        "n_hosts=8, n_intervals=12, pretrain_epochs=1, max_workers=1, "
+        "technique_kwargs={'start': {'device': 'cpu'}})\n"
+        "with FabricCoordinator() as coord:\n"
+        "    w = FabricWorker(coord.host, coord.port, node='iso', "
+        "exit_on_drain=False)\n"
+        "    th = threading.Thread(target=w.run, daemon=True)\n"
+        "    th.start()\n"
+        "    res = coord.run_grid(spec, timeout=60)\n"
+        "    w.stop()\n"
+        "    th.join(timeout=20)\n"
+        "assert not th.is_alive() and w.cells_done == 2\n"
+        "assert [c.technique for c in res.cells] == ['none', 'start']\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n")
