@@ -32,6 +32,8 @@ Phases:
    version and timed at falcon-mamba-7b's longest prefill; the flash
    and router autograd Functions' gradients against autograd through
    the plain versions, timed beside them and (flash) SDPA's backward;
+   flash and decode also at the GQA groups 3, 6 and 8 (64 heads) of the
+   archs ported last, and the router at deepseek-v3's 256 experts;
 4. the decision slice: ``STARTController`` at the paper's width (400
    hosts x 11 features, 10 tasks per job, horizon 5), fed seeded
    telemetry, in both triggers, on the card and on the CPU from the same
@@ -145,6 +147,18 @@ Phases:
    the copies the training capacity drops counted; the repeated step
    bit-equal, so the recompute routes as the forward), bf16 at 4 layers
    as phase 12c;
+12e. the decoder-only archs ported last, each at full width with the
+   depth cuts of ``NEW_LM``: minitron-4b and phi4-mini-3.8b (GQA group
+   3), deepseek-67b (group 8 at 64 heads), internvl2-26b (group 6; its
+   256 seeded patch embeddings before three of the prompts, through
+   prefill and decode, fp32 against the plain path as in phase 7, and in
+   its training batches) and deepseek-v3-671b (MLA through the plain
+   attention functions, the dense prefix, the shared expert, 256-expert
+   routing; its absorbed decode also against a longer prefill; its
+   training with the expert count cut): each an fp32 serving gate as
+   phases 7 and 9, bf16 serving as phase 8 (``launch.serve`` where the
+   whole model fits), an fp32 training gate and bf16 training as phases
+   12c and 12d, and ``repro_torch.launch.train --reduced`` on the card;
 13. the multi-tenant prediction service at the paper's width
    (``Profile(n_hosts=400, max_tasks=10, horizon=5, k=1.5)``), in both
    triggers: a service on the card and its CPU twin from one weight set
@@ -316,6 +330,13 @@ FLASH_SWEEP = [(1, 4, 4, 128, 64, True), (1, 4, 2, 256, 64, True),
                (2, 8, 1, 128, 128, True), (1, 2, 2, 192, 64, False),
                (1, 4, 2, 100, 128, True)]
 FLASH_PATH = [(1, 32, 4, s, 128, True) for s in (12, 512, 2048, 3000)]
+# the other GQA geometries of the model paths, checked after the path
+# shapes (their seeds follow): group 3 (minitron-4b, phi4-mini-3.8b), 6
+# (internvl2-26b, with its 256 patches before 12 and 3000 tokens: ragged
+# key tiles) and 8 at H = 64 (deepseek-67b)
+FLASH_GQA = [(1, 24, 8, 300, 128, True), (1, 24, 8, 3000, 128, True),
+             (1, 48, 8, 268, 128, True), (1, 48, 8, 3256, 128, True),
+             (1, 64, 8, 300, 128, True), (1, 64, 8, 3000, 128, True)]
 # the Function's gradients: yi-6b's head layout at S = 2048
 FLASH_GRAD = (1, 32, 4, 2048, 128, True)
 # timed: bf16 (the tensor-core kernel) at both long prefills, fp32 (the
@@ -328,6 +349,10 @@ DECODE_SWEEP = [(1, 4, 4, 512, 64, 512), (2, 8, 2, 1024, 128, 700),
                 (1, 16, 2, 512, 128, 512), (1, 4, 1, 300, 64, 300)]
 DECODE_PATH = [(1, 32, 4, 4096, 128, n) for n in (1, 28, 513, 3016, 4096)]
 DECODE_PROFILED = (28, 513, 3016, 4096)   # device time per launch
+# those geometries' decode against a 4096-long cache
+DECODE_GQA = [(1, 24, 8, 4096, 128, 28), (1, 24, 8, 4096, 128, 3016),
+              (1, 48, 8, 4096, 128, 269), (1, 48, 8, 4096, 128, 3272),
+              (1, 64, 8, 4096, 128, 4096)]
 # fp32: max abs; bf16: the sweep's allclose tolerance
 ATTN_TOL = {torch.float32: dict(rtol=0.0, atol=2e-5),
             torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
@@ -350,6 +375,8 @@ DECODE = dict(source="src/repro_torch/kernels/decode_attention/csrc/"
 # token, the shortest and the longest prompt)
 ROUTER_SWEEP = [(256, 8, 2), (512, 128, 8), (300, 256, 8), (64, 16, 2)]
 ROUTER_PATH = [(t, 128, 8) for t in (1, 12, 3000)]
+# deepseek-v3's router shapes (E = 256, k = 8), checked after the path's
+ROUTER_V3 = [(t, 256, 8) for t in (1, 12, 3000)]
 ROUTER_ATOL = 1e-6           # weights, taken expert by expert, max abs
 ROUTER = dict(source="src/repro_torch/kernels/moe_router/csrc/moe_router.cu",
               replaces="src/repro/kernels/moe_router/moe_router.py:24")
@@ -372,6 +399,13 @@ DEVICE = "cuda"
 # its 48 layers (8.1 B params, 32.4 GB: all 48 in fp32 are 122 GB)
 MOE_ARCH = "qwen3-moe-30b-a3b"
 MOE_GATE_LAYERS = 12
+# the smoke's time: since the archs ported last joined it, the bf16 MoE
+# serving run keeps 12 of qwen3's 48 layers (80-115 s a run at 48, 56-97
+# at 24), and falcon-mamba-7b's serving gate and bf16 serving run 16 of
+# its 64 (the plain scan's teacher forcing took 80-100 s each at 64,
+# 47-67 at 32); ``launch.serve`` still serves both whole
+MOE_SERVE_LAYERS = 12
+SSM_SERVE_LAYERS = 16
 NEAR_TIE = 1e-5              # k-th vs (k+1)-th probability, relative
 # (b, l, d, n): the JAX scan sweep (tests/test_kernels.py MAMBA_SWEEP),
 # ragged shapes, then falcon-mamba-7b's training shapes (B x L x d_inner
@@ -422,6 +456,45 @@ DENSE_GATE_LAYERS, MOE_TRAIN_GATE_LAYERS = 4, 2
 LM_GATE_BATCH, LM_GATE_SEQ = 2, 256
 DENSE_LAYERS, MOE_TRAIN_LAYERS = 16, 4
 LM_BATCH, LM_SEQ = 2, 2048
+# the decoder-only archs ported last, each at full width: the fp32
+# serving gate's and the bf16 serving run's layers (None: all), whether
+# ``launch.serve`` serves it whole, the fp32 training gate's (layers,
+# expert count; None: the config's) at LM_GATE_BATCH x LM_GATE_SEQ, and
+# the bf16 training run's (layers, batch, seq, expert count).  Depth is
+# cut by memory (params: ``param_count``; training ~12 B a parameter in
+# bf16, 16 in fp32 plus the gate's three snapshots, 12 more): deepseek-67b
+# serves 48 of 95 layers in bf16 (34.9 B params, 70 GB), its fp32 gate 16
+# (12.75 B, 51 GB), its training gate 1 and bf16 training 4 (4.45 B, 53
+# GB); internvl2-26b's fp32 gate 24 of 48 (10.5 B, 42 GB), training gate
+# 2, bf16 training 8 (4.28 B, 51 GB); minitron-4b and phi4-mini-3.8b
+# train 4 layers in the gate and 16 in bf16 (3.33 / 2.84 B).
+# deepseek-v3-671b keeps its 3 dense MLA layers and 2 (bf16) or 1 (fp32)
+# MoE layers of all 256 experts in serving (26.64 / 15.14 B); in training
+# the 256 experts' AdamW moments alone (11.3 B x 8 B per MoE layer) pass
+# the card, so its training cuts the expert count, the one width-like cut:
+# 16 in the fp32 gate (4.54 B x 16 B = 73 GB, the snapshots in host
+# memory, as deepseek-67b's: its 1-layer gate's 2.37 B x 28 B ran out of
+# the card), 32 in bf16 (5.24 B x 12 B = 63 GB) at 2 x 1024 tokens (its
+# plain MLA attention's (B, 128, S, S) fp32 scores are 4.3 GB a temporary
+# at 2 x 2048); top-8, the expert width, the MLA ranks and the dense
+# prefix stay
+NEW_LM = {
+    "minitron-4b": dict(gate=None, serve=None, serve_entry=True,
+                        train_gate=(4, None), train=(16, 2, 2048, None)),
+    "phi4-mini-3.8b": dict(gate=None, serve=None, serve_entry=True,
+                           train_gate=(4, None),
+                           train=(16, 2, 2048, None)),
+    "deepseek-67b": dict(gate=16, serve=48, serve_entry=False,
+                         train_gate=(1, None), train=(4, 2, 2048, None),
+                         host_snapshots=True),
+    "internvl2-26b": dict(gate=24, serve=None, serve_entry=True,
+                          train_gate=(2, None), train=(8, 2, 2048, None)),
+    "deepseek-v3-671b": dict(gate=4, serve=5, serve_entry=False,
+                             train_gate=(4, 16), train=(4, 2, 1024, 32),
+                             host_snapshots=True),
+}
+# the vlm's prompts served after its patch embeddings
+PATCH_PROMPTS = (12, 300, 3000)
 # LM training: GATE_STEPS steps in each fp32 gate, 1 warm and TIMED_STEPS
 # timed in each bf16 run; OptConfig's default lr (3e-4) and launch.train's
 # warmup rule (5 steps)
@@ -620,7 +693,8 @@ def check_flash() -> dict:
     sdpa = torch.nn.functional.scaled_dot_product_attention
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     rows = []
-    for i, (b, h, hkv, s, d, causal) in enumerate(FLASH_SWEEP + FLASH_PATH):
+    for i, (b, h, hkv, s, d, causal) in enumerate(FLASH_SWEEP + FLASH_PATH
+                                                  + FLASH_GQA):
         label = f"B={b} H={h} Hkv={hkv} S={s} D={d} causal={causal}"
         for dtype in (torch.float32, torch.bfloat16):
             g = torch.Generator().manual_seed(100 + i)
@@ -712,7 +786,8 @@ def check_decode(floor: float) -> dict:
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     excess, control = -float("inf"), float("inf")   # bf16 gate readings
     rows, device = [], {}
-    for i, (b, h, hkv, s, d, n) in enumerate(DECODE_SWEEP + DECODE_PATH):
+    for i, (b, h, hkv, s, d, n) in enumerate(DECODE_SWEEP + DECODE_PATH
+                                             + DECODE_GQA):
         label = f"B={b} H={h} Hkv={hkv} S={s} D={d} kv_len={n}"
         for dtype in (torch.float32, torch.bfloat16):
             g = torch.Generator().manual_seed(200 + i)
@@ -835,7 +910,7 @@ def _compare_routing(label, got, want, worst, dtype) -> None:
 def check_router(floor: float) -> dict:
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     rows, device = [], {}
-    for i, (t, e, k) in enumerate(ROUTER_SWEEP + ROUTER_PATH):
+    for i, (t, e, k) in enumerate(ROUTER_SWEEP + ROUTER_PATH + ROUTER_V3):
         label = f"T={t} E={e} k={k}"
         for dtype in (torch.float32, torch.bfloat16):
             g = torch.Generator().manual_seed(300 + i)
@@ -2616,9 +2691,12 @@ def reset_launches() -> None:
 
 
 def layer_counts(cfg) -> dict:
-    """Layers of each kind: attention, MoE, SSM."""
-    return dict(attn=sum(cfg.is_attention_layer(i)
-                         for i in range(cfg.n_layers)),
+    """Layers of each kind: attention through the kernels (GQA), MLA
+    (the plain attention functions, as in the JAX package: no kernel),
+    MoE, SSM."""
+    n_attn = sum(cfg.is_attention_layer(i) for i in range(cfg.n_layers))
+    return dict(attn=0 if cfg.use_mla else n_attn,
+                mla=n_attn if cfg.use_mla else 0,
                 moe=sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers)),
                 ssm=cfg.n_layers if cfg.family == "ssm" else 0)
 
@@ -2667,7 +2745,8 @@ def serve_engine(model: Model, params, prompts) -> dict:
           f"({len(prompts)} prefills + {decoded} decoded tokens), "
           f"mamba_scan_with_state {launches['mamba_scan_with_state']} = "
           f"{n['ssm']} x {len(prompts)} prefills (the SSM decode is plain "
-          f"ops)")
+          f"ops)" + (f"; {n['mla']} MLA layers attend through the plain "
+                     f"functions, no kernel" if n["mla"] else ""))
     return dict(done=sorted(done, key=lambda r: r.req_id), rec=rec,
                 routes=log.calls, wall_s=wall, tokens=tokens,
                 launches=launches)
@@ -2818,8 +2897,12 @@ def lm_gate(arch: str, n_layers: int | None = None) -> dict:
     if cfg.family == "ssm":
         out["fp64"] = ssm_against_fp64(model, params,
                                        prompts[:FP64_PROMPTS])
+    if cfg.family == "ssm" or cfg.use_mla:
+        # MLA: the absorbed latent decode against the expanded attention
         out["prefill_then_decode"] = prefill_then_decode(
             model, params, prompts[:3], tol)
+    if cfg.family == "vlm":
+        out["patches"] = vlm_patches(model, params, prompts, hold=True)
     del params, served
     free_cuda()
     return out
@@ -2922,13 +3005,15 @@ def _sync_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def lm_timing(arch: str) -> dict:
-    """bf16, the config's own dtype, at full width and depth: the
-    engine's run, warm TTFT per prompt length (prefill, cache padding and
-    the first token, one request alone), warm decode ms per token, drift
-    and routing differences against the plain path, and profiled windows
-    of decode steps and of the longest prefill."""
-    cfg = get_config(arch)
+def lm_timing(arch: str, n_layers: int | None = None) -> dict:
+    """bf16, the config's own dtype, at full width and depth (unless
+    ``n_layers`` cuts it): the engine's run, warm TTFT per prompt length
+    (prefill, cache padding and the first token, one request alone), warm
+    decode ms per token, drift and routing differences against the plain
+    path, and profiled windows of decode steps and of the longest
+    prefill; for a vlm, the same prompts after its patch embeddings."""
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=n_layers or full.n_layers)
     model = Model(cfg)
     params = model.init(SEED, DEVICE)
     prompts = lm_prompts(cfg.vocab)
@@ -3000,9 +3085,111 @@ def lm_timing(arch: str) -> dict:
                peak_gib=peak, max_abs_drift=tf["max_abs_drift"],
                agree=tf["agree"], steps=tf["steps"], flips=len(tf["flips"]),
                routing=dict(tf["routing"], first=len(tf["routing"]["first"])))
+    if cfg.family == "vlm":
+        out["patches"] = vlm_patches(model, params, prompts, hold=False)
     del params, served
     free_cuda()
     return out
+
+
+def patch_embeds(cfg, seed: int = SEED):
+    """The vlm's image stub: ``frontend_tokens`` seeded embeddings at the
+    model width, (1, P, d) on the card in the config's dtype."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(1, cfg.frontend_tokens, cfg.d_model,
+                       generator=g).to(DEVICE, cfg.dtype)
+
+
+def vlm_patches(model: Model, params, prompts, hold: bool) -> dict:
+    """``prefill`` with the patch embeddings before each of
+    ``PATCH_PROMPTS``' prompts, then ``MAX_NEW`` greedy ``decode_step``s
+    (positions P + S on), through the kernels (launch counts set to 0
+    just before and read just after), then teacher-forced through the
+    plain path: logit drift, greedy agreement, warm TTFT with the patches.
+    With ``hold`` (fp32) the drift must stay within LOGIT_TOL and the
+    tokens may differ only at a top-2 tie."""
+    cfg = model.cfg
+    pe = patch_embeds(cfg)
+    p_len = pe.shape[1]
+    sel = [prompts[PROMPT_LENS.index(n)] for n in PATCH_PROMPTS]
+
+    def run(p, forced=None):
+        toks = torch.as_tensor(p, device=DEVICE)[None]
+        logits, caches = model.prefill(params, {"tokens": toks,
+                                                "patch_embeds": pe})
+        caches = pad_to_length(caches, p_len + len(p) + MAX_NEW)
+        out, steps = [], [logits[0, -1]]
+        for j in range(MAX_NEW - 1):
+            tok = int(torch.argmax(steps[-1])) if forced is None \
+                else forced[j]
+            out.append(tok)
+            logits, caches = model.decode_step(
+                params, caches, torch.tensor([[tok]], device=DEVICE),
+                p_len + len(p) + j)
+            steps.append(logits[0, -1])
+        out.append(int(torch.argmax(steps[-1])))
+        return out, steps
+
+    torch.cuda.synchronize()
+    reset_launches()
+    kern = [run(p) for p in sel]
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    n = layer_counts(cfg)
+    want = {k: 0 for k in launches}
+    want.update(flash_attention=n["attn"] * len(sel),
+                decode_attention=(LAUNCHES_PER_CALL * n["attn"] * len(sel)
+                                  * (MAX_NEW - 1)))
+    if launches != want:
+        raise AssertionError(f"patches: launches {launches}, expected "
+                             f"{want}")
+    drift, agree, flips = 0.0, 0, []
+    before = kernel_launches()
+    with plain_path():
+        for p, (toks, steps) in zip(sel, kern):
+            _, plain = run(p, forced=toks)
+            for j, (a, b) in enumerate(zip(steps, plain)):
+                if not torch.isfinite(b).all():
+                    raise AssertionError("plain path: non-finite logits")
+                drift = max(drift, (a - b).abs().max().item())
+                if int(torch.argmax(b)) == toks[j]:
+                    agree += 1
+                    continue
+                top2 = torch.topk(b, 2).values
+                flips.append(dict(s=len(p), step=j,
+                                  margin=(top2[0] - top2[1]).item()))
+    if kernel_launches() != before:
+        raise AssertionError("the plain path launched a kernel")
+    ttft = {}
+    for p in sel:
+        toks = torch.as_tensor(p, device=DEVICE)[None]
+
+        def first():
+            logits, _ = model.prefill(params, {"tokens": toks,
+                                               "patch_embeds": pe})
+            int(torch.argmax(logits[0, -1]))
+
+        ttft[p_len + len(p)] = float(np.median([_sync_ms(first)
+                                                for _ in range(3)]))
+    steps = len(sel) * MAX_NEW
+    print(f"[lm] {cfg.name} {str(cfg.dtype)[6:]} with {p_len} patch "
+          f"embeddings before {PATCH_PROMPTS} tokens: launches "
+          f"flash_attention {launches['flash_attention']} = {n['attn']} x "
+          f"{len(sel)} prefills, decode_attention "
+          f"{launches['decode_attention']} = {n['attn']} x {len(sel)} x "
+          f"{MAX_NEW - 1}; kernels vs plain path max abs logit drift "
+          f"{drift:.3e}, greedy tokens equal {agree}/{steps}; TTFT ms by "
+          f"positions (warm) {ttft}")
+    if hold:
+        if not drift <= LOGIT_TOL:
+            raise AssertionError(f"patches: fp32 logits drift {drift}")
+        bad = [f for f in flips if f["margin"] >= LOGIT_TOL]
+        if bad:
+            raise AssertionError(f"patches: greedy tokens differ away from "
+                                 f"a top-2 tie: {bad}")
+    return dict(patches=p_len, prompts=PATCH_PROMPTS, launches=launches,
+                max_abs_drift=drift, agree=agree, steps=steps,
+                flips=len(flips), ttft_ms=ttft)
 
 
 def profile_window(label: str, fn, reps: int) -> dict:
@@ -3066,19 +3253,16 @@ def plain_training():
         backend.attention, backend.moe_router, backend.mamba_scan = saved
 
 
-def _trainer(arch: str, n_layers: int, dtype: str | None = None):
+def _trainer(arch: str, n_layers: int, dtype: str | None = None,
+             experts: int | None = None):
     full = get_config(arch)
     cfg = dataclasses.replace(full, n_layers=n_layers,
-                              param_dtype=dtype or full.param_dtype)
+                              param_dtype=dtype or full.param_dtype,
+                              n_experts=experts or full.n_experts)
     model = Model(cfg)
     return cfg, model, Trainer(model, mesh=None,
                                opt_cfg=Opt.OptConfig(**LM_OPT),
                                device=DEVICE)
-
-
-def clone(tree: dict) -> dict:
-    return {k: clone(v) if isinstance(v, dict) else v.clone()
-            for k, v in tree.items()}
 
 
 def tree_rel(got: dict, want: dict) -> tuple[float, float]:
@@ -3127,7 +3311,19 @@ def counting_drops():
         Moe.grouped_ffn = real
 
 
-def train_gate(arch: str, n_layers: int, batch: int, seq: int) -> dict:
+def lm_batch(cfg, data: SyntheticLM, i: int) -> dict:
+    """Step i's batch; a vlm's also carries its seeded patch embeddings
+    (the loss drops their positions before the head)."""
+    b = data.batch(i)
+    if cfg.family == "vlm":
+        b["patch_embeds"] = patch_embeds(cfg, SEED + i).expand(
+            b["tokens"].shape[0], -1, -1).contiguous()
+    return b
+
+
+def train_gate(arch: str, n_layers: int, batch: int, seq: int,
+               experts: int | None = None,
+               host_snapshots: bool = False) -> dict:
     """fp32 at full width, ``n_layers`` layers.  The main path:
     ``Trainer``'s ``GATE_STEPS`` steps through the kernels, launch counts
     set to 0 just before and read just after.  Then, from the params
@@ -3139,15 +3335,26 @@ def train_gate(arch: str, n_layers: int, batch: int, seq: int) -> dict:
     held, the plain path's own steps from the same start: Adam's first
     steps divide each gradient by its own magnitude, so where a gradient
     is near 0 the two paths' fp32 noise moves the params apart, and the
-    losses drift apart step by step."""
-    cfg, model, trainer = _trainer(arch, n_layers, "float32")
+    losses drift apart step by step.  ``experts`` cuts the MoE layers'
+    expert count; with ``host_snapshots`` the params before each step are
+    kept in host memory (deepseek-v3's fp32 params, gradients and AdamW
+    moments fill the card)."""
+    cfg, model, trainer = _trainer(arch, n_layers, "float32", experts)
+    keep = (lambda t: t.to("cpu", copy=True)) if host_snapshots \
+        else (lambda t: t.clone())
+
+    def fresh(tree):
+        return convert.tree_map(lambda t: t.to(DEVICE, copy=True), tree)
+
+    def on_card(tree):
+        return convert.tree_map(lambda t: t.to(DEVICE), tree)
     matmul = torch.backends.cuda.matmul
     if (matmul.allow_tf32 or torch.backends.cudnn.allow_tf32
             or matmul.allow_bf16_reduced_precision_reduction):
         raise AssertionError("reduced-precision products are on")
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
                                   global_batch=batch), device=DEVICE)
-    batches = [data.batch(i) for i in range(GATE_STEPS)]
+    batches = [lm_batch(cfg, data, i) for i in range(GATE_STEPS)]
     torch.cuda.reset_peak_memory_stats()
     params, state = trainer.init_state(SEED)
     step = trainer.compile_step()
@@ -3156,7 +3363,7 @@ def train_gate(arch: str, n_layers: int, batch: int, seq: int) -> dict:
     reset_launches()
     with counting_drops() as drops:
         for b in batches:
-            snaps.append(clone(params))
+            snaps.append(convert.tree_map(keep, params))
             params, state, m = step(params, state, b)
             losses.append(float(m["loss"]))
         torch.cuda.synchronize()
@@ -3164,26 +3371,34 @@ def train_gate(arch: str, n_layers: int, batch: int, seq: int) -> dict:
     del params, state
     free_cuda()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    _, g_kern = value_and_grad(model, snaps[0], batches[0])
+    # step 0's params on the card once for both gradients and its loss
+    # (host snapshots cross the bus as few times as they can)
+    p0 = on_card(snaps[0])
+    _, g_kern = value_and_grad(model, p0, batches[0])
     before = kernel_launches()
     with plain_training():
         with torch.no_grad():
-            plain = [float(model.loss_fn(p, b))
-                     for p, b in zip(snaps, batches)]
-        _, g_plain = value_and_grad(model, snaps[0], batches[0])
+            plain = [float(model.loss_fn(on_card(p) if i else p0, b))
+                     for i, (p, b) in enumerate(zip(snaps, batches))]
+        _, g_plain = value_and_grad(model, p0, batches[0])
     plain_launches = {k: v - before[k] for k, v in kernel_launches().items()}
     grad_rel, worst_leaf = tree_rel(g_kern, g_plain)
     del g_kern, g_plain, snaps[2:]
     free_cuda()
-    p, st = clone(snaps[0]), Opt.init(trainer.opt_cfg, snaps[0])
+    # step 1 again from step 0's params: the card copy itself where the
+    # snapshots are in host memory (no room for a second), else a copy
+    p = p0 if host_snapshots else fresh(snaps[0])
+    del p0
+    st = Opt.init(trainer.opt_cfg, p)
     p, st, m = step(p, st, batches[0])
     repeat = dict(loss=float(m["loss"]) == losses[0],
-                  params=all(torch.equal(a, b) for a, b in zip(
+                  params=all(torch.equal(a, b.to(a.device)) for a, b in zip(
                       convert.leaves(p), convert.leaves(snaps[1]))))
     del p, st, snaps[1]
     free_cuda()
     with plain_training():
-        p, st = snaps[0], Opt.init(trainer.opt_cfg, snaps[0])
+        p = on_card(snaps[0])
+        st = Opt.init(trainer.opt_cfg, p)
         own = []
         for b in batches:
             p, st, m = step(p, st, b)
@@ -3223,7 +3438,8 @@ def train_gate(arch: str, n_layers: int, batch: int, seq: int) -> dict:
         raise AssertionError(f"step-1 gradients differ by {grad_rel}")
     if not all(repeat.values()):
         raise AssertionError(f"step 1 repeated differs: {repeat}")
-    return dict(n_layers=cfg.n_layers, batch=batch, seq=seq, losses=losses,
+    return dict(n_layers=cfg.n_layers, batch=batch, seq=seq,
+                n_experts=cfg.n_experts, losses=losses,
                 plain_losses=plain, max_loss_rel=max(rel),
                 grad_rel=grad_rel, worst_leaf_rel=worst_leaf,
                 repeat_bit_equal=repeat, own_plain_losses=own,
@@ -3262,15 +3478,16 @@ def timed_backwards():
 
 
 def train_timing(arch: str, n_layers: int, batch: int, seq: int,
-                 plain_curve: bool) -> dict:
+                 plain_curve: bool, experts: int | None = None) -> dict:
     """bf16, the config's own dtype, full width, ``n_layers`` layers: one
     warm step and ``TIMED_STEPS`` timed, then one step taken by its parts
     (forward, backward, optimizer; each kernel Function's backward timed
     inside it) and one under the profiler.  With ``plain_curve``, the
     same steps again from the same seed through the plain versions,
     their losses reported beside the kernels' (the bf16 flash kernel
-    rounds P to bf16 before P @ V, the plain version does not)."""
-    cfg, model, trainer = _trainer(arch, n_layers)
+    rounds P to bf16 before P @ V, the plain version does not).
+    ``experts`` cuts the MoE layers' expert count."""
+    cfg, model, trainer = _trainer(arch, n_layers, experts=experts)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params, state = trainer.init_state(SEED)
@@ -3287,7 +3504,7 @@ def train_timing(arch: str, n_layers: int, batch: int, seq: int,
     reset_launches()
     losses, times = [], []
     for i in range(steps):
-        b = data.batch(i)
+        b = lm_batch(cfg, data, i)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         params, state, m = step(params, state, b)
@@ -3304,7 +3521,7 @@ def train_timing(arch: str, n_layers: int, batch: int, seq: int,
     tokens = batch * seq
 
     # one step by its parts, each Function's backward timed inside it
-    b = data.batch(steps)
+    b = lm_batch(cfg, data, steps)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     xs = [t.detach().requires_grad_() for t in convert.leaves(params)]
@@ -3330,7 +3547,7 @@ def train_timing(arch: str, n_layers: int, batch: int, seq: int,
         raise AssertionError(f"backwards in a step {bwd}, expected {calls}")
     split_ms = (t3 - t0) * 1e3
     bwd_ms = {k: sum(v) * 1e3 for k, v in bwd.items() if v}
-    b = data.batch(steps + 1)
+    b = lm_batch(cfg, data, steps + 1)
 
     def one_step():
         nonlocal params, state
@@ -3340,7 +3557,7 @@ def train_timing(arch: str, n_layers: int, batch: int, seq: int,
     prof = profile_window(f"{cfg.name} bf16 training step", one_step, 1)
     peak = torch.cuda.max_memory_allocated() / 2**30
     out = dict(n_layers=cfg.n_layers, batch=batch, seq=seq,
-               step_ms=step_ms, step_ms_all=times, tok_per_s=tokens
+               n_experts=cfg.n_experts, step_ms=step_ms, step_ms_all=times, tok_per_s=tokens
                / (step_ms / 1e3), losses=losses, launches=launches, **split,
                split_step_ms=split_ms, function_backward_ms=bwd_ms,
                function_backward_share={k: v / split_ms
@@ -3371,7 +3588,7 @@ def train_timing(arch: str, n_layers: int, batch: int, seq: int,
         plain = []
         with plain_training():
             for i in range(steps):
-                params, state, m = step(params, state, data.batch(i))
+                params, state, m = step(params, state, lm_batch(cfg, data, i))
                 plain.append(float(m["loss"]))
         del params, state
         free_cuda()
@@ -3379,6 +3596,45 @@ def train_timing(arch: str, n_layers: int, batch: int, seq: int,
         print(f"[train] {cfg.name} bf16 loss curve, kernels {losses} vs "
               f"the plain path {plain} from the same seed (reported, not "
               f"held: the bf16 kernel rounds P to bf16 before P @ V)")
+    return out
+
+
+def new_lm_phases(arch: str, plan: dict) -> dict:
+    """One of ``NEW_LM``'s archs: its fp32 serving gate, bf16 serving
+    (and ``launch.serve`` where it fits whole), the fp32 training gate,
+    bf16 training and ``launch.train --reduced`` on the card."""
+    out = {}
+    with phase(f"{arch} fp32 gate ({plan['gate'] or 'all'} layers)"):
+        out["fp32"] = lm_gate(arch, plan["gate"])
+    with phase(f"{arch} bf16 timing ({plan['serve'] or 'all'} layers)"
+               + (" and serve" if plan["serve_entry"] else "")):
+        out["bf16"] = lm_timing(arch, plan["serve"])
+        if plan["serve_entry"]:
+            out["serve"] = serve_entry.main(["--arch", arch, "--device",
+                                             "cuda"])
+        free_cuda()
+    layers, experts = plan["train_gate"]
+    with phase(f"{arch} fp32 training gate ({layers} layers"
+               + (f", {experts} experts" if experts else "") + ")"):
+        out["train_fp32"] = train_gate(
+            arch, layers, LM_GATE_BATCH, LM_GATE_SEQ, experts=experts,
+            host_snapshots=plan.get("host_snapshots", False))
+        free_cuda()
+    layers, batch, seq, experts = plan["train"]
+    with phase(f"{arch} bf16 training ({layers} layers"
+               + (f", {experts} experts" if experts else "")
+               + ") and train"):
+        out["train_bf16"] = train_timing(arch, layers, batch, seq,
+                                         plain_curve=False, experts=experts)
+        free_cuda()
+        out["train_entry"] = train_entry.main(
+            ["--arch", arch, "--reduced", "--steps", "5", "--device",
+             "cuda"])
+        if not np.isfinite([out["train_entry"]["first_loss"],
+                            out["train_entry"]["last_loss"]]).all():
+            raise AssertionError(f"launch.train {arch}: "
+                                 f"{out['train_entry']}")
+        free_cuda()
     return out
 
 
@@ -3689,15 +3945,28 @@ def service_timing() -> dict:
         queue(SERVICE_TENANTS)
         tick(SERVICE_TENANTS)
 
-    before = lstm_cell.launches
-    ops = _device_ops(whole, PROFILED_TICKS)
-    launched = lstm_cell.launches - before
-    cell = [v for k, v in ops.items() if "lstm_cell_kernel" in k]
-    cell_n = sum(c for _, c in cell)
-    if launched != CELLS_PER_STEP * PROFILED_TICKS or cell_n != launched:
+    # the counted launches must be exact in every window; a window whose
+    # trace came back short of them (the profiler drops a window's device
+    # events now and then, as ``launch_us`` finds) is taken again, up to
+    # 3 times
+    for _ in range(3):
+        before = lstm_cell.launches
+        ops = _device_ops(whole, PROFILED_TICKS)
+        launched = lstm_cell.launches - before
+        cell = [v for k, v in ops.items() if "lstm_cell_kernel" in k]
+        cell_n = sum(c for _, c in cell)
+        if launched != CELLS_PER_STEP * PROFILED_TICKS:
+            raise AssertionError(f"{PROFILED_TICKS} ticks: {launched} "
+                                 f"lstm_cell launches counted, expected "
+                                 f"{CELLS_PER_STEP} a tick")
+        if cell_n == launched:
+            break
+        print(f"[service] the profiled window's trace holds {cell_n} of "
+              f"{launched} lstm_cell launches: profiled again")
+    else:
         raise AssertionError(f"{PROFILED_TICKS} ticks: {launched} lstm_cell "
-                             f"launches counted, {cell_n} in the trace, "
-                             f"expected {CELLS_PER_STEP} a tick")
+                             f"launches counted, {cell_n} in the trace, in "
+                             f"3 profiles")
     nb = SERVICE_TENANTS * SERVICE_MAX_JOBS
     bound_ms, bound_by = cell_bound(nb, *PATH_SHAPES[0][1:], 4)
     out.update(
@@ -4588,8 +4857,9 @@ def main() -> None:
         free_cuda()
     with phase(f"{MOE_ARCH} fp32 gate ({MOE_GATE_LAYERS} layers)"):
         moe_gate = lm_gate(MOE_ARCH, MOE_GATE_LAYERS)
-    with phase(f"{MOE_ARCH} bf16 timing and serve"):
-        moe_timing = lm_timing(MOE_ARCH)
+    with phase(f"{MOE_ARCH} bf16 timing ({MOE_SERVE_LAYERS} layers) and "
+               f"serve"):
+        moe_timing = lm_timing(MOE_ARCH, MOE_SERVE_LAYERS)
         moe_served = serve_entry.main(["--arch", MOE_ARCH, "--device",
                                        "cuda"])
         free_cuda()
@@ -4606,10 +4876,11 @@ def main() -> None:
                            ).all():
             raise AssertionError(f"launch.train: {trained}")
         free_cuda()
-    with phase(f"{SSM_ARCH} fp32 serving gate"):
-        ssm_serve_gate = lm_gate(SSM_ARCH)
-    with phase(f"{SSM_ARCH} bf16 timing and serve"):
-        ssm_serve_timing = lm_timing(SSM_ARCH)
+    with phase(f"{SSM_ARCH} fp32 serving gate ({SSM_SERVE_LAYERS} layers)"):
+        ssm_serve_gate = lm_gate(SSM_ARCH, SSM_SERVE_LAYERS)
+    with phase(f"{SSM_ARCH} bf16 timing ({SSM_SERVE_LAYERS} layers) and "
+               f"serve"):
+        ssm_serve_timing = lm_timing(SSM_ARCH, SSM_SERVE_LAYERS)
         ssm_served = serve_entry.main(["--arch", SSM_ARCH, "--device",
                                        "cuda"])
         free_cuda()
@@ -4635,6 +4906,8 @@ def main() -> None:
         moe_bf16 = train_timing(MOE_ARCH, MOE_TRAIN_LAYERS, LM_BATCH,
                                 LM_SEQ, plain_curve=True)
         free_cuda()
+    new_lm = {arch: new_lm_phases(arch, plan)
+              for arch, plan in NEW_LM.items()}
     with phase("prediction service"):
         service = service_phase()
         free_cuda()
@@ -4707,6 +4980,15 @@ def main() -> None:
         grad_max_abs_err_bf16=flash_grad["worst"][torch.bfloat16])
     kernels[3].update(launches_train=moe_fp32["launches"]["moe_router"],
                       grad=router_grad)
+    # the archs ported last: each kernel's launches in each one's fp32
+    # serving gate and fp32 training gate (MLA layers launch neither
+    # attention kernel)
+    for i, name in ((1, "flash_attention"), (2, "decode_attention"),
+                    (3, "moe_router")):
+        kernels[i]["launches_new_archs"] = {
+            arch: dict(serve=out["fp32"]["launches"][name],
+                       train=out["train_fp32"]["launches"][name])
+            for arch, out in new_lm.items()}
     # the scan: launches from the fp32 training gate, times at the timed
     # run's shape in bf16 (the config's own dtype); no PyTorch call
     # computes the selective scan, so library_ms is null
@@ -4777,6 +5059,10 @@ def main() -> None:
                       "dense_train_bf16": dense_bf16, "demo_train": demo,
                       "moe_train_fp32": moe_fp32,
                       "moe_train_bf16": moe_bf16}))
+    print(json.dumps({"new_archs": {
+        arch: {k: ({kk: vv for kk, vv in v.items() if kk != "flips"}
+                   if k == "fp32" else v) for k, v in out.items()}
+        for arch, out in new_lm.items()}}))
     print(json.dumps({"service": service}))
     print(json.dumps({"pod": pod}))
     print(f"[time] total: {time.perf_counter() - t_start:.1f} s wall")

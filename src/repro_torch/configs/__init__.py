@@ -1,9 +1,13 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig (exact + reduced).
 
 The same ids as the JAX package's registry.  The port serves and trains
-the dense configurations (yi-6b, demo-100m), qwen3's MoE and
-falcon-mamba's SSM so far; asking for another arch raises
-``NotImplementedError`` naming the ``ROADMAP.md`` item that ports it.
+every decoder-only arch: the dense configurations (yi-6b, minitron-4b,
+phi4-mini-3.8b, deepseek-67b, demo-100m), internvl2-26b's vlm (patch
+embeddings as inputs), the MoE ones (qwen3-moe-30b-a3b;
+deepseek-v3-671b with MLA, a shared expert and a dense prefix) and
+falcon-mamba's SSM; asking for another arch (the encdec and hybrid
+families) raises ``NotImplementedError`` naming the ``ROADMAP.md`` item
+that ports it.
 """
 from __future__ import annotations
 
@@ -26,9 +30,11 @@ ARCHS = {
 }
 
 # archs with a config in the port
-PORTED = ("yi-6b", "demo-100m", "qwen3-moe-30b-a3b", "falcon-mamba-7b")
+PORTED = ("yi-6b", "demo-100m", "qwen3-moe-30b-a3b", "falcon-mamba-7b",
+          "minitron-4b", "phi4-mini-3.8b", "deepseek-67b", "internvl2-26b",
+          "deepseek-v3-671b")
 # where the others wait (ROADMAP.md, Queue 1)
-_REST = "Queue 1 item 4.5 (the rest of the LM stack)"
+_REST = "Queue 1 item 4.5c (the encdec and hybrid families)"
 
 
 def _mod(arch: str):

@@ -1,0 +1,13 @@
+"""minitron-4b [dense]: 32L d_model=3072 24H (GQA kv=8) d_ff=9216
+vocab=256000 — pruned nemotron [arXiv:2407.14679; hf]."""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="minitron-4b", family="dense", n_layers=32, d_model=3072,
+    n_heads=24, n_kv_heads=8, d_ff=9216, vocab=256000, head_dim=128)
+
+
+def reduced() -> ModelConfig:
+    return ModelConfig(
+        name="minitron-4b-smoke", family="dense", n_layers=2, d_model=48,
+        n_heads=4, n_kv_heads=2, d_ff=96, vocab=512, head_dim=16)

@@ -4,8 +4,11 @@ re-dispatch (replica latencies from the engine's own decode steps).
 Usage (on the card; ``--device cpu`` runs the plain kernels' versions):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \\
       --requests 6 --max-new 12
-(``--arch`` takes every ported arch: demo-100m, yi-6b, qwen3-moe-30b-a3b
-and falcon-mamba-7b, whose recurrent state replaces the KV cache.)
+(``--arch`` takes every ported arch: demo-100m, yi-6b, minitron-4b,
+phi4-mini-3.8b, deepseek-67b, internvl2-26b (text prompts),
+qwen3-moe-30b-a3b, deepseek-v3-671b, whose MLA caches the compressed
+latent, and falcon-mamba-7b, whose recurrent state replaces the KV
+cache.)
 
 Weights are seeded random until a checkpoint is in the repository.
 """

@@ -6,8 +6,10 @@ per-host Pareto step-time telemetry for ``--n-hosts`` hosts -> E_S ->
 backup-shard/evict actions logged each step, the tail fit on
 ``--device``).
 
-Usage (every ported arch trains: demo-100m, the default, and yi-6b
-dense, qwen3-moe-30b-a3b MoE, falcon-mamba-7b SSM):
+Usage (every ported arch trains: demo-100m, the default, and yi-6b,
+minitron-4b, phi4-mini-3.8b, deepseek-67b dense, internvl2-26b vlm (on
+text batches), qwen3-moe-30b-a3b and deepseek-v3-671b MoE,
+falcon-mamba-7b SSM):
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --steps 30 \\
       --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train \\

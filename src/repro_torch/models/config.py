@@ -160,3 +160,14 @@ class ModelConfig:
                 n += self.n_shared_experts * 3 * d * self.expert_ff
             n += 2 * d                          # norms
         return n
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top_k + shared experts only)."""
+        if self.n_experts == 0:
+            return self.param_count()
+        full = self.param_count()
+        n_moe_layers = sum(self.is_moe_layer(i)
+                           for i in range(self.n_layers))
+        inactive = n_moe_layers * (self.n_experts - self.top_k) \
+            * 3 * self.d_model * self.expert_ff
+        return full - inactive

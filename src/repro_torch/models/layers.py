@@ -1,5 +1,5 @@
-"""Shared transformer layers, the dense subset: RMSNorm, RoPE, SwiGLU and
-GQA attention, in the JAX package's functional form (``*_init`` builds
+"""Shared transformer layers: RMSNorm, RoPE, SwiGLU, GQA attention and
+MLA (multi-head latent attention), in the JAX package's functional form (``*_init`` builds
 param dicts, ``*_apply`` consumes them) and with its casts: norms and
 RoPE compute in fp32 and cast back to the activation dtype.
 
@@ -8,11 +8,20 @@ training path, differentiable), prefill (causal, returns the KV cache)
 and decode (one token against a cache, written in place).  The score and
 P @ V products are the kernels' (``backend``); the projections and the
 MLP are plain ``torch.matmul``.
+
+MLA (deepseek-v3) has the same three entry points.  Its attention is the
+plain functions ``attention_ref`` / ``decode_attention_ref`` on every
+device, as in the JAX package, which calls them directly: q and k have
+dn + dr = 192 dims and v 128 in training and prefill, and the absorbed
+decode attends 128 query heads to one latent "KV head" of dc + dr = 576
+dims, outside the kernels' head dims and group sizes.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models import backend
 from repro_torch.models.config import ModelConfig
 
@@ -144,4 +153,108 @@ def attn_decode(p: dict, cfg: ModelConfig, x, cache: dict, pos: int,
     o = backend.decode_attention(q.contiguous(), cache["k"], cache["v"],
                                  kv_len=pos + 1)
     out = o.reshape(b, 1, -1) @ p["wo"]
+    return out, cache
+
+
+# ------------------------ MLA (multi-head latent) ---------------------------
+
+
+def mla_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    h = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    dq, dc = cfg.q_lora_rank, cfg.kv_lora_rank
+    dev = gen.device
+    return {
+        "wq_a": dense_init(gen, d, dq, cfg.dtype),
+        "q_norm": norm_init(dq, dev),
+        "wq_b": dense_init(gen, dq, h * (dn + dr), cfg.dtype),
+        "wkv_a": dense_init(gen, d, dc + dr, cfg.dtype),
+        "kv_norm": norm_init(dc, dev),
+        "wkv_b": dense_init(gen, dc, h * (dn + dv), cfg.dtype),
+        "wo": dense_init(gen, h * dv, d, cfg.dtype),
+    }
+
+
+def _mla_q(p, cfg, x, cos, sin):
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    q = rms_norm(p["q_norm"], x @ p["wq_a"], cfg.norm_eps) @ p["wq_b"]
+    q = q.reshape(b, s, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, cos, sin)
+    return q_nope, q_rope
+
+
+def _mla_latent(p, cfg, x, cos, sin):
+    """The compressed cache of ``x``: c_kv (B, S, dc) normed, k_rope
+    (B, S, 1, dr) rotated."""
+    dc = cfg.kv_lora_rank
+    kv = x @ p["wkv_a"]
+    c_kv = rms_norm(p["kv_norm"], kv[..., :dc], cfg.norm_eps)
+    return c_kv, apply_rope(kv[..., None, dc:], cos, sin)
+
+
+def mla_apply(p: dict, cfg: ModelConfig, x, cos, sin):
+    """Training path: expand K/V from the latent and run causal MHA
+    through ``attention_ref`` (the plain function, as JAX: no kernel
+    covers 192-dim q/k with 128-dim v)."""
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    q_nope, q_rope = _mla_q(p, cfg, x, cos, sin)
+    c_kv, k_rope = _mla_latent(p, cfg, x, cos, sin)      # k_rope (B,S,1,dr)
+    kvup = (c_kv @ p["wkv_b"]).reshape(b, s, h, -1)
+    k_nope, v = kvup[..., :dn], kvup[..., dn:]
+    q = torch.cat([q_nope, q_rope], -1)
+    k = torch.cat([k_nope, k_rope.expand(b, s, h, dr)], -1)
+    sm = (dn + dr) ** -0.5
+    o = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                      v.transpose(1, 2), causal=True, sm_scale=sm)
+    return o.transpose(1, 2).reshape(b, s, -1) @ p["wo"]
+
+
+def mla_prefill(p: dict, cfg: ModelConfig, x, cos, sin):
+    """Prefill storing only the compressed latent cache (MLA's memory
+    win): cache = {c_kv: (B, S, dc), k_rope: (B, S, dr)}."""
+    out = mla_apply(p, cfg, x, cos, sin)
+    c_kv, k_rope = _mla_latent(p, cfg, x, cos, sin)
+    return out, {"c_kv": c_kv, "k_rope": k_rope[:, :, 0]}
+
+
+def mla_decode(p: dict, cfg: ModelConfig, x, cache: dict, pos: int,
+               cos_t, sin_t):
+    """Absorbed-matrix decode entirely in latent space (DeepSeek-V2 §MLA):
+    scores_h,s = <W_UK_h^T q_nope_h, c_s> + <q_rope_h, k_rope_s>;
+    out_h = W_UV_h (sum_s p_s c_s).  The cache {c_kv: (B, S, dc),
+    k_rope: (B, S, dr)} is written in place at ``pos`` (a host int) along
+    axis 1.  The absorbed products run in fp32 as JAX's einsums do, the
+    attention through ``decode_attention_ref`` (the plain function, as
+    JAX: one latent "KV head" of dc + dr dims for all H query heads is no
+    shape of the decode kernel), and the output is cast to x's dtype."""
+    b = x.shape[0]
+    h = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    dc = cfg.kv_lora_rank
+    q_nope, q_rope = _mla_q(p, cfg, x, cos_t, sin_t)       # (B,1,H,*)
+    q_nope, q_rope = q_nope[:, 0], q_rope[:, 0]            # (B,H,dn/dr)
+    kv = (x @ p["wkv_a"])[:, 0]
+    c_t = rms_norm(p["kv_norm"], kv[..., :dc], cfg.norm_eps)
+    kr_t = apply_rope(kv[:, None, None, dc:], cos_t, sin_t)[:, 0, 0]
+    cache["c_kv"][:, pos] = c_t
+    cache["k_rope"][:, pos] = kr_t
+    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    # absorb W_UK into q:  q_lat (B, H, dc)
+    wkv_b = p["wkv_b"].reshape(dc, h, dn + dv)
+    w_uk = wkv_b[..., :dn]                                  # (dc, H, dn)
+    w_uv = wkv_b[..., dn:]                                  # (dc, H, dv)
+    q_lat = torch.einsum("bhn,chn->bhc", q_nope.float(), w_uk.float())
+    qq = torch.cat([q_lat, q_rope.float()], -1)
+    kk = torch.cat([c_kv, k_rope], -1)[:, None]             # (B,1,S,dc+dr)
+    sm = (dn + dr) ** -0.5
+    o_lat = decode_attention_ref(qq, kk, c_kv[:, None], sm_scale=sm,
+                                 kv_len=pos + 1)            # (B,H,dc)
+    out = torch.einsum("bhc,chv->bhv", o_lat.float(), w_uv.float())
+    out = out.reshape(b, 1, h * dv).to(x.dtype) @ p["wo"]
     return out, cache

@@ -1,6 +1,8 @@
-"""Model assembly, the dense families (``dense`` and ``vlm``'s dense
-backbone), ``moe`` (attention + routed MoE layers, on one device) and
-``ssm`` (Mamba-1 layers), in the JAX package's layout.
+"""Model assembly, the decoder-only families in the JAX package's layout:
+``dense``, ``vlm`` (the dense backbone; precomputed patch embeddings
+prepended to the tokens), ``moe`` (an optional dense prefix, then
+attention + routed MoE layers, on one device; GQA or MLA attention, the
+shared experts beside the routed ones) and ``ssm`` (Mamba-1 layers).
 
 Parameters are a dict pytree with each group's layers stacked along a
 leading axis (``params["g0"]["attn"]["wq"]`` is (L, d, H*hd)), exactly as
@@ -15,7 +17,10 @@ caches) and ``decode_step`` (one token against them, written in place).
 Every family both trains and serves: attention trains through
 ``flash_attention``'s autograd Function, the MoE router through
 ``moe_router``'s, and the SSM scan through the scan's forward and
-backward kernels; its serving caches are the recurrent state.
+backward kernels; its serving caches are the recurrent state.  MLA
+layers (deepseek-v3) attend through the plain attention functions in
+every mode, as the JAX package's do (``layers.py``), and cache only the
+compressed latent.
 """
 from __future__ import annotations
 
@@ -38,29 +43,29 @@ class Group:
     kind: str          # dense | moe | ssm
     n: int             # number of layers
     causal: bool = True
+    use_mla: bool = False
     ff: int = 0        # dense ff dim (0 -> no dense mlp)
     moe: bool = False
 
 
 def _groups(cfg: ModelConfig) -> list[Group]:
     f = cfg.family
-    if cfg.use_mla:
-        raise NotImplementedError(
-            "MLA attention is not ported yet: ROADMAP.md Queue 1 item 4.5 "
-            "(the rest of the LM stack)")
     if f in ("dense", "vlm"):
         return [Group("dense", cfg.n_layers, ff=cfg.d_ff)]
     if f == "moe":
+        gs = []
         if cfg.first_dense_layers:
-            raise NotImplementedError(
-                "a dense prefix before the MoE layers is not ported yet: "
-                "ROADMAP.md Queue 1 item 4.5 (the rest of the LM stack)")
-        return [Group("moe", cfg.n_layers, moe=True)]
+            gs.append(Group("dense", cfg.first_dense_layers,
+                            use_mla=cfg.use_mla,
+                            ff=cfg.dense_d_ff or cfg.d_ff))
+        gs.append(Group("moe", cfg.n_layers - cfg.first_dense_layers,
+                        use_mla=cfg.use_mla, moe=True))
+        return gs
     if f == "ssm":
         return [Group("ssm", cfg.n_layers)]
     raise NotImplementedError(
-        f"family {f!r} is not ported yet: ROADMAP.md Queue 1 item 4.5 (the "
-        f"rest of the LM stack)")
+        f"family {f!r} is not ported yet: ROADMAP.md Queue 1 item 4.5c (the "
+        f"encdec and hybrid families)")
 
 
 def full_precision() -> None:
@@ -144,8 +149,13 @@ class Model:
         for gi, g in enumerate(self.groups):
             # drawn one layer at a time into the stacked leaves, so the
             # fp32 draws stay one layer large (a qwen3 expert stack is
-            # 0.8 GB in fp32)
+            # 0.8 GB in fp32); a group of one layer keeps its draw as its
+            # stack (a deepseek-v3 MoE layer is 45 GB in fp32)
             one = self._layer_init(gen, g, dev)
+            if g.n == 1:
+                params[f"g{gi}"] = tree_map(lambda a: a[None], one)
+                del one
+                continue
             stack = tree_map(lambda a: a.new_empty((g.n, *a.shape)), one)
             for i in range(g.n):
                 if i:
@@ -161,7 +171,8 @@ class Model:
             return {"ln1": L.norm_init(cfg.d_model, dev),
                     "mamba": Mb.mamba_init(gen, cfg)}
         p = {"ln1": L.norm_init(cfg.d_model, dev),
-             "attn": L.attn_init(gen, cfg),
+             "attn": (L.mla_init(gen, cfg) if g.use_mla
+                      else L.attn_init(gen, cfg)),
              "ln2": L.norm_init(cfg.d_model, dev)}
         if g.moe:
             p["moe"] = Moe.moe_init(gen, cfg)
@@ -172,16 +183,27 @@ class Model:
     # --------------------------- layer bodies ------------------------------
 
     def _attn_sublayer(self, p, x, cos, sin, mode, cache, pos, causal):
+        """GQA attention, or MLA where the config and the layer's params
+        have it (JAX's test: ``cfg.use_mla and "wq_a" in p["attn"]``)."""
         cfg = self.cfg
         h = L.rms_norm(p["ln1"], x, cfg.norm_eps)
+        mla = cfg.use_mla and "wq_a" in p["attn"]
         if mode == "train":
+            if mla:
+                return x + L.mla_apply(p["attn"], cfg, h, cos, sin), None
             return x + L.attn_apply(p["attn"], cfg, h, cos, sin,
                                     causal=causal), None
         if mode == "prefill":
-            o, c = L.attn_prefill(p["attn"], cfg, h, cos, sin,
-                                  causal=causal)
+            if mla:
+                o, c = L.mla_prefill(p["attn"], cfg, h, cos, sin)
+            else:
+                o, c = L.attn_prefill(p["attn"], cfg, h, cos, sin,
+                                      causal=causal)
             return x + o, c
-        o, c = L.attn_decode(p["attn"], cfg, h, cache, pos, cos, sin)
+        if mla:
+            o, c = L.mla_decode(p["attn"], cfg, h, cache, pos, cos, sin)
+        else:
+            o, c = L.attn_decode(p["attn"], cfg, h, cache, pos, cos, sin)
         return x + o, c
 
     def _ff_sublayer(self, p, x, mode="train"):
@@ -224,8 +246,9 @@ class Model:
                    caches=None, pos=None):
         """Run group gi's layers in order.  Prefill returns the caches
         stacked over layers ({"k", "v"}: (L, B, Hkv, S, hd) for attention,
-        {"h": (L, B, Di, N) fp32, "conv": (L, B, K-1, Di)} for SSM
-        layers); decode writes into ``caches`` in place and returns it."""
+        {"c_kv": (L, B, S, dc), "k_rope": (L, B, S, dr)} for MLA, {"h":
+        (L, B, Di, N) fp32, "conv": (L, B, K-1, Di)} for SSM layers);
+        decode writes into ``caches`` in place and returns it."""
         p_stack = params[f"g{gi}"]
         body = self._layer_fn(g, cos, sin, mode, pos)
         if mode == "train":
@@ -264,10 +287,12 @@ class Model:
     def loss_fn(self, params, batch):
         """Causal LM cross-entropy of batch["labels"] given
         batch["tokens"], both (B, S) int: a 0-d fp32 tensor, to
-        differentiate with autograd.  Each layer and the head loss run
-        under ``checkpoint`` (recomputed in the backward, as JAX's
-        ``jax.checkpoint``), so the (tokens, vocab) fp32 logits do not
-        live across the backward."""
+        differentiate with autograd.  A ``vlm`` batch may carry
+        ``patch_embeds`` (B, P, d), prepended to the tokens and dropped
+        after the final norm, so the labels stay those of the tokens.
+        Each layer and the head loss run under ``checkpoint`` (recomputed
+        in the backward, as JAX's ``jax.checkpoint``), so the (tokens,
+        vocab) fp32 logits do not live across the backward."""
         cfg = self.cfg
         x = self._embed(params, batch)
         cos, sin = L.rope_table(x.shape[1], self._rope_dim(),
@@ -275,6 +300,8 @@ class Model:
         for gi, g in enumerate(self.groups):
             x, _ = self._run_group(gi, g, params, x, cos, sin, "train")
         x = L.rms_norm(params["ln_f"], x, cfg.norm_eps)
+        if cfg.family == "vlm" and "patch_embeds" in batch:
+            x = x[:, batch["patch_embeds"].shape[1]:]
         return checkpoint(_head_loss, params["head"], x, batch["labels"],
                           use_reentrant=False)
 

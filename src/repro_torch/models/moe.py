@@ -23,8 +23,13 @@ combine weights are differentiable through the router's autograd
 Function, and the dropped copies add zero.  Serving passes
 ``inference=True`` (dropless up to 1024 tokens).
 
-Not ported: expert parallelism (JAX's ``shard_map``/``psum`` branch) and
-shared experts raise, naming their ``ROADMAP.md`` item.
+Shared experts (deepseek-v3's ``n_shared_experts``) are one dense SwiGLU
+of ``expert_ff * n_shared_experts`` under ``p["shared"]``, always on, its
+output added to the routed one (JAX ``models/moe.py``, and its
+``Model._routed``, which adds the same sum).
+
+Not ported: expert parallelism (JAX's ``shard_map``/``psum`` branch)
+raises, naming its ``ROADMAP.md`` item.
 """
 from __future__ import annotations
 
@@ -34,30 +39,50 @@ import torch
 
 from repro_torch.models import backend
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import silu
+from repro_torch.models.layers import mlp_apply, mlp_init, silu
 
 _LATER = "ROADMAP.md Queue 1 item 4.5 (the rest of the LM stack)"
 
 
+# elements of an fp32 draw past which a narrower stack is drawn slab by
+# slab (deepseek-v3's (256, 7168, 2048) expert stack is 15 GB in fp32)
+_SLAB = 2 ** 28
+
+
 def _normal(gen: torch.Generator, shape, scale: float, dtype):
-    """Standard normal drawn in fp32 on ``gen``'s device, scaled, cast."""
-    w = torch.randn(*shape, generator=gen, device=gen.device,
-                    dtype=torch.float32)
-    return w.mul_(scale).to(dtype)
+    """Standard normal drawn in fp32 on ``gen``'s device, scaled, cast.  A
+    stack of more than ``_SLAB`` elements cast to a narrower dtype is
+    drawn in slabs along its first axis, so the fp32 draw stays ~1 GB
+    beside the result."""
+    n = math.prod(shape)
+    if n <= _SLAB or dtype == torch.float32:
+        w = torch.randn(*shape, generator=gen, device=gen.device,
+                        dtype=torch.float32)
+        return w.mul_(scale).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    step = max(1, _SLAB // math.prod(shape[1:]))
+    for i in range(0, shape[0], step):
+        rows = min(step, shape[0] - i)
+        out[i:i + rows] = torch.randn(rows, *shape[1:], generator=gen,
+                                      device=gen.device,
+                                      dtype=torch.float32).mul_(scale)
+    return out
 
 
 def moe_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
     """One layer's router (d, E) fp32 and experts wg, wu (E, d, f), wd
-    (E, f, d) in ``cfg.dtype``, with the JAX package's scales."""
-    if cfg.n_shared_experts:
-        raise NotImplementedError(f"shared experts are not ported yet: "
-                                  f"{_LATER}")
+    (E, f, d) in ``cfg.dtype``, with the JAX package's scales; with
+    shared experts, their SwiGLU (d -> f * n_shared_experts) under
+    ``"shared"``."""
     d, ff, e = cfg.d_model, cfg.expert_ff, cfg.n_experts
     scale = d ** -0.5
-    return {"router": _normal(gen, (d, e), scale, torch.float32),
-            "wg": _normal(gen, (e, d, ff), scale, cfg.dtype),
-            "wu": _normal(gen, (e, d, ff), scale, cfg.dtype),
-            "wd": _normal(gen, (e, ff, d), ff ** -0.5, cfg.dtype)}
+    p = {"router": _normal(gen, (d, e), scale, torch.float32),
+         "wg": _normal(gen, (e, d, ff), scale, cfg.dtype),
+         "wu": _normal(gen, (e, d, ff), scale, cfg.dtype),
+         "wd": _normal(gen, (e, ff, d), ff ** -0.5, cfg.dtype)}
+    if cfg.n_shared_experts:
+        p["shared"] = mlp_init(gen, d, ff * cfg.n_shared_experts, cfg.dtype)
+    return p
 
 
 def grouped_ffn(x, idx, w, wg, wu, wd, capacity: int):
@@ -110,12 +135,11 @@ def moe_apply(p: dict, cfg: ModelConfig, x, ep=None,
     """x (B, S, d) -> (B, S, d), the JAX package's dispatch.  Training
     (the default): capacity = ``_capacity(T, E, k, capacity_factor)``,
     over-capacity copies dropped.  ``inference``: capacity = T rounded up
-    to 8, dropless, capped at twice the capacity factor's for T > 1024."""
+    to 8, dropless, capped at twice the capacity factor's for T > 1024.
+    The shared experts' SwiGLU, where the layer has one, is added to the
+    routed output."""
     if ep is not None:
         raise NotImplementedError(f"expert parallelism is not ported yet: "
-                                  f"{_LATER}")
-    if "shared" in p:
-        raise NotImplementedError(f"shared experts are not ported yet: "
                                   f"{_LATER}")
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
@@ -130,7 +154,10 @@ def moe_apply(p: dict, cfg: ModelConfig, x, ep=None,
     else:
         cap = _capacity(t, cfg.n_experts, cfg.top_k, cfg.capacity_factor)
     y = grouped_ffn(xt, idx, w, p["wg"], p["wu"], p["wd"], cap)
-    return y.reshape(b, s, d)
+    out = y.reshape(b, s, d)
+    if "shared" in p:
+        out = out + mlp_apply(p["shared"], x)
+    return out
 
 
 def aux_load_balance_loss(p: dict, cfg: ModelConfig, x):

@@ -1,7 +1,8 @@
 """KV-cache utilities for the serving engine.
 
 Caches are the model-defined pytrees (per layer group, stacked over
-layers: k and v are (L, B, Hkv, S, hd); an SSM group's h and conv are
+layers: k and v are (L, B, Hkv, S, hd); an MLA group's c_kv and k_rope
+are (L, B, S, dc) and (L, B, S, dr); an SSM group's h and conv are
 (L, B, Di, N) and (L, B, K-1, Di)).  This module allocates them at a
 fixed max length, which decode then writes in place at each position,
 and keeps the slot bookkeeping for continuous batching: each batch row is

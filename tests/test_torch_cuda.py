@@ -3,9 +3,9 @@ versions (the flash and router autograd Functions' gradients and the
 scan's serving variant too), the decision step's launches, START's
 training through the cell's kernel and a START simulation on the card
 against the CPU,
-reduced LMs (dense, MoE and SSM) served on the card against the same
-model on the CPU, reduced LMs of each family trained on the card against
-the CPU, IGRU-SD's
+reduced LMs (dense, vlm, MoE with GQA or MLA, and SSM) served on the
+card against the same model on the CPU, reduced LMs of each family
+trained on the card against the CPU, IGRU-SD's
 GRU on the card against the CPU, a 2-worker sweep on the card
 against the serial run, the prediction service on the card against its
 CPU twin and over TCP, the trainer's checkpoint drill, and the pod
@@ -251,7 +251,12 @@ def _decode_fp32(q, k, v, kvlen):
     # non-causal GQA; yi-6b's longest prefill
     (1, 1, 1, 64, 128, True), (1, 4, 2, 100, 32, True),
     (1, 4, 2, 150, 64, True), (2, 8, 2, 200, 64, False),
-    (1, 32, 4, 3000, 128, True)])
+    (1, 32, 4, 3000, 128, True),
+    # the model paths' other GQA groups: 3 (minitron-4b, phi4-mini-3.8b),
+    # 6 at internvl2-26b's 256 patches + 12 tokens (ragged keys), 8 at
+    # H = 64 (deepseek-67b)
+    (1, 24, 8, 300, 128, True), (1, 48, 8, 268, 128, True),
+    (1, 64, 8, 300, 128, True)])
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
                                         (torch.bfloat16, 2e-2)])
 def test_flash_attention_kernel_matches_plain_version(cuda, b, h, hkv, s, d,
@@ -305,7 +310,11 @@ def test_flash_attention_kernel_takes_unequal_query_and_key_lengths(
     (1, 32, 4, 4096, 128, 1), (1, 32, 4, 4096, 128, 513),
     (1, 4, 2, 40, 16, 17), (1, 32, 4, 4096, 128, 28),
     (1, 32, 4, 4096, 128, 3016), (1, 32, 4, 4096, 128, 4096),
-    (3, 32, 2, 100, 32, 77), (1, 64, 4, 600, 128, 600)])
+    (3, 32, 2, 100, 32, 77), (1, 64, 4, 600, 128, 600),
+    # GQA groups 3, 6 and 8 at H = 64, as minitron-4b, internvl2-26b and
+    # deepseek-67b decode
+    (1, 24, 8, 4096, 128, 513), (1, 48, 8, 4096, 128, 3016),
+    (1, 64, 8, 600, 128, 268)])
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
                                         (torch.bfloat16, 2e-2)])
 def test_decode_attention_kernel_matches_plain_version(cuda, b, h, hkv, s,
@@ -499,8 +508,47 @@ def test_moe_router_gradient_through_the_function(cuda, t, e, k):
         1e-5 * want.double().norm()
 
 
+def test_moe_router_kernel_on_a_models_logits_at_256_experts(cuda):
+    """E = 256, k = 8, as deepseek-v3 routes: the logits every MoE layer
+    of a reduced deepseek-v3 widened to 256 experts hands the router in a
+    prefill and a decode step on the card (one launch each), against the
+    plain version on the same logits."""
+    cfg = dataclasses.replace(get_reduced("deepseek-v3-671b"), n_experts=256,
+                              top_k=8, param_dtype="float32")
+    model = Model(cfg)
+    params = model.init(0, cuda)
+    seen = []
+    real = chip_smoke.backend.moe_router
+
+    def keep(logits, k):
+        out = real(logits, k)
+        seen.append((logits.clone(), k, out))
+        return out
+
+    chip_smoke.backend.moe_router = keep
+    try:
+        toks = torch.as_tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab, (1, 40)), device=cuda)
+        before = moe_router.launches
+        _, caches = model.prefill(params, {"tokens": toks})
+        model.decode_step(params, chip_smoke.pad_to_length(caches, 48),
+                          toks[:, -1:], 40)
+        torch.cuda.synchronize()
+    finally:
+        chip_smoke.backend.moe_router = real
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    assert moe_router.launches - before == 2 * n_moe == len(seen)
+    for logits, k, (w, idx) in seen:
+        assert logits.shape[1] == 256 and k == 8
+        wr, ir = moe_router_ref(logits, k)
+        assert torch.equal(idx, ir)
+        torch.testing.assert_close(w, wr, rtol=0.0, atol=1e-6)
+
+
 @pytest.mark.parametrize("arch", ["yi-6b", "qwen3-moe-30b-a3b",
-                                  "falcon-mamba-7b"])
+                                  "falcon-mamba-7b", "minitron-4b",
+                                  "phi4-mini-3.8b", "deepseek-67b",
+                                  "internvl2-26b", "deepseek-v3-671b"])
 def test_reduced_engine_on_the_card_matches_the_cpu(cuda, arch):
     cfg = dataclasses.replace(get_reduced(arch), param_dtype="float32")
     params = Model(cfg).init(0, "cpu")
@@ -527,10 +575,9 @@ def test_reduced_engine_on_the_card_matches_the_cpu(cuda, arch):
     # per attention layer per decoded token (5 of the 6 tokens of each
     # request), one router launch per MoE layer per prefill and per
     # decoded token, one scan launch per SSM layer per prefill (the SSM
-    # decode is plain ops)
-    n_attn = sum(cfg.is_attention_layer(i) for i in range(cfg.n_layers))
-    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
-    n_ssm = cfg.n_layers - n_attn
+    # decode is plain ops; MLA layers launch neither attention kernel)
+    n = chip_smoke.layer_counts(cfg)
+    n_attn, n_moe, n_ssm = n["attn"], n["moe"], n["ssm"]
     assert launches[1] == (4 * n_attn, 4 * 5 * n_attn, 4 * 6 * n_moe,
                            4 * n_ssm)
 
@@ -785,13 +832,17 @@ def test_reduced_ssm_training_on_the_card_matches_the_cpu(cuda):
     np.testing.assert_allclose(losses[1], losses[0], rtol=1e-5)
 
 
-@pytest.mark.parametrize("arch", ["yi-6b", "qwen3-moe-30b-a3b"])
+@pytest.mark.parametrize("arch", ["yi-6b", "qwen3-moe-30b-a3b",
+                                  "minitron-4b", "phi4-mini-3.8b",
+                                  "deepseek-67b", "internvl2-26b",
+                                  "deepseek-v3-671b"])
 def test_reduced_attention_training_on_the_card_matches_the_cpu(cuda, arch):
-    """Three AdamW steps of the reduced dense and MoE models in fp32 on
-    the card and on the CPU from the same params: each layer's forward
-    launches flash_attention (and the MoE router) twice per step (the
-    forward, and its recompute in the backward) and nothing in the
-    backward; a repeated step on the card is bit-equal."""
+    """Three AdamW steps of the reduced dense, vlm (with patch
+    embeddings) and MoE models in fp32 on the card and on the CPU from the
+    same params: each GQA layer's forward launches flash_attention (and
+    each MoE layer the router) twice per step (the forward, and its
+    recompute in the backward) and nothing in the backward, MLA layers
+    none; a repeated step on the card is bit-equal."""
     cfg = dataclasses.replace(get_reduced(arch), param_dtype="float32")
     params = Model(cfg).init(0, "cpu")
     losses, launches, finals = [], [], []
@@ -805,27 +856,42 @@ def test_reduced_attention_training_on_the_card_matches_the_cpu(cuda, arch):
         before = flash_attention.launches, moe_router.launches
         out = []
         for i in range(3):
-            p, state, m = step(p, state, data.batch(i))
+            p, state, m = step(p, state, _with_patches(cfg, data.batch(i),
+                                                       i))
             out.append(float(m["loss"]))
         launches.append((flash_attention.launches - before[0],
                          moe_router.launches - before[1]))
         losses.append(out)
         finals.append(p)
     n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
-    assert launches == [(0, 0), (2 * cfg.n_layers * 3, 2 * n_moe * 3)]
+    assert launches == [(0, 0), (2 * chip_smoke.layer_counts(cfg)["attn"]
+                                 * 3, 2 * n_moe * 3)]
     np.testing.assert_allclose(losses[1], losses[0], rtol=1e-5)
     # the same step again from the same start: bit for bit
     tr = Trainer(Model(cfg), mesh=None, device=cuda)
     again = []
     for _ in range(2):
         p = convert.tree_map(lambda t: t.to(cuda, copy=True), params)
-        p, _, m = tr.compile_step()(p, Opt.init(tr.opt_cfg, p), SyntheticLM(
-            DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4),
-            device=cuda).batch(0))
+        p, _, m = tr.compile_step()(p, Opt.init(tr.opt_cfg, p), _with_patches(
+            cfg, SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                        global_batch=4),
+                             device=cuda).batch(0), 0))
         again.append((float(m["loss"]), p))
     assert again[0][0] == again[1][0] == losses[1][0]
     assert all(torch.equal(a, b) for a, b in zip(
         convert.leaves(again[0][1]), convert.leaves(again[1][1])))
+
+
+def _with_patches(cfg, batch: dict, seed: int) -> dict:
+    """A vlm batch gets seeded patch embeddings (the image stub) on the
+    batch's device; other families' batches pass as they are."""
+    if cfg.family != "vlm":
+        return batch
+    b = batch["tokens"].shape[0]
+    pe = torch.randn(b, cfg.frontend_tokens, cfg.d_model,
+                     generator=torch.Generator().manual_seed(seed))
+    return dict(batch, patch_embeds=pe.to(batch["tokens"].device,
+                                          cfg.dtype))
 
 
 def _gru_inputs(seed: int = 0):

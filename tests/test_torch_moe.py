@@ -29,6 +29,7 @@ from repro import configs as jconfigs
 from repro.models import moe as JMoe
 from repro_torch import configs
 from repro_torch import convert
+from repro_torch.models import layers as TL
 from repro_torch.models import moe as TMoe
 
 ARCH = "qwen3-moe-30b-a3b"
@@ -119,12 +120,35 @@ def test_capacity_drops_the_same_copies(t, cap, dtype):
 
 
 def test_unported_moe_options_name_their_roadmap_item():
+    """Expert parallelism still names its ROADMAP.md item; the shared
+    experts (item 4.5b) are ported: reduced deepseek-v3's layer (one
+    shared SwiGLU of 32 beside 8 routed experts, top-2) against JAX's
+    ``moe_apply`` in fp32 (2e-5), serving and training dispatch, and the
+    shared SwiGLU's shape."""
     jcfg, tcfg, jp, tp = _layer("float32")
     x = torch.zeros(1, 2, tcfg.d_model)
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
         TMoe.moe_apply(tp, tcfg, x, ep=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        TMoe.moe_apply(dict(tp, shared={}), tcfg, x)
+    jcfg = dataclasses.replace(jconfigs.get_reduced("deepseek-v3-671b"),
+                               param_dtype="float32")
+    tcfg = dataclasses.replace(configs.get_reduced("deepseek-v3-671b"),
+                               param_dtype="float32")
+    jsh = JMoe.moe_init(jax.random.PRNGKey(8), jcfg)
+    tsh = convert.from_jax(jax.tree_util.tree_map(np.asarray, jsh), "cpu")
+    assert tuple(tsh["shared"]["wg"].shape) == (tcfg.d_model,
+                                                tcfg.expert_ff)
+    assert set(TMoe.moe_init(torch.Generator().manual_seed(0), tcfg)) \
+        == set(tsh) == {"router", "wg", "wu", "wd", "shared"}
+    sx, tsx = _x(12, (2, 9, tcfg.d_model), "float32")
+    for inference in (True, False):
+        want = JMoe.moe_apply(jsh, jcfg, sx, inference=inference)
+        got = TMoe.moe_apply(tsh, tcfg, tsx, inference=inference)
+        np.testing.assert_allclose(_np(got), _np(want), **TOL["float32"])
+    routed = TMoe.moe_apply({k: v for k, v in tsh.items() if k != "shared"},
+                            tcfg, tsx, inference=False)
+    np.testing.assert_allclose(
+        _np(got - routed), _np(TL.mlp_apply(tsh["shared"], tsx)),
+        rtol=1e-6, atol=1e-6)
     # the load-balance loss is ported: it matches JAX's
     jx, tx = _x(11, (2, 24, tcfg.d_model), "float32")
     want = float(JMoe.aux_load_balance_loss(jp, jcfg, jx))
