@@ -34,6 +34,11 @@ Phases:
    the plain versions, timed beside them and (flash) SDPA's backward;
    flash and decode also at the GQA groups 3, 6 and 8 (64 heads) of the
    archs ported last, and the router at deepseek-v3's 256 experts;
+   flash non-causal at Sq != Sk (seamless-m4t-large-v2's cross-attention
+   over 1024 frames at Sq = 1, 12, 300, 3000, and its encoder's 1024 x
+   1024), decode at H = Hkv = 16, D = 64, the router at Jamba's 16
+   experts, top-2, and the scan at Jamba's d_inner 16384 (forward,
+   backward, final state), each new shape timed with its device time;
 4. the decision slice: ``STARTController`` at the paper's width (400
    hosts x 11 features, 10 tasks per job, horizon 5), fed seeded
    telemetry, in both triggers, on the card and on the CPU from the same
@@ -109,8 +114,8 @@ Phases:
    swap them); each request's logits are held to 1e-4, and its greedy
    tokens as in phase 7, on every step before its first routing
    difference;
-10. MoE serving, bf16: qwen3-moe-30b-a3b at full width and depth, timed
-   as in phase 8, with the routing differences counted, and
+10. MoE serving, bf16: qwen3-moe-30b-a3b at full width, 8 of its 48
+   layers, timed as in phase 8, with the routing differences counted, and
    ``repro_torch.launch.serve`` once at qwen3-moe-30b-a3b;
 11. SSM training, fp32: falcon-mamba-7b at full width, 8 of its 64
    layers (seeded weights), three AdamW steps of ``Trainer`` on
@@ -126,8 +131,8 @@ Phases:
    optimizer, and the scan backward's share timed inside it),
    profiler device busy per step, peak memory (``train_timing``); and
    ``repro_torch.launch.train`` once, reduced, on the card;
-12a. SSM serving, fp32: falcon-mamba-7b at full width and depth (64
-   layers), the engine and requests of phase 7; every prefill launches
+12a. SSM serving, fp32: falcon-mamba-7b at full width, 8 of its 64
+   layers, the engine and requests of phase 7; every prefill launches
    ``mamba_scan_with_state`` once per layer (the decode is plain ops);
    teacher-forced against the plain scan as in phase 7, and a prefill
    of S tokens against a prefill of S - 1 and a decode step, within
@@ -159,6 +164,20 @@ Phases:
    phases 7 and 9, bf16 serving as phase 8 (``launch.serve`` where the
    whole model fits), an fp32 training gate and bf16 training as phases
    12c and 12d, and ``repro_torch.launch.train --reduced`` on the card;
+12f. the encoder-decoder and the hybrid: seamless-m4t-large-v2 whole
+   (an fp32 serving gate through ``prefill`` / ``decode_step`` with 1024
+   seeded frame embeddings beside each of phase 7's prompts, held to the
+   plain path as phase 7, and prefill then decode against one longer
+   prefill; the ``Engine`` and ``launch.train`` refuse a frameless
+   request with ``KeyError: 'frame_embeds'``, as the JAX drivers do; bf16
+   serving timed; an fp32 training gate and bf16 training as phase 12c,
+   the frames in every batch) and jamba-1.5-large-398b at one period of
+   full width with the expert count cut (an fp32 serving gate at 4
+   experts through the ``Engine``, held to the plain path within twice
+   the plain path's own distance from a float64 forward; bf16 serving at
+   12 experts timed; the bf16 loss and gradients at 2 experts, twice,
+   bit-equal, with no optimizer step; the reduced config's fp32
+   training gate, ``launch.train`` and ``launch.serve``);
 13. the multi-tenant prediction service at the paper's width
    (``Profile(n_hosts=400, max_tasks=10, horizon=5, k=1.5)``), in both
    triggers: a service on the card and its CPU twin from one weight set
@@ -236,7 +255,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import convert  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, get_reduced  # noqa: E402
 from repro_torch.configs.paper_default import PAPER  # noqa: E402
 from repro_torch import policy as registry  # noqa: E402
 from repro_torch.core import encoder_lstm as net  # noqa: E402
@@ -270,7 +289,7 @@ from repro_torch.launch import serve as serve_entry  # noqa: E402
 from repro_torch.launch import train as train_entry  # noqa: E402
 from repro_torch.models import backend  # noqa: E402
 from repro_torch.models import moe as Moe  # noqa: E402
-from repro_torch.models.lm import Model, full_precision  # noqa: E402
+from repro_torch.models.lm import Model, full_precision, layer  # noqa: E402
 from repro_torch.policy import wire  # noqa: E402
 from repro_torch.serve.engine import (  # noqa: E402
     Engine, EngineConfig, Request)
@@ -337,6 +356,13 @@ FLASH_PATH = [(1, 32, 4, s, 128, True) for s in (12, 512, 2048, 3000)]
 FLASH_GQA = [(1, 24, 8, 300, 128, True), (1, 24, 8, 3000, 128, True),
              (1, 48, 8, 268, 128, True), (1, 48, 8, 3256, 128, True),
              (1, 64, 8, 300, 128, True), (1, 64, 8, 3000, 128, True)]
+# (b, h, hkv, sq, sk, d, causal): seamless-m4t-large-v2's non-causal
+# geometries, H = Hkv = 16, D = 64: the decoder's cross-attention of a
+# decode step (Sq = 1) and of prefills (12, 300, 3000 tokens) over the
+# encoder's 1024 frames, and the encoder's self-attention (1024 x 1024);
+# all timed in bf16 (the config's dtype)
+FLASH_CROSS = [(1, 16, 16, sq, 1024, 64, False) for sq in (1, 12, 300, 3000)
+               ] + [(1, 16, 16, 1024, 1024, 64, False)]
 # the Function's gradients: yi-6b's head layout at S = 2048
 FLASH_GRAD = (1, 32, 4, 2048, 128, True)
 # timed: bf16 (the tensor-core kernel) at both long prefills, fp32 (the
@@ -353,6 +379,8 @@ DECODE_PROFILED = (28, 513, 3016, 4096)   # device time per launch
 DECODE_GQA = [(1, 24, 8, 4096, 128, 28), (1, 24, 8, 4096, 128, 3016),
               (1, 48, 8, 4096, 128, 269), (1, 48, 8, 4096, 128, 3272),
               (1, 64, 8, 4096, 128, 4096)]
+# seamless's decoder self-attention (H = Hkv = 16, D = 64), timed
+DECODE_MHA = [(1, 16, 16, 4096, 64, 28), (1, 16, 16, 4096, 64, 3016)]
 # fp32: max abs; bf16: the sweep's allclose tolerance
 ATTN_TOL = {torch.float32: dict(rtol=0.0, atol=2e-5),
             torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
@@ -377,6 +405,9 @@ ROUTER_SWEEP = [(256, 8, 2), (512, 128, 8), (300, 256, 8), (64, 16, 2)]
 ROUTER_PATH = [(t, 128, 8) for t in (1, 12, 3000)]
 # deepseek-v3's router shapes (E = 256, k = 8), checked after the path's
 ROUTER_V3 = [(t, 256, 8) for t in (1, 12, 3000)]
+# jamba-1.5-large-398b's router, 16 experts, top-2, on a decode step's,
+# a short prompt's and the longest prompt's logits (timed at 3000)
+ROUTER_JAMBA = [(t, 16, 2) for t in (1, 12, 3000)]
 ROUTER_ATOL = 1e-6           # weights, taken expert by expert, max abs
 ROUTER = dict(source="src/repro_torch/kernels/moe_router/csrc/moe_router.cu",
               replaces="src/repro/kernels/moe_router/moe_router.py:24")
@@ -400,12 +431,14 @@ DEVICE = "cuda"
 MOE_ARCH = "qwen3-moe-30b-a3b"
 MOE_GATE_LAYERS = 12
 # the smoke's time: since the archs ported last joined it, the bf16 MoE
-# serving run keeps 12 of qwen3's 48 layers (80-115 s a run at 48, 56-97
-# at 24), and falcon-mamba-7b's serving gate and bf16 serving run 16 of
-# its 64 (the plain scan's teacher forcing took 80-100 s each at 64,
-# 47-67 at 32); ``launch.serve`` still serves both whole
-MOE_SERVE_LAYERS = 12
-SSM_SERVE_LAYERS = 16
+# serving run keeps 8 of qwen3's 48 layers (80-115 s a run at 48, 56-97
+# at 24, 43 at 12), and falcon-mamba-7b's serving gate and bf16 serving
+# run 8 of its 64 (the plain scan's teacher forcing took 80-100 s each
+# at 64, 47-67 at 32, 26-32 at 16; cut again to 8 when the encoder-
+# decoder and hybrid phases joined); ``launch.serve`` still serves both
+# whole
+MOE_SERVE_LAYERS = 8
+SSM_SERVE_LAYERS = 8
 NEAR_TIE = 1e-5              # k-th vs (k+1)-th probability, relative
 # (b, l, d, n): the JAX scan sweep (tests/test_kernels.py MAMBA_SWEEP),
 # ragged shapes, then falcon-mamba-7b's training shapes (B x L x d_inner
@@ -416,6 +449,12 @@ SCAN_PATH = [(2, 256, 8192, 16), (4, 512, 8192, 16)]
 # the serving variant's path: falcon-mamba-7b's prefill of the longest
 # prompt (PROMPT_LENS[-1] tokens)
 SCAN_PREFILL = (1, 3000, 8192, 16)
+# jamba-1.5-large-398b's Mamba sublayers (d_inner 16384): its gradient
+# run's shape (2 x 1024 tokens; forward and backward) and its prefill of
+# the longest prompt (the serving variant); both timed
+SCAN_JAMBA = (2, 1024, 16384, 16)
+SCAN_JAMBA_PREFILL = (1, 3000, 16384, 16)
+SCAN_TIMED = SCAN_PATH + [SCAN_JAMBA]
 # fp32: 1e-5 of max(1, |y|): the states agree bit for bit and y's N-sum
 # runs in another order, which moves y by an ulp of |y|, and |y| grows
 # with L (an fp32 ulp is 1.5e-5 at |y| = 128); bf16: the fp32 y (its
@@ -457,13 +496,16 @@ LM_GATE_BATCH, LM_GATE_SEQ = 2, 256
 DENSE_LAYERS, MOE_TRAIN_LAYERS = 16, 4
 LM_BATCH, LM_SEQ = 2, 2048
 # the decoder-only archs ported last, each at full width: the fp32
-# serving gate's and the bf16 serving run's layers (None: all), whether
+# serving gate's and the bf16 serving run's layers (None: all; for the
+# smoke's time, since the encoder-decoder and hybrid phases joined,
+# deepseek-67b's bf16 serving keeps 24 layers (48 before, 27 s) and
+# internvl2-26b's 24 of 48 (39.5 s whole)), whether
 # ``launch.serve`` serves it whole, the fp32 training gate's (layers,
 # expert count; None: the config's) at LM_GATE_BATCH x LM_GATE_SEQ, and
 # the bf16 training run's (layers, batch, seq, expert count).  Depth is
 # cut by memory (params: ``param_count``; training ~12 B a parameter in
 # bf16, 16 in fp32 plus the gate's three snapshots, 12 more): deepseek-67b
-# serves 48 of 95 layers in bf16 (34.9 B params, 70 GB), its fp32 gate 16
+# could serve 48 of 95 layers in bf16 (34.9 B params, 70 GB), its fp32 gate 16
 # (12.75 B, 51 GB), its training gate 1 and bf16 training 4 (4.45 B, 53
 # GB); internvl2-26b's fp32 gate 24 of 48 (10.5 B, 42 GB), training gate
 # 2, bf16 training 8 (4.28 B, 51 GB); minitron-4b and phi4-mini-3.8b
@@ -484,10 +526,10 @@ NEW_LM = {
     "phi4-mini-3.8b": dict(gate=None, serve=None, serve_entry=True,
                            train_gate=(4, None),
                            train=(16, 2, 2048, None)),
-    "deepseek-67b": dict(gate=16, serve=48, serve_entry=False,
+    "deepseek-67b": dict(gate=16, serve=24, serve_entry=False,
                          train_gate=(1, None), train=(4, 2, 2048, None),
                          host_snapshots=True),
-    "internvl2-26b": dict(gate=24, serve=None, serve_entry=True,
+    "internvl2-26b": dict(gate=24, serve=24, serve_entry=True,
                           train_gate=(2, None), train=(8, 2, 2048, None)),
     "deepseek-v3-671b": dict(gate=4, serve=5, serve_entry=False,
                              train_gate=(4, 16), train=(4, 2, 1024, 32),
@@ -623,13 +665,17 @@ def check_kernel(floor: float) -> dict:
 
 
 def time_auto(fn, budget_ms: float = 300.0) -> float:
-    """``time_ms`` with as many calls as fit ``budget_ms`` (5 to 500)."""
+    """``time_ms`` with as many calls as fit ``budget_ms`` (5 to 500); a
+    warm call longer than the budget (a plain scan at d_inner 16384) is
+    its own measurement."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     once = (time.perf_counter() - t0) * 1e3
+    if once >= budget_ms:
+        return once
     return time_ms(fn, reps=int(min(500, max(5, budget_ms / once))),
                    warmup=2)
 
@@ -643,12 +689,15 @@ def attn_bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def flash_work(b, h, hkv, s, d, causal, elem) -> tuple[float, float]:
+def flash_work(b, h, hkv, s, d, causal, elem,
+               sk: int | None = None) -> tuple[float, float]:
     """FLOPs of the two products over the (query, key) pairs the mask
-    keeps (4 D each), and bytes of q, k, v read once and o written once."""
-    pairs = s * (s + 1) // 2 if causal else s * s
+    keeps (4 D each), and bytes of q, k, v read once and o written once;
+    ``sk`` keys (default ``s``) for the ``s`` queries."""
+    sk = s if sk is None else sk
+    pairs = sum(min(q + 1, sk) for q in range(s)) if causal else s * sk
     return (4.0 * d * pairs * b * h,
-            elem * (2 * b * h * s * d + 2 * b * hkv * s * d))
+            elem * (2 * b * h * s * d + 2 * b * hkv * sk * d))
 
 
 def decode_work(b, h, hkv, d, kv_len, elem) -> tuple[float, float]:
@@ -717,10 +766,37 @@ def check_flash() -> dict:
                 lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True),
                 dtype, flash_work(b, h, hkv, s, d, causal,
                                   q.element_size())))
+    cross = []
+    for i, (b, h, hkv, sq, sk, d, causal) in enumerate(FLASH_CROSS):
+        label = f"B={b} H={h} Hkv={hkv} Sq={sq} Sk={sk} D={d} causal={causal}"
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator().manual_seed(150 + i)
+            q, k, v = (torch.randn(sh, generator=g).to("cuda", dtype)
+                       for sh in ((b, h, sq, d), (b, hkv, sk, d),
+                                  (b, hkv, sk, d)))
+            want = attention_ref(q, k, v, causal=causal)
+            _compare("flash_attention", flash_attention(q, k, v, causal),
+                     want, dtype, worst, label)
+            if dtype != torch.bfloat16:
+                continue
+            lib = sdpa(q, k, v, is_causal=causal)
+            torch.testing.assert_close(lib.float(), want.float(),
+                                       **ATTN_TOL[torch.bfloat16])
+            cross.append(_timing(
+                "flash_attention", label,
+                lambda: flash_attention(q, k, v, causal),
+                lambda: attention_ref(q, k, v, causal=causal),
+                lambda: sdpa(q, k, v, is_causal=causal), dtype,
+                flash_work(b, h, hkv, sq, d, causal, q.element_size(), sk)))
+            cross[-1]["device_us"] = launch_us(
+                lambda: flash_attention(q, k, v, causal),
+                "::flash_wgmma_kernel<", required=False)
+            print(f"[kernel] flash_attention {label} bf16: "
+                  f"{cross[-1]['device_us']} us device per launch")
     print(f"[kernel] flash_attention max abs err fp32 "
           f"{worst[torch.float32]:.3e} (bound 2e-5), bf16 "
           f"{worst[torch.bfloat16]:.3e} (bound 2e-2)")
-    return {"worst": worst, "timing": rows}
+    return {"worst": worst, "timing": rows, "cross": cross}
 
 
 def _device_ops(fn, reps: int) -> dict[str, list]:
@@ -743,11 +819,14 @@ def _device_ops(fn, reps: int) -> dict[str, list]:
     return ops
 
 
-def launch_us(fn, name: str, reps: int = 20) -> float:
+def launch_us(fn, name: str, reps: int = 20,
+              required: bool = True) -> float | None:
     """Mean profiler device time, in us, of one launch of the kernels
     whose name holds ``name``, over ``reps`` warm calls of ``fn``.  A
     window whose trace came back without them (the profiler drops a
-    window's device events now and then) is taken again, up to 3 times."""
+    window's device events now and then) is taken again, up to 3 times;
+    then it raises, or, unless ``required``, returns None (not
+    measured)."""
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
@@ -755,6 +834,10 @@ def launch_us(fn, name: str, reps: int = 20) -> float:
         count = sum(c for _, c in hits)
         if count:
             return sum(t for t, _ in hits) / count / 1e3
+    if not required:
+        print(f"[kernel] {name}: no device events in 3 profiles, not "
+              f"measured")
+        return None
     raise AssertionError(f"no launch of {name} in 3 profiles")
 
 
@@ -786,8 +869,9 @@ def check_decode(floor: float) -> dict:
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     excess, control = -float("inf"), float("inf")   # bf16 gate readings
     rows, device = [], {}
+    mha = []
     for i, (b, h, hkv, s, d, n) in enumerate(DECODE_SWEEP + DECODE_PATH
-                                             + DECODE_GQA):
+                                             + DECODE_GQA + DECODE_MHA):
         label = f"B={b} H={h} Hkv={hkv} S={s} D={d} kv_len={n}"
         for dtype in (torch.float32, torch.bfloat16):
             g = torch.Generator().manual_seed(200 + i)
@@ -816,6 +900,25 @@ def check_decode(floor: float) -> dict:
                         f"max|o| past half an ulp of the fp32 result "
                         f"(bound {BF16_EXCESS:.3e})")
                 excess = max(excess, e)
+            if (b, h, hkv, s, d, n) in DECODE_MHA:
+                def lib(q=q, k=k, v=v, n=n):
+                    return sdpa(q[:, :, None], k[:, :, :n],
+                                v[:, :, :n])[:, :, 0]
+
+                torch.testing.assert_close(lib().float(), want.float(),
+                                           **ATTN_TOL[torch.bfloat16])
+                mha.append(_timing(
+                    "decode_attention", label,
+                    lambda: decode_attention(q, k, v, kv_len=n),
+                    lambda: decode_attention_ref(q, k, v, kv_len=n), lib,
+                    dtype, decode_work(b, h, hkv, d, n, q.element_size())))
+                mha[-1]["device_us"] = launch_us(
+                    lambda: decode_attention(q, k, v, kv_len=n),
+                    "::decode_kernel<", required=False)
+                print(f"[kernel] decode_attention {label} "
+                      f"{str(dtype)[6:]}: {mha[-1]['device_us']} us "
+                      f"device per launch")
+                continue
             if (b, h, hkv, s, d, n) not in DECODE_PATH \
                     or n not in DECODE_PROFILED:
                 continue
@@ -865,7 +968,8 @@ def check_decode(floor: float) -> dict:
           f"result, share of max|o|: kernel {excess:.3e}, single-bf16-P "
           f"control {control:.3e} at least (bound {BF16_EXCESS:.3e})")
     return {"worst": worst, "timing": rows, "device_us": device,
-            "bf16_excess": excess, "bf16_control_excess": control}
+            "bf16_excess": excess, "bf16_control_excess": control,
+            "mha": mha}
 
 
 def router_work(t, e, k, elem) -> tuple[float, float]:
@@ -910,7 +1014,9 @@ def _compare_routing(label, got, want, worst, dtype) -> None:
 def check_router(floor: float) -> dict:
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     rows, device = [], {}
-    for i, (t, e, k) in enumerate(ROUTER_SWEEP + ROUTER_PATH + ROUTER_V3):
+    jamba = []
+    for i, (t, e, k) in enumerate(ROUTER_SWEEP + ROUTER_PATH + ROUTER_V3
+                                  + ROUTER_JAMBA):
         label = f"T={t} E={e} k={k}"
         for dtype in (torch.float32, torch.bfloat16):
             g = torch.Generator().manual_seed(300 + i)
@@ -918,6 +1024,21 @@ def check_router(floor: float) -> dict:
             want = moe_router_ref(logits, k)
             _compare_routing(label, moe_router(logits, k), want, worst, dtype)
             print(f"[kernel] moe_router {label} {str(dtype)[6:]}: ok")
+            if (t, e, k) == ROUTER_JAMBA[-1] and dtype == torch.float32:
+                _compare_routing(f"{label} (library)",
+                                 router_library(logits, k), want,
+                                 {dtype: 0.0}, dtype)
+                jamba.append(_timing(
+                    "moe_router", label, lambda: moe_router(logits, k),
+                    lambda: moe_router_ref(logits, k),
+                    lambda: router_library(logits, k), dtype,
+                    router_work(t, e, k, logits.element_size()),
+                    library_name="softmax+topk+renorm"))
+                jamba[-1]["device_us"] = launch_us(
+                    lambda: moe_router(logits, k), "::router_kernel<",
+                    required=False)
+                print(f"[kernel] moe_router {label} fp32: "
+                      f"{jamba[-1]['device_us']} us device per launch")
             if (t, e, k) not in ROUTER_PATH or dtype != torch.float32:
                 continue
             us = launch_us(lambda: moe_router(logits, k), "::router_kernel<")
@@ -980,7 +1101,8 @@ def check_router(floor: float) -> dict:
     print(f"[kernel] moe_router max abs weight err fp32 "
           f"{worst[torch.float32]:.3e}, bf16 inputs "
           f"{worst[torch.bfloat16]:.3e} (bound {ROUTER_ATOL})")
-    return {"worst": worst, "timing": rows, "device_us": device}
+    return {"worst": worst, "timing": rows, "device_us": device,
+            "jamba": jamba}
 
 
 def scan_inputs(b, l, d, n, dtype, seed):
@@ -1015,7 +1137,7 @@ def check_scan() -> dict:
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     worst_rel = dict(worst)
     rows = []
-    for i, (b, l, d, n) in enumerate(SCAN_SWEEP + SCAN_PATH):
+    for i, (b, l, d, n) in enumerate(SCAN_SWEEP + SCAN_TIMED):
         label = f"B={b} L={l} D={d} N={n}"
         for dtype in (torch.float32, torch.bfloat16):
             args = scan_inputs(b, l, d, n, dtype, seed=400 + i)
@@ -1032,7 +1154,7 @@ def check_scan() -> dict:
             ).clamp_min(1.0)).max().item())
             print(f"[kernel] mamba_scan {label} {str(dtype)[6:]}: ok, max "
                   f"abs err {err:.3e} at max |y| {w.abs().max().item():.1f}")
-            if (b, l, d, n) not in SCAN_PATH:
+            if (b, l, d, n) not in SCAN_TIMED:
                 continue
             k1 = time_auto(lambda: mamba_scan(*args))
             p1 = time_auto(lambda: mamba_scan_ref(*args))
@@ -1040,7 +1162,8 @@ def check_scan() -> dict:
             k2 = time_auto(lambda: mamba_scan(*args))
             bound_ms, bound_by = scan_bound(b, l, d, n, args[0].element_size())
             prof = profile_window(f"mamba_scan {label} {str(dtype)[6:]}",
-                                  lambda: mamba_scan(*args), 10)
+                                  lambda: mamba_scan(*args), 10,
+                                  need=("scan_kernel",))
             dev = prof["kernels"].get("scan_kernel", {}).get("ms")
             row = dict(shape=label, dtype=str(dtype)[6:], ms=min(k1, k2),
                        plain_ms=min(p1, p2), library_ms=None,
@@ -1069,7 +1192,7 @@ def check_scan_with_state() -> dict:
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     rows = []
     for i, (b, l, d, n) in enumerate(SCAN_SWEEP + SCAN_PATH
-                                     + [SCAN_PREFILL]):
+                                     + [SCAN_PREFILL, SCAN_JAMBA_PREFILL]):
         label = f"B={b} L={l} D={d} N={n}"
         for dtype in (torch.float32, torch.bfloat16):
             args = scan_inputs(b, l, d, n, dtype, seed=700 + i)
@@ -1096,7 +1219,7 @@ def check_scan_with_state() -> dict:
             worst[dtype] = max(worst[dtype], err)
             print(f"[kernel] mamba_scan_with_state {label} "
                   f"{str(dtype)[6:]}: ok, max abs err {err:.3e}")
-            timed = ((b, l, d, n) == SCAN_PREFILL
+            timed = ((b, l, d, n) in (SCAN_PREFILL, SCAN_JAMBA_PREFILL)
                      or ((b, l, d, n) == SCAN_PATH[-1]
                          and dtype == torch.bfloat16))
             if not timed:
@@ -1112,7 +1235,8 @@ def check_scan_with_state() -> dict:
                                             last=True)
             prof = profile_window(
                 f"mamba_scan_with_state {label} {str(dtype)[6:]}",
-                lambda: mamba_scan_with_state(*args), 10)
+                lambda: mamba_scan_with_state(*args), 10,
+                need=("scan_kernel",))
             dev = prof["kernels"].get("scan_kernel", {}).get("ms")
             row = dict(shape=label, dtype=str(dtype)[6:], ms=min(k1, k2),
                        scan_ms=min(s1, s2), plain_ms=min(p1, p2),
@@ -1309,7 +1433,7 @@ def check_scan_bwd(floor: float) -> dict:
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     worst_rel = dict(worst)
     rows = []
-    for i, (b, l, d, n) in enumerate(SCAN_SWEEP + SCAN_PATH):
+    for i, (b, l, d, n) in enumerate(SCAN_SWEEP + SCAN_TIMED):
         label = f"B={b} L={l} D={d} N={n}"
         for dtype in (torch.float32, torch.bfloat16):
             args = scan_inputs(b, l, d, n, dtype, seed=500 + i)
@@ -1344,7 +1468,7 @@ def check_scan_bwd(floor: float) -> dict:
                   f"largest error / largest gradient {e1:.3e} against the "
                   f"plain backward, {e2:.3e} against autograd; a second "
                   f"call equal bit for bit")
-            if (b, l, d, n) not in SCAN_PATH:
+            if (b, l, d, n) not in SCAN_TIMED:
                 continue
 
             def plain_autograd(args=args, g=g):
@@ -1360,7 +1484,8 @@ def check_scan_bwd(floor: float) -> dict:
                                                 args[0].element_size())
             prof = profile_window(f"mamba_scan_bwd {label} {str(dtype)[6:]}",
                                   lambda: mamba_scan_bwd(*args, g, states),
-                                  10)
+                                  10, need=("scan_bwd_kernel",
+                                            "scan_bwd_reduce_kernel"))
             dev = {k: prof["kernels"].get(k, {}).get("ms")
                    for k in ("scan_bwd_kernel", "scan_bwd_reduce_kernel")}
             row = dict(shape=label, dtype=str(dtype)[6:], ms=min(k1, k2),
@@ -2691,14 +2816,25 @@ def reset_launches() -> None:
 
 
 def layer_counts(cfg) -> dict:
-    """Layers of each kind: attention through the kernels (GQA), MLA
+    """Layers of each kind: self-attention through the kernels (GQA), MLA
     (the plain attention functions, as in the JAX package: no kernel),
-    MoE, SSM."""
+    MoE, SSM (a hybrid period's Mamba sublayers), and an encoder-
+    decoder's encoder layers and cross-attention sublayers (each one
+    flash launch per forward, the cross-attention also one per decoded
+    token)."""
     n_attn = sum(cfg.is_attention_layer(i) for i in range(cfg.n_layers))
     return dict(attn=0 if cfg.use_mla else n_attn,
                 mla=n_attn if cfg.use_mla else 0,
                 moe=sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers)),
-                ssm=cfg.n_layers if cfg.family == "ssm" else 0)
+                ssm=(cfg.n_layers - n_attn
+                     if cfg.family in ("ssm", "hybrid") else 0),
+                enc=cfg.encoder_layers,
+                cross=cfg.n_layers if cfg.encoder_layers else 0)
+
+
+def flash_per_forward(n: dict) -> int:
+    """flash_attention launches of one full-sequence forward."""
+    return n["attn"] + n["enc"] + n["cross"]
 
 
 def lm_prompts(vocab: int) -> list[np.ndarray]:
@@ -2727,7 +2863,8 @@ def serve_engine(model: Model, params, prompts) -> dict:
     cfg = model.cfg
     n = layer_counts(cfg)
     decoded = sum(len(r.out) - 1 for r in done)
-    want = dict(flash_attention=n["attn"] * len(prompts),
+    want = dict(flash_attention=(flash_per_forward(n) * len(prompts)
+                                 + n["cross"] * decoded),
                 decode_attention=LAUNCHES_PER_CALL * n["attn"] * decoded,
                 moe_router=n["moe"] * (len(prompts) + decoded), lstm_cell=0,
                 mamba_scan=0, mamba_scan_bwd=0,
@@ -2853,12 +2990,14 @@ def _routing_line(tf: dict) -> str:
             f"{tf['max_abs_drift_after_routing']:.3e})")
 
 
-def lm_gate(arch: str, n_layers: int | None = None) -> dict:
-    """fp32 at full width (and depth, unless ``n_layers`` cuts it), the
-    correctness gate."""
+def lm_gate(arch: str, n_layers: int | None = None,
+            experts: int | None = None) -> dict:
+    """fp32 at full width (and depth, unless ``n_layers`` cuts it; the
+    expert count, unless ``experts`` cuts it), the correctness gate."""
     full = get_config(arch)
     cfg = dataclasses.replace(full, param_dtype="float32",
-                              n_layers=n_layers or full.n_layers)
+                              n_layers=n_layers or full.n_layers,
+                              n_experts=experts or full.n_experts)
     model = Model(cfg)
     matmul = torch.backends.cuda.matmul
     if (matmul.allow_tf32 or torch.backends.cudnn.allow_tf32
@@ -2878,7 +3017,14 @@ def lm_gate(arch: str, n_layers: int | None = None) -> dict:
     for f in tf["flips"]:
         print(f"[lm] fp32 boundary flip: {f}")
     peak = torch.cuda.max_memory_allocated() / 2**30
+    fp64 = None
+    if cfg.family == "hybrid":
+        fp64 = hybrid_against_fp64(model, params, prompts[:FP64_PROMPTS])
     tol = SSM_LOGIT_TOL if cfg.family == "ssm" else LOGIT_TOL
+    if fp64 is not None:
+        # the plain path's own distance from float64, doubled, where it
+        # passes LOGIT_TOL (as SSM_LOGIT_TOL was justified for falcon)
+        tol = max(tol, 2 * max(e["plain"] for e in fp64.values()))
     print(f"[lm] {cfg.name} fp32 engine vs plain path: max abs logit drift "
           f"{tf['max_abs_drift']:.3e} (bound {tol}) over {tf['steps']} "
           f"steps, greedy tokens equal {tf['agree']}/{tf['steps']}, peak "
@@ -2891,59 +3037,163 @@ def lm_gate(arch: str, n_layers: int | None = None) -> dict:
     if bad:
         raise AssertionError(f"fp32 greedy tokens differ away from a top-2 "
                              f"tie: {bad}")
-    out = dict(n_layers=cfg.n_layers, launches=served["launches"],
+    out = dict(n_layers=cfg.n_layers, n_experts=cfg.n_experts,
+               params_b=cfg.param_count() / 1e9, launches=served["launches"],
                wall_s=served["wall_s"], tokens=served["tokens"],
                peak_gib=peak, logit_tol=tol, **tf)
     if cfg.family == "ssm":
         out["fp64"] = ssm_against_fp64(model, params,
                                        prompts[:FP64_PROMPTS])
-    if cfg.family == "ssm" or cfg.use_mla:
+    if fp64 is not None:
+        out["fp64"] = fp64
+    if cfg.family in ("ssm", "hybrid") or cfg.use_mla:
         # MLA: the absorbed latent decode against the expanded attention
         out["prefill_then_decode"] = prefill_then_decode(
             model, params, prompts[:3], tol)
     if cfg.family == "vlm":
-        out["patches"] = vlm_patches(model, params, prompts, hold=True)
+        out["patches"] = frontend_serve(model, params, prompts, hold=True)
     del params, served
     free_cuda()
     return out
+
+
+def _fp64_norm(cfg, w, x):
+    return (x * torch.rsqrt((x * x).mean(-1, keepdim=True) + cfg.norm_eps)
+            * w.double())
+
+
+def _fp64_silu(x):
+    return x * torch.sigmoid(x)
+
+
+def _fp64_mamba(cfg, p: dict, h):
+    """One Mamba block in float64 from one layer's params: h (B, L, d)
+    normed input -> (B, L, d), the plain scan stepped in float64."""
+    di, n, dtr, k = cfg.d_inner, cfg.ssm_state, cfg.dt_rank, cfg.ssm_conv
+    p = {kk: v.double() for kk, v in p.items()}
+    ell = h.shape[1]
+    xz = h @ p["in_proj"]
+    xin, z = xz[..., :di], xz[..., di:]
+    xp = torch.nn.functional.pad(xin, (0, 0, k - 1, 0))
+    xc = _fp64_silu(sum(xp[:, j:j + ell] * p["conv_w"][j] for j in range(k))
+                    + p["conv_b"])
+    proj = xc @ p["x_proj"]
+    delta = torch.nn.functional.softplus(proj[..., :dtr] @ p["dt_proj"]
+                                         + p["dt_bias"])
+    bm, cm = proj[..., dtr:dtr + n], proj[..., dtr + n:]
+    a = -torch.exp(p["a_log"])
+    st = h.new_zeros(h.shape[0], di, n)
+    ys = []
+    for t in range(ell):
+        st = (torch.exp(delta[:, t, :, None] * a) * st
+              + (delta[:, t] * xc[:, t])[..., None] * bm[:, t, None, :])
+        ys.append(torch.einsum("bdn,bn->bd", st, cm[:, t])
+                  + p["skip"] * xc[:, t])
+    return (torch.stack(ys, 1) * _fp64_silu(z)) @ p["out_proj"]
 
 
 def _fp64_ssm_logits(model: Model, params, toks):
     """falcon-mamba's last-token prefill logits in float64, layer by
     layer from the fp32 params (the plain scan stepped in float64)."""
     cfg = model.cfg
-    di, n, dtr, k = cfg.d_inner, cfg.ssm_state, cfg.dt_rank, cfg.ssm_conv
-
-    def norm(w, x):
-        return (x * torch.rsqrt((x * x).mean(-1, keepdim=True)
-                                + cfg.norm_eps) * w.double())
-
-    def silu(x):
-        return x * torch.sigmoid(x)
-
     x = params["embed"][toks].double()
-    ell = x.shape[1]
     for i in range(cfg.n_layers):
-        p = {kk: v[i].double() for kk, v in params["g0"]["mamba"].items()}
-        xz = norm(params["g0"]["ln1"]["w"][i], x) @ p["in_proj"]
-        xin, z = xz[..., :di], xz[..., di:]
-        xp = torch.nn.functional.pad(xin, (0, 0, k - 1, 0))
-        xc = silu(sum(xp[:, j:j + ell] * p["conv_w"][j] for j in range(k))
-                  + p["conv_b"])
-        proj = xc @ p["x_proj"]
-        delta = torch.nn.functional.softplus(proj[..., :dtr] @ p["dt_proj"]
-                                             + p["dt_bias"])
-        bm, cm = proj[..., dtr:dtr + n], proj[..., dtr + n:]
-        a = -torch.exp(p["a_log"])
-        h = x.new_zeros(x.shape[0], di, n)
-        ys = []
-        for t in range(ell):
-            h = (torch.exp(delta[:, t, :, None] * a) * h
-                 + (delta[:, t] * xc[:, t])[..., None] * bm[:, t, None, :])
-            ys.append(torch.einsum("bdn,bn->bd", h, cm[:, t])
-                      + p["skip"] * xc[:, t])
-        x = x + (torch.stack(ys, 1) * silu(z)) @ p["out_proj"]
-    return norm(params["ln_f"]["w"], x)[:, -1:] @ params["head"].double()
+        p = {kk: v[i] for kk, v in params["g0"]["mamba"].items()}
+        x = x + _fp64_mamba(cfg, p, _fp64_norm(
+            cfg, params["g0"]["ln1"]["w"][i], x))
+    return _fp64_norm(cfg, params["ln_f"]["w"], x)[:, -1:] \
+        @ params["head"].double()
+
+
+def _fp64_hybrid_logits(model: Model, params, toks):
+    """A hybrid model's last-token prefill logits in float64 from its
+    fp32 params, period by period: the Mamba sublayers as
+    ``_fp64_mamba``, causal GQA attention with RoPE, top-k routing from
+    float64 probabilities (dropless: the prompts here are short) and
+    each expert's SwiGLU converted one expert at a time, so the float64
+    copies stay a few GB beside the model."""
+    cfg = model.cfg
+    period, hd = cfg.attn_period, cfg.hd
+    x = params["embed"][toks].double()
+    b, s, _ = x.shape
+    t = torch.arange(s, dtype=torch.float64, device=x.device)
+    inv = 1.0 / (cfg.rope_theta ** (torch.arange(
+        0, hd, 2, dtype=torch.float64, device=x.device) / hd))
+    cos, sin = torch.cos(torch.outer(t, inv)), torch.sin(torch.outer(t, inv))
+
+    def rope(v):
+        v1, v2 = v[..., :hd // 2], v[..., hd // 2:]
+        c, sn = cos[None, :, None], sin[None, :, None]
+        return torch.cat([v1 * c - v2 * sn, v2 * c + v1 * sn], -1)
+
+    def swiglu(wg, wu, wd, v):
+        return (_fp64_silu(v @ wg.double()) * (v @ wu.double())) \
+            @ wd.double()
+
+    for gp in range(cfg.n_layers // period):
+        p = layer(params["g0"], gp)
+        i_moe = i_ff = 0
+        for j in range(period):
+            h = _fp64_norm(cfg, p["ln"]["w"][2 * j], x)
+            if j < period - 1:
+                x = x + _fp64_mamba(cfg, layer(p["mamba"], j), h)
+            else:
+                a = {k: v.double() for k, v in p["attn"].items()}
+                q = rope((h @ a["wq"]).view(b, s, cfg.n_heads, hd))
+                kk = rope((h @ a["wk"]).view(b, s, cfg.n_kv_heads, hd))
+                vv = (h @ a["wv"]).view(b, s, cfg.n_kv_heads, hd)
+                g = cfg.n_heads // cfg.n_kv_heads
+                kk, vv = (z.repeat_interleave(g, 2).transpose(1, 2)
+                          for z in (kk, vv))
+                sc = q.transpose(1, 2) @ kk.transpose(-1, -2) * hd ** -0.5
+                sc = sc.masked_fill(torch.ones(s, s, dtype=torch.bool,
+                                               device=x.device).triu(1),
+                                    float("-inf"))
+                o = torch.softmax(sc, -1) @ vv
+                x = x + o.transpose(1, 2).reshape(b, s, -1) @ a["wo"]
+            h = _fp64_norm(cfg, p["ln"]["w"][2 * j + 1], x)
+            if j % cfg.moe_every == cfg.moe_every - 1:
+                m = layer(p["moe"], i_moe)
+                probs = torch.softmax(h @ m["router"].double(), -1)
+                w, idx = torch.topk(probs, cfg.top_k, -1)
+                w = w / w.sum(-1, keepdim=True)
+                y = torch.zeros_like(h)
+                for e in range(cfg.n_experts):
+                    sel = (idx == e)
+                    if sel.any():
+                        we = (w * sel).sum(-1, keepdim=True)
+                        y = y + we * swiglu(m["wg"][e], m["wu"][e],
+                                            m["wd"][e], h)
+                x = x + y
+                i_moe += 1
+            else:
+                m = layer(p["mlp"], i_ff)
+                x = x + swiglu(m["wg"], m["wu"], m["wd"], h)
+                i_ff += 1
+    return _fp64_norm(cfg, params["ln_f"]["w"], x)[:, -1:] \
+        @ params["head"].double()
+
+
+def hybrid_against_fp64(model: Model, params, prompts) -> dict:
+    """A hybrid model's fp32 prefill logits through the kernels and
+    through the plain path, each against a float64 forward from the same
+    params (reported; the gate's bound takes the plain path's error)."""
+    out = {}
+    for p in prompts:
+        toks = torch.as_tensor(p, device=DEVICE)[None]
+        with torch.no_grad():
+            kern, _ = model.prefill(params, {"tokens": toks})
+            with plain_path():
+                plain, _ = model.prefill(params, {"tokens": toks})
+            exact = _fp64_hybrid_logits(model, params, toks)
+        out[len(p)] = dict(kernel=(kern.double() - exact).abs().max().item(),
+                           plain=(plain.double() - exact).abs().max().item(),
+                           max_logit=exact.abs().max().item())
+        del kern, plain, exact
+        free_cuda()
+    print(f"[lm] {model.cfg.name} fp32 prefill logits against a float64 "
+          f"forward, max abs by S: {out}")
+    return out
 
 
 def ssm_against_fp64(model: Model, params, prompts) -> dict:
@@ -2972,16 +3222,19 @@ def ssm_against_fp64(model: Model, params, prompts) -> dict:
     return out
 
 
-def prefill_then_decode(model: Model, params, prompts, tol: float) -> dict:
+def prefill_then_decode(model: Model, params, prompts, tol: float,
+                        extra: dict | None = None) -> dict:
     """Prefill of a whole prompt against a prefill of all but its last
     token and a decode step of that token (for the SSM: the kernel's
-    final state carried into the plain recurrent step): last-token
+    final state carried into the plain recurrent step; for an encdec,
+    ``extra`` holds the frames, the ``{"enc"}`` cache carried): last-token
     logits within ``tol``, max abs."""
     drift = {}
     for p in prompts:
         toks = torch.as_tensor(p, device=DEVICE)[None]
-        full, _ = model.prefill(params, {"tokens": toks})
-        _, caches = model.prefill(params, {"tokens": toks[:, :-1]})
+        full, _ = model.prefill(params, {"tokens": toks, **(extra or {})})
+        _, caches = model.prefill(params, {"tokens": toks[:, :-1],
+                                           **(extra or {})})
         step, _ = model.decode_step(params, pad_to_length(caches, len(p)),
                                     toks[:, -1:], len(p) - 1)
         drift[len(p)] = (step - full).abs().max().item()
@@ -3005,17 +3258,27 @@ def _sync_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def lm_timing(arch: str, n_layers: int | None = None) -> dict:
+def lm_timing(arch: str, n_layers: int | None = None,
+              experts: int | None = None) -> dict:
     """bf16, the config's own dtype, at full width and depth (unless
     ``n_layers`` cuts it): the engine's run, warm TTFT per prompt length
     (prefill, cache padding and the first token, one request alone), warm
     decode ms per token, drift and routing differences against the plain
     path, and profiled windows of decode steps and of the longest
-    prefill; for a vlm, the same prompts after its patch embeddings."""
+    prefill; for a vlm, the same prompts after its patch embeddings.
+    ``experts`` cuts the MoE layers' expert count."""
     full = get_config(arch)
-    cfg = dataclasses.replace(full, n_layers=n_layers or full.n_layers)
+    cfg = dataclasses.replace(full, n_layers=n_layers or full.n_layers,
+                              n_experts=experts or full.n_experts)
     model = Model(cfg)
+    t0 = time.perf_counter()
     params = model.init(SEED, DEVICE)
+    torch.cuda.synchronize()
+    print(f"[lm] {cfg.name} bf16, {cfg.n_layers} layers"
+          + (f", {cfg.n_experts} experts" if cfg.n_experts else "")
+          + f": {cfg.param_count() / 1e9:.3f} B params, init "
+          f"{time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
     prompts = lm_prompts(cfg.vocab)
     torch.cuda.reset_peak_memory_stats()
     served = serve_engine(model, params, prompts)
@@ -3080,44 +3343,56 @@ def lm_timing(arch: str, n_layers: int | None = None) -> dict:
     out = dict(ttft_ms=ttft, decode_ms=decode_ms, profile=decode_busy,
                prefill_profile=prefill_busy, weight_gb=wbytes / 1e9,
                weight_read_bound_ms=bound_ms,
+               n_layers=cfg.n_layers, n_experts=cfg.n_experts,
+               params_b=cfg.param_count() / 1e9,
                engine_tok_per_s=tok_s, engine_wall_s=served["wall_s"],
                tokens=served["tokens"], launches=served["launches"],
                peak_gib=peak, max_abs_drift=tf["max_abs_drift"],
                agree=tf["agree"], steps=tf["steps"], flips=len(tf["flips"]),
                routing=dict(tf["routing"], first=len(tf["routing"]["first"])))
     if cfg.family == "vlm":
-        out["patches"] = vlm_patches(model, params, prompts, hold=False)
+        out["patches"] = frontend_serve(model, params, prompts, hold=False)
     del params, served
     free_cuda()
     return out
 
 
-def patch_embeds(cfg, seed: int = SEED):
-    """The vlm's image stub: ``frontend_tokens`` seeded embeddings at the
-    model width, (1, P, d) on the card in the config's dtype."""
+def frontend_embeds(cfg, seed: int = SEED):
+    """A modality stub's inputs: ``frontend_tokens`` seeded embeddings at
+    the model width, (1, P, d) on the card in the config's dtype (the
+    vlm's image patches, the encdec's audio frames)."""
     g = torch.Generator().manual_seed(seed)
     return torch.randn(1, cfg.frontend_tokens, cfg.d_model,
                        generator=g).to(DEVICE, cfg.dtype)
 
 
-def vlm_patches(model: Model, params, prompts, hold: bool) -> dict:
-    """``prefill`` with the patch embeddings before each of
-    ``PATCH_PROMPTS``' prompts, then ``MAX_NEW`` greedy ``decode_step``s
-    (positions P + S on), through the kernels (launch counts set to 0
-    just before and read just after), then teacher-forced through the
-    plain path: logit drift, greedy agreement, warm TTFT with the patches.
-    With ``hold`` (fp32) the drift must stay within LOGIT_TOL and the
-    tokens may differ only at a top-2 tie."""
+def frontend_serve(model: Model, params, prompts, hold: bool) -> dict:
+    """``prefill`` with the stub's embeddings beside each prompt (a
+    vlm's ``PATCH_PROMPTS``, prepended: decode positions P + S on; an
+    encdec's every prompt, the frames through the encoder: positions S
+    on), then ``MAX_NEW - 1`` greedy ``decode_step``s, through the kernels
+    (launch counts set to 0 just before and read just after), then
+    teacher-forced through the plain path: logit drift, greedy
+    agreement, warm TTFT (the encoder's pass included).  With ``hold``
+    (fp32) the drift must stay within LOGIT_TOL and the tokens may differ
+    only at a top-2 tie.  An encdec's bf16 run also times warm decode ms
+    per token at the shortest and longest prompt, each with a profiled
+    window of decode steps."""
     cfg = model.cfg
-    pe = patch_embeds(cfg)
-    p_len = pe.shape[1]
-    sel = [prompts[PROMPT_LENS.index(n)] for n in PATCH_PROMPTS]
+    encdec = cfg.family == "encdec"
+    key = "frame_embeds" if encdec else "patch_embeds"
+    pe = frontend_embeds(cfg)
+    p_len = 0 if encdec else pe.shape[1]
+    sel = list(prompts) if encdec else [prompts[PROMPT_LENS.index(n)]
+                                        for n in PATCH_PROMPTS]
+
+    def prefill(p):
+        toks = torch.as_tensor(p, device=DEVICE)[None]
+        logits, caches = model.prefill(params, {"tokens": toks, key: pe})
+        return logits, pad_to_length(caches, p_len + len(p) + MAX_NEW)
 
     def run(p, forced=None):
-        toks = torch.as_tensor(p, device=DEVICE)[None]
-        logits, caches = model.prefill(params, {"tokens": toks,
-                                                "patch_embeds": pe})
-        caches = pad_to_length(caches, p_len + len(p) + MAX_NEW)
+        logits, caches = prefill(p)
         out, steps = [], [logits[0, -1]]
         for j in range(MAX_NEW - 1):
             tok = int(torch.argmax(steps[-1])) if forced is None \
@@ -3132,17 +3407,19 @@ def vlm_patches(model: Model, params, prompts, hold: bool) -> dict:
 
     torch.cuda.synchronize()
     reset_launches()
+    t0 = time.perf_counter()
     kern = [run(p) for p in sel]
     torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     launches = kernel_launches()
     n = layer_counts(cfg)
+    decoded = len(sel) * (MAX_NEW - 1)
     want = {k: 0 for k in launches}
-    want.update(flash_attention=n["attn"] * len(sel),
-                decode_attention=(LAUNCHES_PER_CALL * n["attn"] * len(sel)
-                                  * (MAX_NEW - 1)))
+    want.update(flash_attention=(flash_per_forward(n) * len(sel)
+                                 + n["cross"] * decoded),
+                decode_attention=LAUNCHES_PER_CALL * n["attn"] * decoded)
     if launches != want:
-        raise AssertionError(f"patches: launches {launches}, expected "
-                             f"{want}")
+        raise AssertionError(f"{key}: launches {launches}, expected {want}")
     drift, agree, flips = 0.0, 0, []
     before = kernel_launches()
     with plain_path():
@@ -3162,47 +3439,85 @@ def vlm_patches(model: Model, params, prompts, hold: bool) -> dict:
         raise AssertionError("the plain path launched a kernel")
     ttft = {}
     for p in sel:
-        toks = torch.as_tensor(p, device=DEVICE)[None]
-
-        def first():
-            logits, _ = model.prefill(params, {"tokens": toks,
-                                               "patch_embeds": pe})
+        def first(p=p):
+            logits, _ = prefill(p)
             int(torch.argmax(logits[0, -1]))
 
         ttft[p_len + len(p)] = float(np.median([_sync_ms(first)
                                                 for _ in range(3)]))
     steps = len(sel) * MAX_NEW
-    print(f"[lm] {cfg.name} {str(cfg.dtype)[6:]} with {p_len} patch "
-          f"embeddings before {PATCH_PROMPTS} tokens: launches "
-          f"flash_attention {launches['flash_attention']} = {n['attn']} x "
-          f"{len(sel)} prefills, decode_attention "
-          f"{launches['decode_attention']} = {n['attn']} x {len(sel)} x "
-          f"{MAX_NEW - 1}; kernels vs plain path max abs logit drift "
+    what = (f"{p_len} patch embeddings before {PATCH_PROMPTS} tokens"
+            if not encdec else f"{pe.shape[1]} frames through the encoder "
+            f"beside {PROMPT_LENS} tokens")
+    print(f"[lm] {cfg.name} {str(cfg.dtype)[6:]} with {what}: launches "
+          f"flash_attention {launches['flash_attention']} = "
+          f"{flash_per_forward(n)} x {len(sel)} prefills"
+          + (f" + {n['cross']} cross-attention x {decoded} decoded tokens"
+             if encdec else "")
+          + f", decode_attention {launches['decode_attention']} = "
+          f"{n['attn']} x {decoded}; {sum(len(t) for t, _ in kern)} tokens "
+          f"in {wall:.3f} s; kernels vs plain path max abs logit drift "
           f"{drift:.3e}, greedy tokens equal {agree}/{steps}; TTFT ms by "
           f"positions (warm) {ttft}")
     if hold:
         if not drift <= LOGIT_TOL:
-            raise AssertionError(f"patches: fp32 logits drift {drift}")
+            raise AssertionError(f"{key}: fp32 logits drift {drift}")
         bad = [f for f in flips if f["margin"] >= LOGIT_TOL]
         if bad:
-            raise AssertionError(f"patches: greedy tokens differ away from "
+            raise AssertionError(f"{key}: greedy tokens differ away from "
                                  f"a top-2 tie: {bad}")
-    return dict(patches=p_len, prompts=PATCH_PROMPTS, launches=launches,
-                max_abs_drift=drift, agree=agree, steps=steps,
-                flips=len(flips), ttft_ms=ttft)
+    out = dict(stub_tokens=pe.shape[1], prompts=[len(p) for p in sel],
+               launches=launches, max_abs_drift=drift, agree=agree,
+               steps=steps, flips=len(flips), ttft_ms=ttft, wall_s=wall)
+    if encdec and not hold:
+        decode_ms, busy = {}, {}
+        for p in (sel[0], sel[-1]):
+            logits, caches = prefill(p)
+            caches = pad_to_length(caches, MAX_LEN)
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            times = []
+            for j in range(MAX_NEW):
+                def step(j=j):
+                    nonlocal tok
+                    o, _ = model.decode_step(params, caches, tok, len(p) + j)
+                    tok = torch.argmax(o[:, -1], dim=-1)[:, None]
+                    int(tok[0, 0])
+                times.append(_sync_ms(step))
+            decode_ms[len(p)] = float(np.median(times[2:]))
+            busy[len(p)] = profile_decode(model, params, caches, tok,
+                                          len(p) + MAX_NEW)
+            del caches
+        out.update(decode_ms=decode_ms, profile=busy,
+                   prefill_profile=profile_window(
+                       f"prefill of {len(sel[-1])} tokens and the "
+                       f"encoder's {pe.shape[1]} frames",
+                       lambda: prefill(sel[-1]), 1))
+        print(f"[lm] {cfg.name} bf16 per decoded token, by context: host "
+              f"{decode_ms} ms, device busy "
+              f"{ {k: round(v['device_busy_ms'], 3) for k, v in busy.items()} }"
+              f" ms over "
+              f"{ {k: round(v['device_ops']) for k, v in busy.items()} } "
+              f"device ops (the cross-attention's K and V projected from "
+              f"all {pe.shape[1]} encoder states again every token)")
+    return out
 
 
-def profile_window(label: str, fn, reps: int) -> dict:
+def profile_window(label: str, fn, reps: int, need: tuple = ()) -> dict:
     """Device time of ``reps`` calls of ``fn`` under torch.profiler: busy
-    ms per call (every kernel and copy) and the top device ops."""
-    ops = _device_ops(fn, reps)
+    ms per call (every kernel and copy) and the top device ops.  A window
+    whose trace lacks a kernel named in ``need`` (the profiler drops a
+    window's device events now and then) is taken again, up to 3 times."""
+    for _ in range(3):
+        ops = _device_ops(fn, reps)
+        ours = {}
+        for name in OUR_KERNELS:
+            hits = [v for k, v in ops.items() if f"::{name}<" in k]
+            if hits:
+                ours[name] = dict(ms=sum(t for t, _ in hits) / 1e6 / reps,
+                                  calls=sum(c for _, c in hits) / reps)
+        if all(n in ours for n in need):
+            break
     top = sorted(ops.items(), key=lambda kv: -kv[1][0])[:6]
-    ours = {}
-    for name in OUR_KERNELS:
-        hits = [v for k, v in ops.items() if f"::{name}<" in k]
-        if hits:
-            ours[name] = dict(ms=sum(t for t, _ in hits) / 1e6 / reps,
-                              calls=sum(c for _, c in hits) / reps)
     out = dict(device_busy_ms=sum(t for t, _ in ops.values()) / 1e6 / reps,
                device_ops=sum(c for _, c in ops.values()) / reps,
                top=[dict(op=k[:120], ms=t / 1e6 / reps, calls=c / reps)
@@ -3254,8 +3569,8 @@ def plain_training():
 
 
 def _trainer(arch: str, n_layers: int, dtype: str | None = None,
-             experts: int | None = None):
-    full = get_config(arch)
+             experts: int | None = None, reduced: bool = False):
+    full = (get_reduced if reduced else get_config)(arch)
     cfg = dataclasses.replace(full, n_layers=n_layers,
                               param_dtype=dtype or full.param_dtype,
                               n_experts=experts or full.n_experts)
@@ -3283,7 +3598,7 @@ def train_launches(cfg, steps: int) -> dict:
     attention and router backwards are plain PyTorch."""
     n = layer_counts(cfg)
     want = {k: 0 for k in kernel_launches()}
-    want["flash_attention"] = 2 * n["attn"] * steps
+    want["flash_attention"] = 2 * flash_per_forward(n) * steps
     want["moe_router"] = 2 * n["moe"] * steps
     want["mamba_scan"] = 2 * n["ssm"] * steps
     want["mamba_scan_bwd"] = (scan_ops.BWD_LAUNCHES_PER_CALL * n["ssm"]
@@ -3313,17 +3628,21 @@ def counting_drops():
 
 def lm_batch(cfg, data: SyntheticLM, i: int) -> dict:
     """Step i's batch; a vlm's also carries its seeded patch embeddings
-    (the loss drops their positions before the head)."""
+    (the loss drops their positions before the head), an encdec's its
+    seeded frame embeddings (the encoder's inputs)."""
     b = data.batch(i)
     if cfg.family == "vlm":
-        b["patch_embeds"] = patch_embeds(cfg, SEED + i).expand(
+        b["patch_embeds"] = frontend_embeds(cfg, SEED + i).expand(
+            b["tokens"].shape[0], -1, -1).contiguous()
+    if cfg.family == "encdec":
+        b["frame_embeds"] = frontend_embeds(cfg, SEED + i).expand(
             b["tokens"].shape[0], -1, -1).contiguous()
     return b
 
 
 def train_gate(arch: str, n_layers: int, batch: int, seq: int,
                experts: int | None = None,
-               host_snapshots: bool = False) -> dict:
+               host_snapshots: bool = False, reduced: bool = False) -> dict:
     """fp32 at full width, ``n_layers`` layers.  The main path:
     ``Trainer``'s ``GATE_STEPS`` steps through the kernels, launch counts
     set to 0 just before and read just after.  Then, from the params
@@ -3338,8 +3657,10 @@ def train_gate(arch: str, n_layers: int, batch: int, seq: int,
     losses drift apart step by step.  ``experts`` cuts the MoE layers'
     expert count; with ``host_snapshots`` the params before each step are
     kept in host memory (deepseek-v3's fp32 params, gradients and AdamW
-    moments fill the card)."""
-    cfg, model, trainer = _trainer(arch, n_layers, "float32", experts)
+    moments fill the card); ``reduced`` takes the arch's reduced config
+    (its width too) in place of the full one."""
+    cfg, model, trainer = _trainer(arch, n_layers, "float32", experts,
+                                   reduced)
     keep = (lambda t: t.to("cpu", copy=True)) if host_snapshots \
         else (lambda t: t.clone())
 
@@ -3418,7 +3739,8 @@ def train_gate(arch: str, n_layers: int, batch: int, seq: int,
           f"rel {grad_rel:.3e} (bound 1e-4; worst leaf {worst_leaf:.3e}); "
           f"step 1 repeated: loss bit-equal {repeat['loss']}, params "
           f"bit-equal {repeat['params']}; launches {shown} = 2 x "
-          f"({n['attn']} attention, {n['moe']} MoE, {n['ssm']} SSM) layers "
+          f"({flash_per_forward(n)} attention, {n['moe']} MoE, {n['ssm']} "
+          f"SSM) layers "
           f"x {GATE_STEPS} steps (forward and its recompute; the scan's "
           f"backward {scan_ops.BWD_LAUNCHES_PER_CALL} per layer); "
           + (f"copies dropped by capacity {dropped} of "
@@ -3529,7 +3851,7 @@ def train_timing(arch: str, n_layers: int, batch: int, seq: int,
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     with timed_backwards() as bwd:
-        grads = torch.autograd.grad(loss, xs)
+        grads = torch.autograd.grad(loss, xs, materialize_grads=True)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     params, state, _ = Opt.update(trainer.opt_cfg,
@@ -3541,7 +3863,7 @@ def train_timing(arch: str, n_layers: int, batch: int, seq: int,
     split = dict(forward_ms=(t1 - t0) * 1e3, backward_ms=(t2 - t1) * 1e3,
                  optimizer_ms=(t3 - t2) * 1e3)
     n = layer_counts(cfg)
-    calls = {"mamba_scan": n["ssm"], "flash_attention": n["attn"],
+    calls = {"mamba_scan": n["ssm"], "flash_attention": flash_per_forward(n),
              "moe_router": n["moe"]}
     if {k: len(v) for k, v in bwd.items()} != calls:
         raise AssertionError(f"backwards in a step {bwd}, expected {calls}")
@@ -3634,6 +3956,240 @@ def new_lm_phases(arch: str, plan: dict) -> dict:
                             out["train_entry"]["last_loss"]]).all():
             raise AssertionError(f"launch.train {arch}: "
                                  f"{out['train_entry']}")
+        free_cuda()
+    return out
+
+
+# ------------------- the encoder-decoder and hybrid families ---------------
+# seamless-m4t-large-v2 (2.04 B params, 4.1 GB in bf16) runs whole in every
+# phase: its requests and batches carry 1024 seeded frame embeddings (the
+# audio stub), which ``launch.serve``'s and the ``Engine``'s requests
+# cannot (``KeyError: 'frame_embeds'``, as in the JAX package), so it
+# serves through ``prefill`` / ``decode_step`` (``frontend_serve``).
+# Training: the fp32 gate at 2 x 256 tokens (2.04 B x 16 B of params,
+# gradients and AdamW moments, 32.6 GB, and the gate's three snapshots,
+# 24.5 GB), bf16 at 2 x 2048 tokens.
+# jamba-1.5-large-398b: ``n_layers`` must stay a multiple of its
+# attention period (8), so the depth cut is one period; one full-width
+# period still holds 45.24 B params (90.5 GB in bf16), so the expert
+# count is the one further cut (top-2, the expert width 24576, d_inner
+# 16384 and the period's layout stay): 4 experts in the fp32 serving
+# gate (16.25 B, 65.0 GB), 12 in bf16 serving (35.57 B, 71.1 GB), 2 in
+# the bf16 loss and gradients (11.41 B: 22.8 GB of params and 22.8 GB
+# of gradients; no AdamW step: its fp32 moments and master-free update
+# would need 12 B a param, 137 GB).  Its fp32 training gate and
+# ``launch.train`` / ``launch.serve`` run the reduced config.
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+HYBRID_ARCH = "jamba-1.5-large-398b"
+ENCDEC_TRAIN = (2, 2048)                  # bf16 training, batch x tokens
+HYBRID_EXPERTS = dict(gate=4, serve=12, grads=2)
+HYBRID_GRADS = (2, 1024)                  # the gradient run, batch x tokens
+# the reduced config's fp32 training gate: its plain scan, a step per
+# token, takes most of the gate's time (29 s with launch.train and
+# launch.serve at 2 x 256)
+HYBRID_REDUCED_SEQ = 64
+
+
+def frameless_refused(model: Model, params) -> dict:
+    """An encdec request without frames, as ``launch.serve`` makes it:
+    the ``Engine`` raises ``KeyError: 'frame_embeds'`` at its prefill, as
+    the JAX engine does; so does ``launch.train``'s first step at the
+    reduced config, as the JAX driver's."""
+    eng = Engine(model, params, EngineConfig(n_slots=1, max_len=64))
+    eng.submit(Request(req_id=0, tokens=np.arange(4), max_new=2))
+    raised = []
+    for run in (eng.step, lambda: train_entry.main(
+            ["--arch", ENCDEC_ARCH, "--reduced", "--steps", "1", "--batch",
+             "2", "--seq", "8", "--device", "cuda"])):
+        try:
+            run()
+        except KeyError as e:
+            raised.append(str(e))
+    if raised != ["'frame_embeds'"] * 2:
+        raise AssertionError(f"frameless requests raised {raised}")
+    print("[lm] a request or batch without frames raises KeyError: "
+          "'frame_embeds' in the Engine and in launch.train, as in the JAX "
+          "package")
+    return dict(engine="KeyError", train_entry="KeyError")
+
+
+def encdec_gate(arch: str) -> dict:
+    """fp32 at full width and depth: ``frontend_serve`` held to
+    LOGIT_TOL, prefill(S) against prefill(S - 1) and a decode step (the
+    ``{"enc"}`` cache carried), and the frameless request refused."""
+    cfg = dataclasses.replace(get_config(arch), param_dtype="float32")
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(SEED, DEVICE)
+    torch.cuda.synchronize()
+    print(f"[lm] {cfg.name} fp32, {cfg.encoder_layers} + {cfg.n_layers} "
+          f"layers: {cfg.param_count() / 1e9:.3f} B params, init "
+          f"{time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    prompts = lm_prompts(cfg.vocab)
+    torch.cuda.reset_peak_memory_stats()
+    out = frontend_serve(model, params, prompts, hold=True)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["prefill_then_decode"] = prefill_then_decode(
+        model, params, prompts[:3], LOGIT_TOL,
+        extra={"frame_embeds": frontend_embeds(cfg)})
+    out["frameless"] = frameless_refused(model, params)
+    out.update(n_layers=cfg.n_layers, encoder_layers=cfg.encoder_layers,
+               params_b=cfg.param_count() / 1e9, logit_tol=LOGIT_TOL)
+    print(f"[lm] {cfg.name} fp32 peak {out['peak_gib']:.2f} GiB")
+    del params
+    free_cuda()
+    return out
+
+
+def encdec_timing(arch: str) -> dict:
+    """bf16 at full width and depth: ``frontend_serve`` timed (TTFT with
+    the encoder's pass, decode ms per token, device busy and ops per
+    token, the longest prefill profiled), drift against the plain path
+    reported."""
+    cfg = get_config(arch)
+    model = Model(cfg)
+    params = model.init(SEED, DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    out = frontend_serve(model, params, lm_prompts(cfg.vocab), hold=False)
+    wbytes = weight_bytes(params)
+    out.update(peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               weight_gb=wbytes / 1e9,
+               weight_read_bound_ms=wbytes / HBM_BYTES_PER_S * 1e3)
+    print(f"[lm] {cfg.name} bf16 TTFT ms by prompt length with the "
+          f"encoder's pass (warm, alone): {out['ttft_ms']}; decode ms per "
+          f"token {out['decode_ms']}; weight-read bound "
+          f"{out['weight_read_bound_ms']:.3f} ms; peak "
+          f"{out['peak_gib']:.2f} GiB")
+    del params
+    free_cuda()
+    return out
+
+
+def hybrid_grads(arch: str, batch: int, seq: int, experts: int) -> dict:
+    """bf16 at full width, one period, ``experts`` experts: the loss and
+    its gradients (``trainer.value_and_grad``), the main path of training
+    short of the optimizer (no AdamW step fits), twice from the same
+    params and batch: every gradient finite, the second call bit-equal to
+    the first (the first kept in host memory), each call's launches
+    counted (every sublayer's forward and its recompute in the backward;
+    the scan's backward two launches a call), each kernel Function's
+    backward timed inside the first call, and one call profiled."""
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=full.attn_period,
+                              n_experts=experts)
+    model = Model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(SEED, DEVICE)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                  global_batch=batch), device=DEVICE)
+    b = lm_batch(cfg, data, 0)
+    want = train_launches(cfg, 1)
+    calls, times = [], []
+    for i in range(2):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        with timed_backwards() as bwd:
+            loss, grads = value_and_grad(model, params, b)
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        calls.append(kernel_launches())
+        if i == 0:
+            first_loss = float(loss)
+            bwd_ms = {k: sum(v) * 1e3 for k, v in bwd.items() if v}
+            finite = all(bool(torch.isfinite(g).all())
+                         for g in convert.leaves(grads))
+            kept = [g.to("cpu") for g in convert.leaves(grads)]
+            del grads
+            free_cuda()
+    equal = float(loss) == first_loss and all(
+        torch.equal(g.to("cpu"), k) for g, k in zip(convert.leaves(grads),
+                                                     kept))
+    del grads, kept
+    free_cuda()
+
+    def one():
+        _, g = value_and_grad(model, params, b)
+        del g
+
+    prof = profile_window(f"{cfg.name} bf16 loss and gradients", one, 1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n = layer_counts(cfg)
+    print(f"[train] {cfg.name} bf16, one period ({cfg.n_layers} sublayers, "
+          f"{experts} experts, {cfg.param_count() / 1e9:.3f} B params), "
+          f"{batch} x {seq} tokens: loss {first_loss}, value_and_grad "
+          f"{[round(t, 1) for t in times]} ms, the second bit-equal "
+          f"{equal}, gradients finite {finite}; launches a call "
+          f"{ {k: v for k, v in calls[0].items() if v} } = 2 x ("
+          f"{n['attn']} attention, {n['moe']} MoE, {n['ssm']} Mamba) "
+          f"sublayers, the scan's backward {scan_ops.BWD_LAUNCHES_PER_CALL} "
+          f"x {n['ssm']}; Function backwards {bwd_ms} ms; device busy "
+          f"{prof['device_busy_ms']:.1f} ms over {prof['device_ops']:.0f} "
+          f"ops; peak {peak:.2f} GiB. No AdamW step: one period's fp32 "
+          f"moments and update need 12 B a param")
+    if calls != [want, want]:
+        raise AssertionError(f"launches {calls}, expected {want} a call")
+    if not (finite and np.isfinite(first_loss) and equal):
+        raise AssertionError(f"gradients: finite {finite}, loss "
+                             f"{first_loss}, repeat bit-equal {equal}")
+    del params
+    free_cuda()
+    return dict(n_layers=cfg.n_layers, n_experts=experts, batch=batch,
+                seq=seq, params_b=cfg.param_count() / 1e9, loss=first_loss,
+                ms=times, launches=calls[0], repeat_bit_equal=equal,
+                finite=finite, function_backward_ms=bwd_ms,
+                device_busy_ms=prof["device_busy_ms"],
+                device_ops=prof["device_ops"], top=prof["top"],
+                kernels=prof["kernels"], peak_gib=peak)
+
+
+def encdec_hybrid_phases() -> dict:
+    """seamless-m4t-large-v2 whole (fp32 and bf16 serving, fp32 training
+    gate, bf16 training) and jamba-1.5-large-398b at one period of full
+    width with its expert count cut (fp32 serving gate, bf16 serving and
+    ``Engine``, bf16 loss and gradients), its reduced config's fp32
+    training gate, ``launch.serve`` and ``launch.train`` on the card."""
+    out = {}
+    with phase(f"{ENCDEC_ARCH} fp32 gate (all layers)"):
+        out["encdec_fp32"] = encdec_gate(ENCDEC_ARCH)
+    with phase(f"{ENCDEC_ARCH} bf16 timing (all layers)"):
+        out["encdec_bf16"] = encdec_timing(ENCDEC_ARCH)
+    full = get_config(ENCDEC_ARCH)
+    with phase(f"{ENCDEC_ARCH} fp32 training gate (all layers)"):
+        out["encdec_train_fp32"] = train_gate(
+            ENCDEC_ARCH, full.n_layers, LM_GATE_BATCH, LM_GATE_SEQ)
+        free_cuda()
+    with phase(f"{ENCDEC_ARCH} bf16 training (all layers)"):
+        out["encdec_train_bf16"] = train_timing(
+            ENCDEC_ARCH, full.n_layers, *ENCDEC_TRAIN, plain_curve=False)
+        free_cuda()
+    period = get_config(HYBRID_ARCH).attn_period
+    e = HYBRID_EXPERTS
+    with phase(f"{HYBRID_ARCH} fp32 gate (1 period, {e['gate']} experts)"):
+        out["hybrid_fp32"] = lm_gate(HYBRID_ARCH, period, e["gate"])
+    with phase(f"{HYBRID_ARCH} bf16 timing (1 period, {e['serve']} "
+               f"experts)"):
+        out["hybrid_bf16"] = lm_timing(HYBRID_ARCH, period, e["serve"])
+    with phase(f"{HYBRID_ARCH} bf16 loss and gradients (1 period, "
+               f"{e['grads']} experts)"):
+        out["hybrid_grads"] = hybrid_grads(HYBRID_ARCH, *HYBRID_GRADS,
+                                           e["grads"])
+    with phase(f"{HYBRID_ARCH} reduced: fp32 training gate, train and "
+               f"serve"):
+        out["hybrid_train_fp32"] = train_gate(
+            HYBRID_ARCH, get_reduced(HYBRID_ARCH).n_layers, LM_GATE_BATCH,
+            HYBRID_REDUCED_SEQ, reduced=True)
+        free_cuda()
+        out["hybrid_train_entry"] = train_entry.main(
+            ["--arch", HYBRID_ARCH, "--reduced", "--steps", "5", "--device",
+             "cuda"])
+        out["hybrid_serve_entry"] = serve_entry.main(
+            ["--arch", HYBRID_ARCH, "--reduced", "--device", "cuda"])
+        if not np.isfinite([out["hybrid_train_entry"]["first_loss"],
+                            out["hybrid_train_entry"]["last_loss"]]).all():
+            raise AssertionError(f"launch.train {HYBRID_ARCH}: "
+                                 f"{out['hybrid_train_entry']}")
         free_cuda()
     return out
 
@@ -4908,6 +5464,7 @@ def main() -> None:
         free_cuda()
     new_lm = {arch: new_lm_phases(arch, plan)
               for arch, plan in NEW_LM.items()}
+    eh = encdec_hybrid_phases()
     with phase("prediction service"):
         service = service_phase()
         free_cuda()
@@ -4982,13 +5539,32 @@ def main() -> None:
                       grad=router_grad)
     # the archs ported last: each kernel's launches in each one's fp32
     # serving gate and fp32 training gate (MLA layers launch neither
-    # attention kernel)
-    for i, name in ((1, "flash_attention"), (2, "decode_attention"),
-                    (3, "moe_router")):
+    # attention kernel); for the encoder-decoder and the hybrid, serving
+    # from their fp32 gates, training from seamless's fp32 gate, Jamba's
+    # gradient run (one value_and_grad call at full width) and its reduced
+    # config's fp32 gate
+    def new_arch_launches(i: int) -> None:
+        name = kernels[i]["name"]
         kernels[i]["launches_new_archs"] = {
-            arch: dict(serve=out["fp32"]["launches"][name],
-                       train=out["train_fp32"]["launches"][name])
-            for arch, out in new_lm.items()}
+            **{arch: dict(serve=out["fp32"]["launches"][name],
+                          train=out["train_fp32"]["launches"][name])
+               for arch, out in new_lm.items()},
+            ENCDEC_ARCH: dict(serve=eh["encdec_fp32"]["launches"][name],
+                              train=eh["encdec_train_fp32"]["launches"][
+                                  name]),
+            HYBRID_ARCH: dict(serve=eh["hybrid_fp32"]["launches"][name],
+                              grads=eh["hybrid_grads"]["launches"][name],
+                              train_reduced=eh["hybrid_train_fp32"][
+                                  "launches"][name])}
+
+    for i in (1, 2, 3):
+        new_arch_launches(i)
+    # the new geometries' timed rows: flash non-causal at Sq != Sk, decode
+    # at H = Hkv = 16, the router at E = 16 (Jamba's), the scan at
+    # d_inner 16384
+    kernels[1]["new_geometries"] = flash["cross"]
+    kernels[2]["new_geometries"] = decode["mha"]
+    kernels[3]["new_geometries"] = router["jamba"]
     # the scan: launches from the fp32 training gate, times at the timed
     # run's shape in bf16 (the config's own dtype); no PyTorch call
     # computes the selective scan, so library_ms is null
@@ -5035,6 +5611,12 @@ def main() -> None:
         bound_ms=head["bound_ms"], bound_by=head["bound_by"],
         library_ms=None, device_ms=head["device_ms"], shape=head["shape"],
         per_shape=scan_state["timing"]))
+    for i, res, shape in ((4, scan, SCAN_JAMBA), (5, scan_bwd, SCAN_JAMBA),
+                          (6, scan_state, SCAN_JAMBA_PREFILL)):
+        new_arch_launches(i)
+        kernels[i]["new_geometries"] = [
+            r for r in res["timing"]
+            if r["shape"] == "B={} L={} D={} N={}".format(*shape)]
     print(json.dumps({"slice": slice_stats, "ms_per_interval": buckets}))
     print(json.dumps({"start_train_gate": start_gate,
                       "start_train": start_timing,
@@ -5063,6 +5645,10 @@ def main() -> None:
         arch: {k: ({kk: vv for kk, vv in v.items() if kk != "flips"}
                    if k == "fp32" else v) for k, v in out.items()}
         for arch, out in new_lm.items()}}))
+    print(json.dumps({"encdec_hybrid": {
+        k: ({kk: vv for kk, vv in v.items() if kk != "flips"}
+            if isinstance(v, dict) else v) for k, v in eh.items()}},
+        default=str))
     print(json.dumps({"service": service}))
     print(json.dumps({"pod": pod}))
     print(f"[time] total: {time.perf_counter() - t_start:.1f} s wall")

@@ -1,13 +1,13 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig (exact + reduced).
 
-The same ids as the JAX package's registry.  The port serves and trains
-every decoder-only arch: the dense configurations (yi-6b, minitron-4b,
-phi4-mini-3.8b, deepseek-67b, demo-100m), internvl2-26b's vlm (patch
-embeddings as inputs), the MoE ones (qwen3-moe-30b-a3b;
-deepseek-v3-671b with MLA, a shared expert and a dense prefix) and
-falcon-mamba's SSM; asking for another arch (the encdec and hybrid
-families) raises ``NotImplementedError`` naming the ``ROADMAP.md`` item
-that ports it.
+The same ids as the JAX package's registry, every one of them ported:
+the dense configurations (yi-6b, minitron-4b, phi4-mini-3.8b,
+deepseek-67b, demo-100m), internvl2-26b's vlm (patch embeddings as
+inputs), the MoE ones (qwen3-moe-30b-a3b; deepseek-v3-671b with MLA, a
+shared expert and a dense prefix), falcon-mamba's SSM,
+seamless-m4t-large-v2's encoder-decoder (frame embeddings as the
+encoder's inputs) and jamba-1.5-large-398b's hybrid (periods of Mamba,
+attention and MoE sublayers).
 """
 from __future__ import annotations
 
@@ -29,21 +29,16 @@ ARCHS = {
     "demo-100m": "demo_100m",  # extra: e2e example model
 }
 
-# archs with a config in the port
+# archs with a config in the port: all of them
 PORTED = ("yi-6b", "demo-100m", "qwen3-moe-30b-a3b", "falcon-mamba-7b",
           "minitron-4b", "phi4-mini-3.8b", "deepseek-67b", "internvl2-26b",
-          "deepseek-v3-671b")
-# where the others wait (ROADMAP.md, Queue 1)
-_REST = "Queue 1 item 4.5c (the encdec and hybrid families)"
+          "deepseek-v3-671b", "seamless-m4t-large-v2",
+          "jamba-1.5-large-398b")
 
 
 def _mod(arch: str):
     if arch not in ARCHS:
         raise KeyError(f"unknown arch {arch!r}; choose from {list(ARCHS)}")
-    if arch not in PORTED:
-        raise NotImplementedError(
-            f"{arch!r} is not ported yet: ROADMAP.md "
-            f"{_REST}")
     return importlib.import_module(f"repro_torch.configs.{ARCHS[arch]}")
 
 

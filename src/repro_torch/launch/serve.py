@@ -4,11 +4,16 @@ re-dispatch (replica latencies from the engine's own decode steps).
 Usage (on the card; ``--device cpu`` runs the plain kernels' versions):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \\
       --requests 6 --max-new 12
-(``--arch`` takes every ported arch: demo-100m, yi-6b, minitron-4b,
+(``--arch`` takes every arch: demo-100m, yi-6b, minitron-4b,
 phi4-mini-3.8b, deepseek-67b, internvl2-26b (text prompts),
 qwen3-moe-30b-a3b, deepseek-v3-671b, whose MLA caches the compressed
-latent, and falcon-mamba-7b, whose recurrent state replaces the KV
-cache.)
+latent, falcon-mamba-7b, whose recurrent state replaces the KV cache,
+and jamba-1.5-large-398b, whose periods cache both (``--reduced``: the
+full config's 398.55 B params fit no card).  seamless-m4t-large-v2's
+requests carry no frame embeddings, so its encoder raises ``KeyError:
+'frame_embeds'`` at the first prefill, as the JAX driver's does; serve
+it through ``Model.prefill`` / ``decode_step`` with a batch holding
+``frame_embeds``.)
 
 Weights are seeded random until a checkpoint is in the repository.
 """

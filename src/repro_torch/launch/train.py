@@ -6,10 +6,14 @@ per-host Pareto step-time telemetry for ``--n-hosts`` hosts -> E_S ->
 backup-shard/evict actions logged each step, the tail fit on
 ``--device``).
 
-Usage (every ported arch trains: demo-100m, the default, and yi-6b,
+Usage (every arch trains: demo-100m, the default, and yi-6b,
 minitron-4b, phi4-mini-3.8b, deepseek-67b dense, internvl2-26b vlm (on
 text batches), qwen3-moe-30b-a3b and deepseek-v3-671b MoE,
-falcon-mamba-7b SSM):
+falcon-mamba-7b SSM, jamba-1.5-large-398b hybrid (``--reduced`` on one
+card: a full-width period's AdamW state alone passes it);
+seamless-m4t-large-v2's synthetic batches carry no frame embeddings, so
+its encoder raises ``KeyError: 'frame_embeds'`` at the first step, as
+the JAX driver's does):
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --steps 30 \\
       --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train \\

@@ -5,7 +5,9 @@ RoPE compute in fp32 and cast back to the activation dtype.
 
 Attention has three entry points: full causal (``attn_apply``, the
 training path, differentiable), prefill (causal, returns the KV cache)
-and decode (one token against a cache, written in place).  The score and
+and decode (one token against a cache, written in place); the
+encoder-decoder's cross-attention (``cross_attn_apply``) attends to the
+encoder's states, non-causal and without RoPE, in every mode.  The score and
 P @ V products are the kernels' (``backend``); the projections and the
 MLP are plain ``torch.matmul``.
 
@@ -100,11 +102,15 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
     }
 
 
-def _qkv(p, cfg, x):
+def _qkv(p, cfg, x, kv_src=None):
+    """q from ``x``; k and v from ``kv_src`` (cross-attention), else from
+    ``x``."""
     b, s, _ = x.shape
+    kv_src = x if kv_src is None else kv_src
+    sk = kv_src.shape[1]
     q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.hd)
-    k = (x @ p["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.hd)
-    v = (x @ p["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    k = (kv_src @ p["wk"]).reshape(b, sk, cfg.n_kv_heads, cfg.hd)
+    v = (kv_src @ p["wv"]).reshape(b, sk, cfg.n_kv_heads, cfg.hd)
     return q, k, v
 
 
@@ -130,6 +136,19 @@ def attn_apply(p: dict, cfg: ModelConfig, x, cos, sin, *,
     """Full-sequence attention, the training path: differentiable
     (``flash_attention``'s autograd Function), no cache returned."""
     return _attend(p, cfg, x, cos, sin, causal)[0]
+
+
+def cross_attn_apply(p: dict, cfg: ModelConfig, x, enc):
+    """Decoder cross-attention of x (B, S, d) over the encoder states enc
+    (B, Se, d): no RoPE, non-causal, through ``backend.attention`` (on
+    the card the flash kernel at Sq = S, Sk = Se).  Every call projects
+    K and V from all of ``enc`` again, as the JAX package does: a decode
+    step keeps no cross-attention cache."""
+    b, s, _ = x.shape
+    q, k, v = _qkv(p, cfg, x, kv_src=enc)
+    o = backend.attention(_heads_first(q), _heads_first(k), _heads_first(v),
+                          causal=False)
+    return o.transpose(1, 2).reshape(b, s, -1) @ p["wo"]
 
 
 def attn_prefill(p: dict, cfg: ModelConfig, x, cos, sin, *,

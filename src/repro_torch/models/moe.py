@@ -49,37 +49,67 @@ _LATER = "ROADMAP.md Queue 1 item 4.5 (the rest of the LM stack)"
 _SLAB = 2 ** 28
 
 
-def _normal(gen: torch.Generator, shape, scale: float, dtype):
-    """Standard normal drawn in fp32 on ``gen``'s device, scaled, cast.  A
-    stack of more than ``_SLAB`` elements cast to a narrower dtype is
-    drawn in slabs along its first axis, so the fp32 draw stays ~1 GB
-    beside the result."""
-    n = math.prod(shape)
-    if n <= _SLAB or dtype == torch.float32:
-        w = torch.randn(*shape, generator=gen, device=gen.device,
-                        dtype=torch.float32)
-        return w.mul_(scale).to(dtype)
-    out = torch.empty(shape, dtype=dtype, device=gen.device)
-    step = max(1, _SLAB // math.prod(shape[1:]))
-    for i in range(0, shape[0], step):
-        rows = min(step, shape[0] - i)
-        out[i:i + rows] = torch.randn(rows, *shape[1:], generator=gen,
-                                      device=gen.device,
-                                      dtype=torch.float32).mul_(scale)
+def _fill_normal(out, gen: torch.Generator, scale: float):
+    """``out`` filled with a standard normal drawn in fp32 on ``gen``'s
+    device and scaled, in slabs of at most ``_SLAB`` elements along its
+    first axis (a row larger than that is filled the same way)."""
+    row = math.prod(out.shape[1:])
+    if out.numel() <= _SLAB:
+        out.copy_(torch.randn(out.shape, generator=gen, device=gen.device,
+                              dtype=torch.float32).mul_(scale))
+    elif row > _SLAB:
+        for r in out:
+            _fill_normal(r, gen, scale)
+    else:
+        step = _SLAB // row
+        for i in range(0, out.shape[0], step):
+            rows = min(step, out.shape[0] - i)
+            out[i:i + rows] = torch.randn(
+                rows, *out.shape[1:], generator=gen, device=gen.device,
+                dtype=torch.float32).mul_(scale)
     return out
 
 
-def moe_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
+def _normal(gen: torch.Generator, shape, scale: float, dtype):
+    """Standard normal drawn in fp32 on ``gen``'s device, scaled, cast.  A
+    stack of more than ``_SLAB`` elements cast to a narrower dtype is
+    drawn slab by slab (:func:`_fill_normal`), so the fp32 draw stays
+    ~1 GB beside the result."""
+    if math.prod(shape) <= _SLAB or dtype == torch.float32:
+        w = torch.randn(*shape, generator=gen, device=gen.device,
+                        dtype=torch.float32)
+        return w.mul_(scale).to(dtype)
+    return _fill_normal(torch.empty(shape, dtype=dtype, device=gen.device),
+                        gen, scale)
+
+
+def moe_init(gen: torch.Generator, cfg: ModelConfig,
+             n: int | None = None) -> dict:
     """One layer's router (d, E) fp32 and experts wg, wu (E, d, f), wd
     (E, f, d) in ``cfg.dtype``, with the JAX package's scales; with
     shared experts, their SwiGLU (d -> f * n_shared_experts) under
-    ``"shared"``."""
+    ``"shared"``.  With ``n``, the leaves of ``n`` such layers (no shared
+    experts) stacked along a new first axis, each layer drawn in turn
+    straight into its slice, slab by slab (a Jamba period's MoE
+    sublayers: no second copy of the stack, no fp32 draw of a whole
+    expert stack)."""
     d, ff, e = cfg.d_model, cfg.expert_ff, cfg.n_experts
     scale = d ** -0.5
-    p = {"router": _normal(gen, (d, e), scale, torch.float32),
-         "wg": _normal(gen, (e, d, ff), scale, cfg.dtype),
-         "wu": _normal(gen, (e, d, ff), scale, cfg.dtype),
-         "wd": _normal(gen, (e, ff, d), ff ** -0.5, cfg.dtype)}
+    leaves = {"router": ((d, e), scale, torch.float32),
+              "wg": ((e, d, ff), scale, cfg.dtype),
+              "wu": ((e, d, ff), scale, cfg.dtype),
+              "wd": ((e, ff, d), ff ** -0.5, cfg.dtype)}
+    if n is not None:
+        if cfg.n_shared_experts:
+            raise ValueError("stacked MoE layers take no shared experts")
+        p = {k: torch.empty((n, *shape), dtype=dt, device=gen.device)
+             for k, (shape, _, dt) in leaves.items()}
+        for i in range(n):
+            for k, (_, sc, _) in leaves.items():
+                _fill_normal(p[k][i], gen, sc)
+        return p
+    p = {k: _normal(gen, shape, sc, dt)
+         for k, (shape, sc, dt) in leaves.items()}
     if cfg.n_shared_experts:
         p["shared"] = mlp_init(gen, d, ff * cfg.n_shared_experts, cfg.dtype)
     return p

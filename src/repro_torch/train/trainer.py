@@ -57,10 +57,11 @@ def auto_n_micro(global_batch: int, seq: int, vocab: int, n_data: int,
 
 def value_and_grad(model: Model, params, batch):
     """(loss, grads): ``model.loss_fn`` and its gradient in every leaf of
-    ``params`` (in the leaves' dtypes), as ``jax.value_and_grad``."""
+    ``params`` (in the leaves' dtypes), as ``jax.value_and_grad``: zeros
+    in a leaf the loss does not read (a hybrid period's ``ln1``)."""
     xs = tree_map(lambda t: t.detach().requires_grad_(), params)
     loss = model.loss_fn(xs, batch)
-    grads = torch.autograd.grad(loss, leaves(xs))
+    grads = torch.autograd.grad(loss, leaves(xs), materialize_grads=True)
     return loss.detach(), unflatten(params, grads)
 
 

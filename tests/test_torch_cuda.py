@@ -3,9 +3,9 @@ versions (the flash and router autograd Functions' gradients and the
 scan's serving variant too), the decision step's launches, START's
 training through the cell's kernel and a START simulation on the card
 against the CPU,
-reduced LMs (dense, vlm, MoE with GQA or MLA, and SSM) served on the
-card against the same model on the CPU, reduced LMs of each family
-trained on the card against the CPU, IGRU-SD's
+reduced LMs (dense, vlm, MoE with GQA or MLA, SSM, hybrid and
+encoder-decoder) served on the card against the same model on the CPU,
+reduced LMs of each family trained on the card against the CPU, IGRU-SD's
 GRU on the card against the CPU, a 2-worker sweep on the card
 against the serial run, the prediction service on the card against its
 CPU twin and over TCP, the trainer's checkpoint drill, and the pod
@@ -49,6 +49,7 @@ from repro_torch.kernels.moe_router import moe_router, moe_router_ref
 from repro_torch.launch import train as train_entry
 from repro_torch.models.lm import Model
 from repro_torch.serve.engine import Engine, EngineConfig, Request
+from repro_torch.serve.kv_cache import pad_to_length
 from repro_torch.service import (PredictionService, Profile, ServiceConfig,
                                  ServiceDaemon)
 from repro_torch.sim import scenarios, sweep
@@ -272,6 +273,26 @@ def test_flash_attention_kernel_matches_plain_version(cuda, b, h, hkv, s, d,
                                rtol=atol, atol=atol)
 
 
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,causal", chip_smoke.FLASH_CROSS)
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 2e-2)])
+def test_flash_attention_kernel_at_the_encoder_decoders_shapes(
+        cuda, b, h, hkv, sq, sk, d, causal, dtype, atol):
+    """seamless-m4t-large-v2's non-causal attention: the decoder's
+    cross-attention over 1024 frames at Sq = 1 (one live row of a query
+    tile), 12, 300 and 3000, and the encoder's 1024 x 1024."""
+    q, k, v = _qkv([(b, h, sq, d), (b, hkv, sk, d), (b, hkv, sk, d)], dtype,
+                   sq + sk, cuda)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.shape == (b, h, sq, d)
+    torch.testing.assert_close(got.float(),
+                               attention_ref(q, k, v, causal=causal).float(),
+                               rtol=atol, atol=atol)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_takes_batch_heads_past_the_grid_limit(
         cuda, dtype):
@@ -314,7 +335,9 @@ def test_flash_attention_kernel_takes_unequal_query_and_key_lengths(
     # GQA groups 3, 6 and 8 at H = 64, as minitron-4b, internvl2-26b and
     # deepseek-67b decode
     (1, 24, 8, 4096, 128, 513), (1, 48, 8, 4096, 128, 3016),
-    (1, 64, 8, 600, 128, 268)])
+    (1, 64, 8, 600, 128, 268),
+    # H = Hkv = 16 at D = 64, as seamless-m4t-large-v2's decoder decodes
+    *chip_smoke.DECODE_MHA])
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
                                         (torch.bfloat16, 2e-2)])
 def test_decode_attention_kernel_matches_plain_version(cuda, b, h, hkv, s,
@@ -390,7 +413,9 @@ def test_decode_attention_kernel_takes_batch_heads_past_the_grid_limit(
 @pytest.mark.parametrize("t,e,k", [(256, 8, 2), (512, 128, 8),
                                    (300, 256, 8), (64, 16, 2), (1, 128, 8),
                                    (12, 128, 8), (3000, 128, 8),
-                                   (5, 512, 32), (3, 40, 40)])
+                                   (5, 512, 32), (3, 40, 40),
+                                   # jamba-1.5-large-398b's 16 experts
+                                   *chip_smoke.ROUTER_JAMBA])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_moe_router_kernel_matches_plain_version(cuda, t, e, k, dtype):
     g = torch.Generator().manual_seed(t + e)
@@ -548,7 +573,8 @@ def test_moe_router_kernel_on_a_models_logits_at_256_experts(cuda):
 @pytest.mark.parametrize("arch", ["yi-6b", "qwen3-moe-30b-a3b",
                                   "falcon-mamba-7b", "minitron-4b",
                                   "phi4-mini-3.8b", "deepseek-67b",
-                                  "internvl2-26b", "deepseek-v3-671b"])
+                                  "internvl2-26b", "deepseek-v3-671b",
+                                  "jamba-1.5-large-398b"])
 def test_reduced_engine_on_the_card_matches_the_cpu(cuda, arch):
     cfg = dataclasses.replace(get_reduced(arch), param_dtype="float32")
     params = Model(cfg).init(0, "cpu")
@@ -582,6 +608,51 @@ def test_reduced_engine_on_the_card_matches_the_cpu(cuda, arch):
                            4 * n_ssm)
 
 
+def test_reduced_encoder_decoder_on_the_card_matches_the_cpu(cuda):
+    """seamless-m4t-large-v2 reduced, fp32, through ``prefill`` (with
+    seeded frames) and greedy ``decode_step``s on the card and on the
+    CPU from the same params: equal tokens, logits and the ``{"enc"}``
+    cache within 2e-5; per prompt, flash launches once per encoder,
+    self- and cross-attention layer in the prefill and once per
+    cross-attention layer per decoded token, decode once per
+    self-attention layer per decoded token."""
+    cfg = dataclasses.replace(get_reduced("seamless-m4t-large-v2"),
+                              param_dtype="float32")
+    params = Model(cfg).init(0, "cpu")
+    frames = torch.randn(1, cfg.frontend_tokens, cfg.d_model,
+                         generator=torch.Generator().manual_seed(3))
+    runs, launches = [], []
+    for dev in ("cpu", cuda):
+        model = Model(cfg)
+        p = convert.tree_map(lambda t: t.to(dev), params)
+        f0, d0 = flash_attention.launches, decode_attention.launches
+        out = []
+        for n in (5, 19):
+            toks = torch.arange(n, device=dev)[None] % cfg.vocab
+            logits, caches = model.prefill(p, {"tokens": toks,
+                                               "frame_embeds": frames.to(dev)})
+            enc = caches[0]["enc"].cpu()
+            caches = pad_to_length(caches, n + 6)
+            steps = [logits.cpu()]
+            for j in range(5):
+                tok = torch.argmax(logits[:, -1], -1)[:, None]
+                logits, caches = model.decode_step(p, caches, tok, n + j)
+                steps.append(logits.cpu())
+            out.append((enc, steps))
+        runs.append(out)
+        launches.append((flash_attention.launches - f0,
+                         decode_attention.launches - d0))
+    for (e0, s0), (e1, s1) in zip(*runs):
+        torch.testing.assert_close(e1, e0, rtol=2e-5, atol=2e-5)
+        for a, b in zip(s0, s1):
+            assert torch.equal(a.argmax(-1), b.argmax(-1))
+            torch.testing.assert_close(b, a, rtol=2e-5, atol=2e-5)
+    n = chip_smoke.layer_counts(cfg)
+    assert launches == [(0, 0), (
+        2 * chip_smoke.flash_per_forward(n) + 2 * 5 * n["cross"],
+        2 * 5 * n["attn"] * chip_smoke.LAUNCHES_PER_CALL)]
+
+
 def _scan_inputs(b, l, d, n, dtype, device, seed):
     """The JAX sweep's distributions: u, b, c normal, delta a softplus of
     a normal, a = -exp(normal), skip normal; u, delta, b, c in ``dtype``,
@@ -604,7 +675,8 @@ def _scan_inputs(b, l, d, n, dtype, device, seed):
 SCAN_SHAPES = [(1, 64, 128, 16), (2, 128, 64, 16), (1, 96, 256, 8),
                (3, 77, 200, 5), (1, 1, 3, 1), (2, 33, 129, 32),
                (2, 33, 129, 4), (1, 70, 100, 8), (1, 40, 50, 16),
-               (2, 64, 96, 32), (2, 256, 8192, 16), (4, 512, 8192, 16)]
+               (2, 64, 96, 32), (2, 256, 8192, 16), (4, 512, 8192, 16),
+               chip_smoke.SCAN_JAMBA]
 
 
 @pytest.mark.parametrize("b,l,d,n", SCAN_SHAPES)
@@ -835,14 +907,17 @@ def test_reduced_ssm_training_on_the_card_matches_the_cpu(cuda):
 @pytest.mark.parametrize("arch", ["yi-6b", "qwen3-moe-30b-a3b",
                                   "minitron-4b", "phi4-mini-3.8b",
                                   "deepseek-67b", "internvl2-26b",
-                                  "deepseek-v3-671b"])
+                                  "deepseek-v3-671b", "seamless-m4t-large-v2",
+                                  "jamba-1.5-large-398b"])
 def test_reduced_attention_training_on_the_card_matches_the_cpu(cuda, arch):
     """Three AdamW steps of the reduced dense, vlm (with patch
-    embeddings) and MoE models in fp32 on the card and on the CPU from the
-    same params: each GQA layer's forward launches flash_attention (and
-    each MoE layer the router) twice per step (the forward, and its
-    recompute in the backward) and nothing in the backward, MLA layers
-    none; a repeated step on the card is bit-equal."""
+    embeddings), MoE, encoder-decoder (with frame embeddings: encoder,
+    self- and cross-attention each launch flash) and hybrid models in
+    fp32 on the card and on the CPU from the same params: each GQA
+    layer's forward launches flash_attention (and each MoE layer the
+    router) twice per step (the forward, and its recompute in the
+    backward) and nothing in the backward, MLA layers none; a repeated
+    step on the card is bit-equal."""
     cfg = dataclasses.replace(get_reduced(arch), param_dtype="float32")
     params = Model(cfg).init(0, "cpu")
     losses, launches, finals = [], [], []
@@ -864,8 +939,8 @@ def test_reduced_attention_training_on_the_card_matches_the_cpu(cuda, arch):
         losses.append(out)
         finals.append(p)
     n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
-    assert launches == [(0, 0), (2 * chip_smoke.layer_counts(cfg)["attn"]
-                                 * 3, 2 * n_moe * 3)]
+    assert launches == [(0, 0), (2 * chip_smoke.flash_per_forward(
+        chip_smoke.layer_counts(cfg)) * 3, 2 * n_moe * 3)]
     np.testing.assert_allclose(losses[1], losses[0], rtol=1e-5)
     # the same step again from the same start: bit for bit
     tr = Trainer(Model(cfg), mesh=None, device=cuda)
@@ -883,15 +958,16 @@ def test_reduced_attention_training_on_the_card_matches_the_cpu(cuda, arch):
 
 
 def _with_patches(cfg, batch: dict, seed: int) -> dict:
-    """A vlm batch gets seeded patch embeddings (the image stub) on the
-    batch's device; other families' batches pass as they are."""
-    if cfg.family != "vlm":
+    """A vlm batch gets seeded patch embeddings (the image stub), an
+    encdec batch seeded frame embeddings (the audio stub), on the batch's
+    device; other families' batches pass as they are."""
+    key = {"vlm": "patch_embeds", "encdec": "frame_embeds"}.get(cfg.family)
+    if key is None:
         return batch
     b = batch["tokens"].shape[0]
     pe = torch.randn(b, cfg.frontend_tokens, cfg.d_model,
                      generator=torch.Generator().manual_seed(seed))
-    return dict(batch, patch_embeds=pe.to(batch["tokens"].device,
-                                          cfg.dtype))
+    return dict(batch, **{key: pe.to(batch["tokens"].device, cfg.dtype)})
 
 
 def _gru_inputs(seed: int = 0):

@@ -1,15 +1,29 @@
 """The port's LM (configs, layers, ``Model.prefill`` and ``decode_step``)
 against the JAX package's, on the CPU, at the reduced configs of the
 attention archs (yi-6b, demo-100m, qwen3-moe-30b-a3b, minitron-4b,
-phi4-mini-3.8b, deepseek-67b, internvl2-26b's text path and
-deepseek-v3-671b's MLA with its dense prefix and shared expert;
+phi4-mini-3.8b, deepseek-67b, internvl2-26b's text path,
+deepseek-v3-671b's MLA with its dense prefix and shared expert,
+seamless-m4t-large-v2's encoder-decoder (seeded frame embeddings, its
+``{"enc"}`` cache) and jamba-1.5-large-398b's hybrid periods (their
+nested ``attn`` / ``mamba`` caches);
 falcon-mamba-7b's SSM serving is held against JAX in
 ``test_torch_mamba.py``, the MLA functions alone and internvl2's patch
 embeddings in ``test_torch_mla.py``), with weights from
 ``convert.from_jax`` and token ids from numpy.
 
 fp32 (``param_dtype="float32"``) is held to 2e-5 with equal greedy
-tokens.  bf16, the configs' own dtype, is held to the kernel sweep's
+tokens; jamba's to 2e-5 of each tensor's largest magnitude, as the SSM's
+tests hold theirs: its 7 Mamba and 4 MoE sublayers a period move both
+fp32 paths up to 3.7e-5 from a float64 forward of the port at logits
+up to 3.8 (the port no further than JAX's own), and the two up to
+3.9e-5 apart.  In bf16 jamba's logits and caches are held to 2e-2
+relative in norm (the training tests' measure): with equal inputs the
+two routers' fp32 weights can land one fp32 ulp apart (each framework's
+own exp and sum), which can round a bf16 combine weight one ulp apart
+(seen at reduced jamba's 7th decode step), and the period's later
+sublayers and its Mamba recurrent state carry that one ulp to 0.035 in
+a few logits of that step and on (observed: 1.26e-2 in norm for the
+logits, 3.7e-3 for the states h, 2.9e-3 for the keys).  bf16, the configs' own dtype, is held to the kernel sweep's
 bf16 tolerance (rtol = atol = 2e-2) against the JAX model run op by op
 (``jax.disable_jit``), where every bf16 rounding falls where the port's
 does: the observed drift is 0.  The port's side of that comparison runs
@@ -58,6 +72,8 @@ from repro_torch.serve.kv_cache import pad_to_length as tpad
 # the ported attention archs (the SSM's serving: test_torch_mamba.py)
 ARCHS = [a for a in configs.PORTED
          if configs.get_reduced(a).family != "ssm"]
+# families held to 2e-5 of each tensor's scale in fp32 (the docstring)
+SCALED = ("hybrid",)
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 PROMPT, STEPS, MAX_LEN = 12, 8, 32
@@ -68,8 +84,49 @@ def _np(x):
         else np.asarray(x, np.float32)
 
 
-def _close(got, want, dtype):
+def _close(got, want, dtype, family=None):
+    if family in SCALED:
+        got, want = _np(got).astype(np.float64), _np(want)
+        if dtype == "float32":
+            err = np.abs(got - want).max() / np.abs(want).max()
+        else:
+            err = np.linalg.norm(got - want) / np.linalg.norm(want)
+        assert err <= TOL[dtype]["rtol"], err
+        return
     np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
+
+
+def frames(cfg, batch: int, seed: int = 7):
+    """An encdec batch's stub audio frames, (batch, frontend_tokens, d)
+    float32 numpy values exact in ``cfg``'s dtype."""
+    fe = np.random.default_rng(seed).standard_normal(
+        (batch, cfg.frontend_tokens, cfg.d_model), np.float32)
+    return np.asarray(torch.tensor(fe).to(cfg.dtype).float())
+
+
+def batches(cfg, toks, fe=None):
+    """The JAX and the port's batch of ``toks``, and, for an encdec
+    config, its frames (``frames`` unless given)."""
+    jb = {"tokens": jnp.asarray(toks, jnp.int32)}
+    tb = {"tokens": torch.as_tensor(toks)}
+    if cfg.family == "encdec":
+        fe = frames(cfg, toks.shape[0]) if fe is None else fe
+        jb["frame_embeds"] = jnp.asarray(fe, jnp.dtype(str(cfg.dtype)[6:]))
+        tb["frame_embeds"] = torch.tensor(fe, dtype=cfg.dtype)
+    return jb, tb
+
+
+def first_sublayers(p: dict) -> dict:
+    """A hybrid period's params (JAX's or the port's) as one layer's:
+    ``ln1``, ``ln2`` from its norms, its attention, and its first MoE
+    and dense SwiGLU sublayers; any other layer as it is."""
+    if "ln" not in p:
+        return p
+    pick = (lambda t: {k: pick(v) for k, v in t.items()}
+            if isinstance(t, dict) else t[0])
+    return {"ln1": {"w": p["ln"]["w"][0]}, "ln2": {"w": p["ln"]["w"][1]},
+            "attn": p["attn"], "moe": pick(p["moe"]),
+            "mlp": pick(p["mlp"])}
 
 
 @pytest.fixture(scope="module", params=[(a, d) for a in ARCHS
@@ -85,7 +142,7 @@ def pair(request):
     tp = convert.from_jax(jax.tree_util.tree_map(np.asarray, jp), "cpu")
     toks = np.random.default_rng(1).integers(0, tcfg.vocab, (1, PROMPT))
     return dict(dtype=dtype, jcfg=jcfg, tcfg=tcfg, jm=jm, tm=tm, jp=jp,
-                tp=tp, toks=toks)
+                tp=tp, toks=toks, family=tcfg.family)
 
 
 # --------------------------------- configs ---------------------------------
@@ -122,20 +179,6 @@ def test_yi_6b_is_the_published_shape():
             cfg.d_ff, cfg.padded_vocab) == (32, 4096, 32, 4, 128, 11008,
                                             65536)
     assert round(cfg.param_count() / 1e9, 2) == 6.07
-
-
-@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b",
-                                  "seamless-m4t-large-v2", "encdec-model"])
-def test_unported_archs_name_their_roadmap_item(arch):
-    """The two non-decoder families wait for item 4.5c: their configs,
-    and a ``Model`` of a reduced config with ``family="encdec"``."""
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1 item 4.5c"):
-        if arch == "encdec-model":
-            Model(dataclasses.replace(configs.get_reduced("yi-6b"),
-                                      family="encdec", encoder_layers=2))
-        else:
-            configs.get_config(arch)
 
 
 def test_moe_dense_prefix_names_its_roadmap_item():
@@ -183,8 +226,9 @@ def test_rope_tables_match():
 
 def test_layer_functions_match(pair):
     dt, cfg = pair["dtype"], pair["tcfg"]
-    jl0 = jax.tree_util.tree_map(lambda a: a[0], pair["jp"]["g0"])
-    tl0 = layer(pair["tp"]["g0"], 0)
+    jl0 = first_sublayers(jax.tree_util.tree_map(lambda a: a[0],
+                                                 pair["jp"]["g0"]))
+    tl0 = first_sublayers(layer(pair["tp"]["g0"], 0))
     rng = np.random.default_rng(2)
     x_np = rng.standard_normal((1, PROMPT, cfg.d_model), np.float32)
     jx = jnp.asarray(x_np, pair["jcfg"].dtype)
@@ -285,14 +329,15 @@ def _jax_reference(dtype):
 def test_prefill_and_decode_match(pair):
     dt, jm, tm, jp, tp = (pair[k] for k in ("dtype", "jm", "tm", "jp",
                                              "tp"))
-    toks = pair["toks"]
+    toks, fam = pair["toks"], pair["family"]
+    jb, tb = batches(pair["tcfg"], toks)
     with _jax_reference(dt):
-        jl, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks, jnp.int32)})
-        tl, tc = tm.prefill(tp, {"tokens": torch.as_tensor(toks)})
+        jl, jc = jm.prefill(jp, jb)
+        tl, tc = tm.prefill(tp, tb)
         assert tl.dtype == torch.float32
         assert tl.shape == (1, 1, pair["tcfg"].vocab)
-        _close(tl, jl, dt)
-        _same_caches(tc, jc, dt)
+        _close(tl, jl, dt, fam)
+        _same_caches(tc, jc, dt, fam)
         # teacher forcing: both decode the JAX model's greedy stream
         jc, tc = jpad(jc, MAX_LEN), tpad(tc, MAX_LEN)
         for i in range(STEPS):
@@ -303,19 +348,24 @@ def test_prefill_and_decode_match(pair):
                                     jnp.asarray(PROMPT + i, jnp.int32))
             tl, tc = tm.decode_step(tp, tc, torch.tensor([[tok]]),
                                     PROMPT + i)
-            _close(tl, jl, dt)
-        _same_caches(tc, jc, dt)
+            _close(tl, jl, dt, fam)
+        _same_caches(tc, jc, dt, fam)
 
 
-def _same_caches(tc, jc, dt):
-    """Every group's caches ({k, v}, or MLA's {c_kv, k_rope}) against
-    JAX's, key for key."""
+def _same_caches(tc, jc, dt, family=None):
+    """Every group's caches ({k, v}, MLA's {c_kv, k_rope}, the encoder's
+    {enc}, a hybrid period's {attn: {k, v}, mamba: {h, conv}}) against
+    JAX's, key for key; the SSM states ``h`` are fp32 in either dtype."""
     assert len(tc) == len(jc)
     for tg, jg in zip(tc, jc):
         assert sorted(tg) == sorted(jg)
         for key in tg:
+            if isinstance(tg[key], dict):
+                _same_caches([tg[key]], [jg[key]], dt, family)
+                continue
             assert tuple(tg[key].shape) == jg[key].shape
-            _close(tg[key], jg[key], dt)
+            assert str(tg[key].dtype)[6:] == str(jg[key].dtype), key
+            _close(tg[key], jg[key], dt, family)
 
 
 def test_prefill_matches_the_jax_model_through_its_pallas_kernel(
@@ -344,9 +394,13 @@ def test_prefill_matches_the_jax_model_through_its_pallas_kernel(
 
 
 def test_unported_families_raise():
-    cfg = dataclasses.replace(configs.get_reduced("yi-6b"), family="hybrid")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Model(cfg)
+    """Every family of the registry is ported since the encdec and hybrid
+    families joined; an unknown family raises ``ValueError`` in both
+    packages, as the JAX ``_groups`` does."""
+    for pkg, model in ((configs, Model), (jconfigs, JModel)):
+        cfg = dataclasses.replace(pkg.get_reduced("yi-6b"), family="rnn")
+        with pytest.raises(ValueError, match="rnn"):
+            model(cfg)
 
 
 @pytest.mark.parametrize("arch", configs.PORTED)
@@ -357,10 +411,12 @@ def test_prefill_equals_prefill_then_decode(arch):
                               param_dtype="float32")
     model = Model(cfg)
     params = model.init(0, "cpu")
-    toks = torch.as_tensor(np.random.default_rng(3).integers(
-        0, cfg.vocab, (2, 16)))
-    full, _ = model.prefill(params, {"tokens": toks})
-    _, caches = model.prefill(params, {"tokens": toks[:, :-1]})
+    toks = np.random.default_rng(3).integers(0, cfg.vocab, (2, 16))
+    _, batch = batches(cfg, toks)
+    full, _ = model.prefill(params, batch)
+    _, caches = model.prefill(params, dict(batch, tokens=batch["tokens"][
+        :, :-1]))
+    toks = batch["tokens"]
     logits, _ = model.decode_step(params, tpad(caches, 16), toks[:, -1:],
                                   15)
     np.testing.assert_allclose(_np(logits), _np(full), rtol=2e-4,

@@ -5,9 +5,12 @@ autograd Function, the router through ``moe_router``'s, each layer under
 ``loss_fn``, on the CPU, at the reduced yi-6b, demo-100m,
 qwen3-moe-30b-a3b, minitron-4b, phi4-mini-3.8b, deepseek-67b,
 internvl2-26b (with seeded ``patch_embeds`` prepended, their positions
-dropped before the head) and deepseek-v3-671b (MLA through the plain
-attention, the dense prefix, the shared expert), with weights from
-``convert.from_jax`` and tokens from numpy.
+dropped before the head), deepseek-v3-671b (MLA through the plain
+attention, the dense prefix, the shared expert), seamless-m4t-large-v2
+(seeded ``frame_embeds`` through the encoder, as JAX's ``batch_specs``
+gives them) and jamba-1.5-large-398b (a period as one checkpointed
+unit; the gradient of its unread ``ln1`` is zeros in both packages),
+with weights from ``convert.from_jax`` and tokens from numpy.
 
 fp32 against the compiled JAX model: the loss within 1e-5 relative
 (observed <= 1.6e-7) and every leaf's gradient within 1e-4 relative in
@@ -28,6 +31,13 @@ drops them as JAX does.  The port's bf16 side runs with oneDNN off
 AVX512-BF16, oneDNN's bf16 matmul lands some sums one bf16 ulp off the
 rounded fp32 sum, which at reduced deepseek-v3 flipped training routes
 and moved the loss 7.3e-4 relative from JAX's.
+
+Jamba's bf16 gradients are held to 5e-2 relative in norm: a period's 7
+Mamba and 4 MoE sublayers carry the two frameworks' bf16 roundings of
+the backward further (observed: 2.1e-5 in the loss, 5e-3 to 3.3e-2 by
+leaf, x_proj's the largest), while each package's bf16 gradient lies
+7% to 26% from the fp32 gradient of the same params (x_proj 23.4% for
+JAX, 24.0% for the port; the router 25.6% and 25.8%).
 """
 import contextlib
 import dataclasses
@@ -49,13 +59,16 @@ from repro_torch.train.trainer import value_and_grad
 
 ARCHS = ["yi-6b", "demo-100m", "qwen3-moe-30b-a3b", "minitron-4b",
          "phi4-mini-3.8b", "deepseek-67b", "internvl2-26b",
-         "deepseek-v3-671b"]
+         "deepseek-v3-671b", "seamless-m4t-large-v2",
+         "jamba-1.5-large-398b"]
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+HYBRID_BF16_GRAD_TOL = 5e-2       # the module docstring
 LOSS_TOL = {"float32": 1e-5, "bfloat16": 2e-4}
 SHAPE = {"yi-6b": (2, 16), "demo-100m": (2, 16),
          "qwen3-moe-30b-a3b": (4, 32), "minitron-4b": (2, 16),
          "phi4-mini-3.8b": (2, 16), "deepseek-67b": (2, 16),
-         "internvl2-26b": (2, 12), "deepseek-v3-671b": (4, 16)}
+         "internvl2-26b": (2, 12), "deepseek-v3-671b": (4, 16),
+         "seamless-m4t-large-v2": (2, 16), "jamba-1.5-large-398b": (2, 16)}
 
 
 @pytest.fixture(autouse=True)
@@ -114,6 +127,13 @@ def pair(request):
         pe = np.asarray(jnp.asarray(pe, jcfg.dtype), np.float32)
         jb["patch_embeds"] = jnp.asarray(pe, jcfg.dtype)
         tb["patch_embeds"] = torch.tensor(pe, dtype=tcfg.dtype)
+    if tcfg.family == "encdec":
+        # the audio stub: frontend_tokens frame embeddings at the width
+        fe = np.random.default_rng(8).standard_normal(
+            (SHAPE[arch][0], tcfg.frontend_tokens, tcfg.d_model), np.float32)
+        fe = np.asarray(jnp.asarray(fe, jcfg.dtype), np.float32)
+        jb["frame_embeds"] = jnp.asarray(fe, jcfg.dtype)
+        tb["frame_embeds"] = torch.tensor(fe, dtype=tcfg.dtype)
     return dict(arch=arch, dtype=dtype, jm=jm, tm=tm, jp=jp, tp=tp, jb=jb,
                 tb=tb, tcfg=tcfg)
 
@@ -133,8 +153,12 @@ def test_loss_and_gradients_match_jax(pair):
         g = got
         for k in path:
             g = g[k.key]
-        assert _rel(g, w) <= GRAD_TOL[dt], (jax.tree_util.keystr(path),
-                                            _rel(g, w))
+        if not np.any(np.asarray(w)):     # a leaf the loss does not read
+            assert not np.any(g), jax.tree_util.keystr(path)
+            continue
+        tol = HYBRID_BF16_GRAD_TOL if (dt, pair["tcfg"].family) == (
+            "bfloat16", "hybrid") else GRAD_TOL[dt]
+        assert _rel(g, w) <= tol, (jax.tree_util.keystr(path), _rel(g, w))
     for t, gt in zip(convert.leaves(pair["tp"]), convert.leaves(grads)):
         assert gt.dtype == t.dtype and gt.shape == t.shape
     # CPU tensors never launch a kernel
