@@ -38,6 +38,7 @@ compressed latent.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -159,9 +160,58 @@ def _stack_caches(cs: list):
     return tree_map(lambda *ts: torch.stack(ts), cs[0], *cs[1:])
 
 
+@dataclasses.dataclass(frozen=True)
+class EPSetup:
+    """Expert parallelism (the JAX package's ``EPSetup``, with process
+    groups in place of mesh axes): the group holding the experts, split
+    evenly (``n_shards`` = the group's size; this process holds expert
+    slice ``rank`` of it), and the data-parallel group beside it, its
+    size and this process's index.  The MoE layers then take params
+    whose expert stacks are this process's slice (``p_local``), sum the
+    partial outputs over ``group``, and route as one device would route
+    the whole batch (``moe.EPContext``)."""
+
+    group: Any
+    n_shards: int = 1
+    rank: int = 0
+    dp_group: Any = None
+    dp_size: int = 1
+    dp_rank: int = 0
+
+    @property
+    def ctx(self) -> Moe.EPContext:
+        return Moe.EPContext(self.group, self.n_shards, self.rank,
+                             self.dp_group, self.dp_size, self.dp_rank)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardCtx:
+    """The JAX package's activation-sharding context: under GSPMD it
+    constrains layer activations to stay batch-sharded over the dp axes.
+    PyTorch runs eagerly and each process holds its own batch slice as
+    plain tensors, so there is nothing to constrain: the argument is
+    kept so a ``Model`` is built as JAX's is, and does no work."""
+
+    mesh: Any
+    dp_axes: tuple
+
+
+class _ShapeOnlyGenerator(torch.Generator):
+    """A CPU generator that reports the meta device, so the init
+    functions (which draw on ``gen.device``) build meta tensors: the
+    params' shapes and dtypes with no allocation and no draw."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
 class Model:
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, ep: EPSetup | None = None,
+                 shard_ctx: ShardCtx | None = None):
         self.cfg = cfg
+        self.ep = ep
+        self.shard_ctx = shard_ctx
         self.groups = _groups(cfg)
         full_precision()
 
@@ -174,10 +224,13 @@ class Model:
         (matrices in ``cfg.dtype``, norms fp32).  Drawn from a
         ``torch.Generator`` on the device, so the numbers differ from
         ``jax.random`` and between devices; for parity with the JAX
-        package convert its params (``convert.from_jax``)."""
+        package convert its params (``convert.from_jax``).  On
+        ``"meta"``: the same tree of shapes and dtypes, with no storage
+        and no draw (``models/specs.py``'s ``params_specs``)."""
         cfg = self.cfg
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = (_ShapeOnlyGenerator() if dev.type == "meta"
+               else torch.Generator(device=dev).manual_seed(seed))
         embed = torch.randn(cfg.padded_vocab, cfg.d_model, generator=gen,
                             device=dev, dtype=torch.float32)
         params: dict = {
@@ -267,7 +320,7 @@ class Model:
         cfg = self.cfg
         h = L.rms_norm(p["ln2"], x, cfg.norm_eps)
         if "moe" in p:
-            return x + Moe.moe_apply(p["moe"], cfg, h,
+            return x + Moe.moe_apply(p["moe"], cfg, h, self._ep(),
                                      inference=mode != "train")
         return x + L.mlp_apply(p["mlp"], h)
 
@@ -321,7 +374,7 @@ class Model:
                 ssm_caches.append(c)
             h = L.rms_norm(ln2, x, cfg.norm_eps)
             if j % cfg.moe_every == cfg.moe_every - 1:
-                x = x + Moe.moe_apply(moes[i_moe], cfg, h,
+                x = x + Moe.moe_apply(moes[i_moe], cfg, h, self._ep(),
                                       inference=mode != "train")
                 i_moe += 1
             else:
@@ -477,6 +530,10 @@ class Model:
         if self.cfg.family != "encdec":
             return None, 0
         return self._encode(params, batch), 1
+
+    def _ep(self):
+        """The MoE layers' EP context (None: all experts local)."""
+        return None if self.ep is None else self.ep.ctx
 
     def _rope_dim(self) -> int:
         return self.cfg.qk_rope_dim if self.cfg.use_mla else self.cfg.hd

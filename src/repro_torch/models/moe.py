@@ -28,20 +28,80 @@ of ``expert_ff * n_shared_experts`` under ``p["shared"]``, always on, its
 output added to the routed one (JAX ``models/moe.py``, and its
 ``Model._routed``, which adds the same sum).
 
-Not ported: expert parallelism (JAX's ``shard_map``/``psum`` branch)
-raises, naming its ``ROADMAP.md`` item.
+Expert parallelism (``ep``, JAX's ``shard_map`` branch): the experts are
+split evenly over a process group; every process routes all its tokens
+on the replicated router, dispatches only the copies whose expert it
+holds (the others take no capacity) and the partial outputs are summed
+over the group, one (T, d) all-reduce, as JAX's ``psum``.  Per-expert
+capacity is the same with or without EP, so the kept copies are the
+same.  The activations and the router enter the EP region through an
+identity whose backward sums over the group, and the output leaves it
+through the all-reduce whose backward is the identity (the loss after
+it is the same on every process of the group), so autograd gives every
+process the whole gradient of what it holds.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Any
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.models import backend
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import mlp_apply, mlp_init, silu
 
-_LATER = "ROADMAP.md Queue 1 item 4.5 (the rest of the LM stack)"
+
+@dataclasses.dataclass(frozen=True)
+class EPContext:
+    """How the MoE layer is placed (None = one process, all experts
+    local): the process group holding the experts, its size and this
+    process's rank in it (its expert slice); and the data-parallel group
+    over which the batch is split, its size and this process's index in
+    it.  Over the dp group the layer keeps the single-device semantics
+    of the global batch: the capacity is that of all its tokens, and an
+    expert keeps its first ``capacity`` copies in the global order (the
+    processes' tokens in dp order), so a copy is kept or dropped as on
+    one device."""
+
+    group: Any = None
+    n_shards: int = 1
+    rank: int = 0
+    dp_group: Any = None
+    dp_size: int = 1
+    dp_rank: int = 0
+
+
+class _EnterEP(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over the group
+    (each process's gradient covers only its experts' copies)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _LeaveEP(torch.autograd.Function):
+    """All-reduce (sum) forward; identity backward."""
+
+    @staticmethod
+    def forward(ctx, y, group):
+        y = y.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
 
 
 # elements of an fp32 draw past which a narrower stack is drawn slab by
@@ -115,31 +175,46 @@ def moe_init(gen: torch.Generator, cfg: ModelConfig,
     return p
 
 
-def grouped_ffn(x, idx, w, wg, wu, wd, capacity: int):
+def grouped_ffn(x, idx, w, wg, wu, wd, capacity: int, valid=None,
+                offsets=None):
     """x (T, d); idx (T, k) expert ids; w (T, k) combine weights in x's
-    dtype; wg, wu (E, d, f); wd (E, f, d).  Each expert keeps its first
-    ``capacity`` copies in a stable sort by expert; the rest are dropped.
-    Returns (T, d)."""
+    dtype; wg, wu (E, d, f); wd (E, f, d); ``valid`` (T, k) bool or None
+    (all valid).  Each expert keeps its first ``capacity`` copies in a
+    stable sort by expert; the rest are dropped.  An invalid copy sorts
+    as expert E, after every valid one, takes no capacity and adds zero.
+    ``offsets`` (E host ints, default 0): copies of each expert that
+    other processes' tokens, earlier in the global order, already put
+    before these (they count against its capacity).  Returns (T, d)."""
     t, d = x.shape
     k = idx.shape[1]
+    e = wg.shape[0]
     flat_e = idx.reshape(-1).long()
+    if valid is not None:
+        flat_e = torch.where(valid.reshape(-1), flat_e, e)
     _, order = torch.sort(flat_e, stable=True)
-    counts = torch.bincount(flat_e, minlength=wg.shape[0]).tolist()
+    counts = torch.bincount(flat_e, minlength=e + 1).tolist()
     tok = order // k
     xs = x[tok]                          # the copies, sorted by expert
     pieces = []
     # split and unbind, not an index per expert: an index's backward
     # would fill and add a gradient the size of all the copies (or of a
     # whole expert stack) for every expert
-    for xe, n, g, u, dn in zip(xs.split(counts), counts, wg.unbind(0),
-                               wu.unbind(0), wd.unbind(0)):
+    offsets = offsets if offsets is not None else [0] * e
+    for xe, n, off, g, u, dn in zip(xs.split(counts), counts, offsets,
+                                    wg.unbind(0), wu.unbind(0),
+                                    wd.unbind(0)):
         if n == 0:
             continue
-        kept = min(n, capacity)
+        kept = min(n, max(capacity - off, 0))
+        if kept == 0:
+            pieces.append(xs.new_zeros(n, d))
+            continue
         xe = xe[:kept]
         pieces.append((silu(xe @ g) * (xe @ u)) @ dn)
         if kept < n:                     # dropped copies add zero
             pieces.append(xs.new_zeros(n - kept, d))
+    if counts[e]:                        # invalid copies add zero
+        pieces.append(xs.new_zeros(counts[e], d))
     y = torch.cat(pieces) * w.reshape(-1)[order][:, None]
     # regroup by token (stable: each token's copies stay in expert order)
     _, by_tok = torch.sort(tok, stable=True)
@@ -160,22 +235,28 @@ def _capacity(tokens: int, n_experts: int, top_k: int, cf: float) -> int:
     return max(8, -(-c // 8) * 8)  # round up to 8 for tiling
 
 
-def moe_apply(p: dict, cfg: ModelConfig, x, ep=None,
+def moe_apply(p: dict, cfg: ModelConfig, x, ep: EPContext | None = None,
               inference: bool = False):
     """x (B, S, d) -> (B, S, d), the JAX package's dispatch.  Training
     (the default): capacity = ``_capacity(T, E, k, capacity_factor)``,
     over-capacity copies dropped.  ``inference``: capacity = T rounded up
     to 8, dropless, capped at twice the capacity factor's for T > 1024.
     The shared experts' SwiGLU, where the layer has one, is added to the
-    routed output."""
-    if ep is not None:
-        raise NotImplementedError(f"expert parallelism is not ported yet: "
-                                  f"{_LATER}")
+    routed output.  With ``ep`` of more than one shard, ``p`` holds this
+    process's slice of the experts (``p_local``: E / n_shards of them,
+    the full router) and ``x`` the same activations on every process of
+    ``ep.group``; the output is the whole layer's on each."""
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
-    w, idx = _route(p["router"], xt, cfg.top_k)
+    router_w = p["router"]
+    split = ep is not None and ep.n_shards > 1
+    if split:
+        xt = _EnterEP.apply(xt, ep.group)
+        router_w = _EnterEP.apply(router_w, ep.group)
+    w, idx = _route(router_w, xt, cfg.top_k)
     w = w.to(x.dtype)
-    t = b * s
+    dp = ep is not None and ep.dp_size > 1
+    t = b * s * (ep.dp_size if dp else 1)
     if inference:
         cap = max(8, -(-t // 8) * 8)
         if t > 1024:
@@ -183,11 +264,36 @@ def moe_apply(p: dict, cfg: ModelConfig, x, ep=None,
                                      2.0 * cfg.capacity_factor))
     else:
         cap = _capacity(t, cfg.n_experts, cfg.top_k, cfg.capacity_factor)
-    y = grouped_ffn(xt, idx, w, p["wg"], p["wu"], p["wd"], cap)
+    offsets = _dp_offsets(idx, cfg.n_experts, ep) if dp else None
+    if split:
+        # capacity per expert is mesh-independent: the expected copies per
+        # expert are T*k/E whether or not the experts are split
+        e_loc = cfg.n_experts // ep.n_shards
+        mine = torch.div(idx, e_loc, rounding_mode="floor") == ep.rank
+        idx_loc = torch.where(mine, idx - ep.rank * e_loc, 0)
+        y = grouped_ffn(xt, idx_loc, w, p["wg"], p["wu"], p["wd"], cap,
+                        valid=mine, offsets=None if offsets is None else
+                        offsets[ep.rank * e_loc:(ep.rank + 1) * e_loc])
+        y = _LeaveEP.apply(y, ep.group)
+    elif offsets is None:
+        y = grouped_ffn(xt, idx, w, p["wg"], p["wu"], p["wd"], cap)
+    else:
+        y = grouped_ffn(xt, idx, w, p["wg"], p["wu"], p["wd"], cap,
+                        offsets=offsets)
     out = y.reshape(b, s, d)
     if "shared" in p:
         out = out + mlp_apply(p["shared"], x)
     return out
+
+
+def _dp_offsets(idx, n_experts: int, ep: EPContext) -> list[int]:
+    """Per expert, the copies routed to it by the dp processes before this
+    one (one all-gather of the (E,) counts over the dp group)."""
+    counts = torch.bincount(idx.reshape(-1).long(), minlength=n_experts)
+    every = [torch.empty_like(counts) for _ in range(ep.dp_size)]
+    dist.all_gather(every, counts, group=ep.dp_group)
+    before = sum(every[:ep.dp_rank], torch.zeros_like(counts))
+    return before.tolist()
 
 
 def aux_load_balance_loss(p: dict, cfg: ModelConfig, x):

@@ -70,8 +70,10 @@ def _unflatten(like, values: list):
 
 def _to_host(leaf) -> np.ndarray:
     """One leaf as a numpy array of its own dtype (a bfloat16 tensor as
-    its uint16 bits, reinterpreted: exact)."""
+    its uint16 bits, reinterpreted: exact); a DTensor gathered whole."""
     if isinstance(leaf, torch.Tensor):
+        if hasattr(leaf, "full_tensor"):
+            leaf = leaf.full_tensor()
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16)
@@ -85,8 +87,16 @@ def _dtype_name(leaf) -> str:
     return str(np.asarray(leaf).dtype)
 
 
-def save(path: str, step: int, tree, keep: int = 3) -> str:
-    """Synchronous save. Returns the final step directory."""
+def save(path: str, step: int, tree, keep: int = 3,
+         write: bool = True) -> str:
+    """Synchronous save. Returns the final step directory.  DTensor
+    leaves (a sharded trainer's state) are gathered whole, a collective:
+    call it on every process of their mesh, with ``write`` false on all
+    but one."""
+    if not write:
+        for leaf in _flatten(tree):
+            _to_host(leaf)
+        return os.path.join(path, f"step_{step:08d}")
     os.makedirs(path, exist_ok=True)
     stage = os.path.join(path, f".tmp-{step}")
     final = os.path.join(path, f"step_{step:08d}")
@@ -147,11 +157,21 @@ def _from_host(arr: np.ndarray, dtype: str | None) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def restore(path: str, step: int, like_tree, device=None):
+def restore(path: str, step: int, like_tree, device=None, mesh=None,
+            specs=None):
     """Load a checkpoint into the structure of ``like_tree``.  Every leaf
     comes back as a tensor of its saved dtype, on ``device`` when it is
     given, else on the device of the matching ``like_tree`` leaf (the
-    CPU where that leaf is no tensor)."""
+    CPU where that leaf is no tensor).  With a ``mesh`` and ``specs``
+    (a spec tree as ``like_tree``'s, ``sharding.param_specs``), each leaf
+    comes back as a DTensor placed by its spec, this process reading
+    only its own block: the elastic re-shard path, whatever mesh wrote
+    the checkpoint."""
+    if mesh is not None:
+        from repro_torch.distributed import sharding as Sh
+        blocks = _restore_blocks(path, step, like_tree, device, mesh,
+                                 Sh.spec_leaves(specs))
+        return _unflatten(like_tree, blocks)
     d = os.path.join(path, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
@@ -168,6 +188,38 @@ def restore(path: str, step: int, like_tree, device=None):
             like.device if isinstance(like, torch.Tensor) else "cpu")
         out.append(_from_host(arr, dtypes[i]).to(dev))
     return _unflatten(like_tree, out)
+
+
+def _restore_blocks(path, step, like_tree, device, mesh, specs) -> list:
+    """Each leaf's block on this process as a DTensor (the .npy memory-
+    mapped, so only the block is read)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed import sharding as Sh
+    d = os.path.join(path, f"step_{step:08d}")
+    with open(os.path.join(d, "manifest.json")) as f:
+        manifest = json.load(f)
+    likes = _flatten(like_tree)
+    if manifest["n_leaves"] != len(likes) or len(specs) != len(likes):
+        raise ValueError(f"checkpoint {d} has {manifest['n_leaves']} "
+                         f"leaves, the tree {len(likes)}, the specs "
+                         f"{len(specs)}")
+    dtypes = manifest.get("dtypes", [None] * len(likes))
+    coord = Sh.coordinate(mesh)
+    dev = device if device is not None else mesh.device_type
+    out = []
+    for i, spec in enumerate(specs):
+        arr = np.load(os.path.join(d, f"leaf_{i:05d}.npy"), mmap_mode="r",
+                      allow_pickle=False)
+        block = np.array(arr[Sh.local_slices(arr.shape, spec, mesh,
+                                             coord)])
+        t = _from_host(block, dtypes[i]).to(dev)
+        full = torch.Size(arr.shape)
+        stride = torch.empty(full, device="meta").stride()
+        out.append(DTensor.from_local(t, mesh, Sh.placements(spec, mesh),
+                                      run_check=False, shape=full,
+                                      stride=stride))
+    return out
 
 
 class VersionStore:

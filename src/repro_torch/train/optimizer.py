@@ -100,21 +100,29 @@ def _pieces(p: torch.Tensor, cut: bool):
     return [slice(i, i + rows) for i in range(0, p.shape[0], rows)]
 
 
+def leaf_square_sum(g: torch.Tensor) -> torch.Tensor:
+    """sum(g^2) of one leaf in fp32, piece by piece."""
+    return sum(g[sl].float().square().sum() for sl in _pieces(g, True))
+
+
 def _global_norm(grads) -> torch.Tensor:
     total = 0     # over the leaves in JAX's order, as JAX adds them
     for g in leaves(grads):
-        total = total + sum(g[sl].float().square().sum()
-                            for sl in _pieces(g, True))
+        total = total + leaf_square_sum(g)
     return torch.sqrt(total)
 
 
-def update(cfg: OptConfig, grads: Any, state: OptState, params: Any
+def update(cfg: OptConfig, grads: Any, state: OptState, params: Any,
+           gnorm: torch.Tensor | None = None
            ) -> tuple[Any, OptState, dict]:
     """One step: writes ``params`` and the state's moments in place and
-    returns (params, the new state, {"lr", "grad_norm"})."""
+    returns (params, the new state, {"lr", "grad_norm"}).  ``gnorm``, the
+    whole gradient's global norm, where ``grads`` is one process's shard
+    of it (the mesh trainer); else it is taken from ``grads``."""
     step = state.step + 1
     lr = schedule(cfg, step)
-    gnorm = _global_norm(grads)
+    if gnorm is None:
+        gnorm = _global_norm(grads)
     scale = torch.clamp_max(cfg.grad_clip / (gnorm + 1e-9), 1.0)
     tf = step.float()
     bc1 = 1 - torch.full_like(tf, cfg.b1) ** tf
@@ -163,3 +171,40 @@ def update(cfg: OptConfig, grads: Any, state: OptState, params: Any
     else:
         new_state = OptState(step, state.m, None, state.v_row, state.v_col)
     return params, new_state, {"lr": lr, "grad_norm": gnorm}
+
+
+# ------------------------- state sharding specs -----------------------------
+
+
+def opt_specs(cfg: OptConfig, param_spec_tree: Any, params_like: Any
+              ) -> OptState:
+    """Spec tree for the optimizer state (the JAX package's): moments
+    mirror the param spec; factored vectors drop the corresponding dim
+    (``v_row`` the last, ``v_col`` the second to last)."""
+    if cfg.kind == "adamw":
+        return OptState((), param_spec_tree, param_spec_tree, None, None)
+
+    def row_spec(spec, p):
+        if _factored(p.shape):
+            return tuple(spec)[:-1] if len(spec) else ()
+        return ()
+
+    def col_spec(spec, p):
+        t = tuple(spec)
+        if _factored(p.shape):
+            return t[:-2] + t[-1:] if len(t) >= 2 else ()
+        return spec
+
+    return OptState((), param_spec_tree, None,
+                    _map_specs(row_spec, param_spec_tree, params_like),
+                    _map_specs(col_spec, param_spec_tree, params_like))
+
+
+def _map_specs(fn, specs, params):
+    """``fn(spec, param)`` over a spec tree (tuples are its leaves) and
+    the params tree beside it."""
+    if isinstance(specs, dict):
+        return {k: _map_specs(fn, v, params[k]) for k, v in specs.items()}
+    if isinstance(specs, list):
+        return [_map_specs(fn, s, p) for s, p in zip(specs, params)]
+    return fn(specs, params)

@@ -1169,3 +1169,39 @@ def test_online_pod_policy_on_the_card_matches_the_cpu(cuda):
     assert r["max_loss_rel"] <= 1e-5
     assert r["net_predictions"] == 40 - 2 * 5 + 1
     assert launched == 10 * (r["net_predictions"] + r["train_steps"]) > 0
+
+
+# ------------------------------ distribution --------------------------------
+
+
+def test_compression_on_the_card_equals_the_cpu_twin(cuda, tmp_path):
+    """EF-int8 and EF-top-k on CUDA tensors over a one-rank NCCL group
+    against the same rounds on the CPU over gloo: every leaf's reduced
+    value and residual bit-equal over three rounds, and top-k's kept
+    index set equal (ties at zero broken by index on both)."""
+    from torch_ranks import spawn
+    got = spawn("compression_on_card", 1, tmp_path, dict(
+        shapes={"w": (256, 128), "b": (300,), "e": (4, 64, 33)},
+        frac=0.01), backend="nccl")[0]
+    for scheme, checks in got.items():
+        assert checks and all(ok for _, ok in checks), (scheme, checks)
+
+
+def test_one_rank_nccl_mesh_step_is_the_unsharded_step(cuda, tmp_path):
+    """Three mesh-trainer steps on a (1, 1) NCCL mesh against the
+    unsharded step on the card from the same params, reduced demo-100m
+    and qwen3 in fp32: losses and params bit-equal."""
+    from torch_ranks import spawn
+    cases = []
+    for arch in ("demo-100m", "qwen3-moe-30b-a3b"):
+        cfg = dataclasses.replace(get_reduced(arch), param_dtype="float32")
+        params = convert.to_numpy(Model(cfg).init(0, "cpu"))
+        cases.append((cfg, params, 2, dict(lr=1e-2, warmup_steps=2,
+                                           total_steps=50)))
+    got = spawn("one_rank_mesh", 1, tmp_path, dict(cases=cases,
+                                                   device="cuda"),
+                backend="nccl")[0]
+    for (mesh_losses, mesh_p), (losses, p) in got:
+        assert mesh_losses == losses
+        for a, b in zip(convert.leaves(mesh_p), convert.leaves(p)):
+            np.testing.assert_array_equal(a, b)

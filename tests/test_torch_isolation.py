@@ -4,7 +4,7 @@ building and running the port's controller, its LM serving engine
 (dense and MoE), its SSM trainer, START's pretraining and a START-eager
 simulation, a prediction service's tick and a daemon's TCP round trip,
 and a sweep grid served by the fabric to an in-thread node agent on the
-CPU loads neither."""
+CPU loads neither, nor does the meta-device dry run's command line."""
 import ast
 import os
 import subprocess
@@ -73,7 +73,14 @@ def test_the_scan_sees_every_port_module():
             "src/repro_torch/chaos/clock.py",
             "src/repro_torch/chaos/proxy.py",
             "src/repro_torch/sim/sweep.py",
-            "src/repro_torch/sim/fabric.py"} <= names
+            "src/repro_torch/sim/fabric.py",
+            "src/repro_torch/distributed/sharding.py",
+            "src/repro_torch/distributed/compression.py",
+            "src/repro_torch/distributed/elastic.py",
+            "src/repro_torch/launch/mesh.py",
+            "src/repro_torch/launch/dryrun.py",
+            "src/repro_torch/launch/accounting.py",
+            "src/repro_torch/models/specs.py"} <= names
     assert _imported_roots(ROOT / "src" / "repro" / "core" / "start.py") \
         >= {"repro", "numpy"}
 
@@ -163,3 +170,24 @@ def test_running_the_port_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_the_dry_run_loads_no_jax():
+    code = (
+        "import runpy, sys\n"
+        "sys.argv = ['dryrun', '--arch', 'demo-100m', '--shape', "
+        "'train_4k', '--mesh', 'pod']\n"
+        "try:\n"
+        "    runpy.run_module('repro_torch.launch.dryrun', "
+        "run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r}]\n"
+        "assert not bad, bad\n"
+        "assert 'repro_torch.launch.accounting' in sys.modules\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "demo-100m x train_4k x pod: OK" in proc.stdout

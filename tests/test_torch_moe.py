@@ -119,16 +119,13 @@ def test_capacity_drops_the_same_copies(t, cap, dtype):
     np.testing.assert_array_equal(kept, jkept)
 
 
-def test_unported_moe_options_name_their_roadmap_item():
-    """Expert parallelism still names its ROADMAP.md item; the shared
-    experts (item 4.5b) are ported: reduced deepseek-v3's layer (one
-    shared SwiGLU of 32 beside 8 routed experts, top-2) against JAX's
-    ``moe_apply`` in fp32 (2e-5), serving and training dispatch, and the
-    shared SwiGLU's shape."""
+def test_shared_experts_and_the_load_balance_loss_match_jax():
+    """The shared experts: reduced deepseek-v3's layer (one shared SwiGLU
+    of 32 beside 8 routed experts, top-2) against JAX's ``moe_apply`` in
+    fp32 (2e-5), serving and training dispatch, and the shared SwiGLU's
+    shape; and the load-balance loss against JAX's.  (Expert parallelism
+    is held in ``test_torch_ep.py``.)"""
     jcfg, tcfg, jp, tp = _layer("float32")
-    x = torch.zeros(1, 2, tcfg.d_model)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        TMoe.moe_apply(tp, tcfg, x, ep=object())
     jcfg = dataclasses.replace(jconfigs.get_reduced("deepseek-v3-671b"),
                                param_dtype="float32")
     tcfg = dataclasses.replace(configs.get_reduced("deepseek-v3-671b"),

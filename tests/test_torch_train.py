@@ -29,9 +29,9 @@ also at the dense (yi-6b, demo-100m) and MoE (qwen3-moe-30b-a3b) ones.
 - The port alone: microbatching, learning, ``launch/train.py`` and its
   checkpoint drill (``--kill-at`` exits 42, ``--resume`` repeats no
   step, so the resumed losses equal an uninterrupted run's bit for bit;
-  3 checkpoints kept), ``--simulate-stragglers`` against the JAX
-  package's ``launch.train``, and what is not ported yet raising with
-  its ROADMAP.md item.
+  3 checkpoints kept) and ``--simulate-stragglers`` against the JAX
+  package's ``launch.train``.  The mesh trainer is held in
+  ``test_torch_mesh_train.py``.
 """
 import dataclasses
 import json
@@ -500,12 +500,3 @@ def test_unported_flags_and_families_name_their_roadmap_item(
     _hold_driver_losses(*_drivers_from_jax_params([*flags, *DRIVER],
                                                   monkeypatch))
 
-
-def test_a_mesh_names_its_roadmap_item():
-    model = Model(configs.get_reduced(ARCH))
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1 item 4.5"):
-        Trainer(model, mesh=object())
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1 item 4.5"):
-        make_train_step(model, Opt.OptConfig(), mesh=object())
