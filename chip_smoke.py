@@ -47,7 +47,23 @@ Phases:
    per warm interval; then the warm ms per interval for each batch
    bucket, and the device's busy ms per interval and the cell's device
    time per launch (beside its bound and the floor) at 1, 16 and 256
-   jobs;
+   jobs.  Every START program here and in the phases below runs as its
+   CUDA graph (``repro_torch.core.programs``: captured once per shape
+   key, replayed after);
+4b. the captured programs at the slice's width: at 1, 16 and 256 jobs,
+   80 intervals (E_S and per-task scores in turns) of the fused step's
+   replays bit-equal to the eager ``_fused_step`` on inputs assembled
+   independently, one staged copy and one graph replay a warm interval;
+   host ms per warm interval at each bucket, the graph and the eager
+   step in turns on the same telemetry and equal, and at 1, 16 and 256
+   jobs a profiled window each way (device ops, host-to-device and
+   device-to-host copies, one each for the graph, and busy ms per
+   interval); 20 steps of START's ``train_step`` (paper width, 64 of 256
+   seeded examples a step, as ``fit`` runs it) and of IGRU-SD's
+   ``_gru_step``, graph and eager in turns, every loss, param and Adam
+   state bit-equal, ms per step each way; ``autotune_unroll``'s pinned
+   choice at 1, 16 and 256 jobs; the captures made, their ms and their
+   pools' bytes;
 5. START training and simulation at the paper's width: the warmup
    (``collect_training_data(SimConfig(seed=7))``, 400 hosts x 288
    intervals); a training gate in fp32 on the card, three ``train_step``s
@@ -277,7 +293,8 @@ from repro_torch.configs import get_config, get_reduced  # noqa: E402
 from repro_torch.configs.paper_default import PAPER  # noqa: E402
 from repro_torch import policy as registry  # noqa: E402
 from repro_torch.core import encoder_lstm as net  # noqa: E402
-from repro_torch.core import features  # noqa: E402
+from repro_torch.core import features, programs  # noqa: E402
+from repro_torch.core import predictor as predictor_mod  # noqa: E402
 from repro_torch.core.predictor import (  # noqa: E402
     StragglerPredictor, bucket_size)
 from repro_torch.core.start import STARTController  # noqa: E402
@@ -523,7 +540,9 @@ LM_BATCH, LM_SEQ = 2, 2048
 # internvl2-26b's 24 of 48 (39.5 s whole); since the distribution phase
 # joined, minitron-4b and phi4-mini-3.8b serve 16 of their 32 layers,
 # deepseek-67b 8 / 12 and internvl2-26b 12 / 12: on an H100 (700 W) the
-# whole smoke took 988.9-1111.4 s with the earlier depths), whether
+# whole smoke took 988.9-1111.4 s with the earlier depths; since the
+# captured programs' phase joined, minitron-4b and phi4-mini-3.8b serve
+# 8: the smoke took 1001.6 s with 16), whether
 # ``launch.serve`` serves it whole, the fp32 training gate's (layers,
 # expert count; None: the config's) at LM_GATE_BATCH x LM_GATE_SEQ, and
 # the bf16 training run's (layers, batch, seq, expert count).  Depth is
@@ -545,9 +564,9 @@ LM_BATCH, LM_SEQ = 2, 2048
 # at 2 x 2048); top-8, the expert width, the MLA ranks and the dense
 # prefix stay
 NEW_LM = {
-    "minitron-4b": dict(gate=16, serve=16, serve_entry=True,
+    "minitron-4b": dict(gate=8, serve=8, serve_entry=True,
                         train_gate=(4, None), train=(16, 2, 2048, None)),
-    "phi4-mini-3.8b": dict(gate=16, serve=16, serve_entry=True,
+    "phi4-mini-3.8b": dict(gate=8, serve=8, serve_entry=True,
                            train_gate=(4, None),
                            train=(16, 2, 2048, None)),
     "deepseek-67b": dict(gate=8, serve=12, serve_entry=False,
@@ -1837,6 +1856,319 @@ def profile_intervals(ctrl, tel_gen, nb: int, floor: float,
     return out
 
 
+# --------------------------------- phase 4b --------------------------------
+# the captured programs: each START program replayed from its CUDA graph,
+# held to its eager function and timed beside it
+
+GRAPH_JOBS = (1, 16, 256)       # job counts of the replay-vs-eager check
+GRAPH_INTERVALS = 80            # the slice's intervals (2 triggers x 40)
+GRAPH_PROFILED = 10             # warm intervals in a profiled window
+GRAPH_STEPS = 20                # train_step and _gru_step, graph vs eager
+GRAPH_TRAIN_N = 256             # START training examples at paper width
+GRU_TRAIN = (5, 512, 3)         # IGRU-SD's training set: T, tasks, features
+
+
+class EagerIntervals:
+    """The decision step without graphs, as the predictor ran it before
+    its programs were captured: the packed vector [k, beta_scale, newest
+    row, q padded with 1, M_T padded with 0] staged from a pinned buffer,
+    the eager ``_fused_step`` rolling a ring tensor of its own (built from
+    ``hist``, the rows before the next call's, left-padded with the
+    oldest), one readback."""
+
+    def __init__(self, pred: StragglerPredictor, hist: list):
+        self.pred = pred
+        prev = list(hist[:-1]) or [hist[0]]
+        while len(prev) < pred.horizon:
+            prev.insert(0, prev[0])
+        self.ring = torch.from_numpy(np.stack(
+            prev[-pred.horizon:]).reshape(pred.horizon, -1)).to(DEVICE)
+        self.bufs: dict[int, torch.Tensor] = {}
+
+    def __call__(self, row: np.ndarray, mt: np.ndarray, q: np.ndarray,
+                 per_task: bool = False) -> np.ndarray:
+        p = self.pred
+        n = mt.shape[0]
+        nb = p.batch_size(n)
+        hd, td = p.host_dim, p.task_dim
+        staged = self.bufs.get(nb)
+        if staged is None:
+            staged = self.bufs[nb] = torch.zeros(
+                2 + hd + nb * (1 + td), dtype=torch.float32,
+                pin_memory=torch.device(DEVICE).type == "cuda")
+        buf = staged.numpy()
+        buf[0], buf[1] = np.float32(p.k), np.float32(p.beta_scale)
+        buf[2:2 + hd] = row.reshape(-1)
+        buf[2 + hd:2 + hd + nb] = 1.0
+        buf[2 + hd:2 + hd + n] = q
+        buf[2 + hd + nb:] = 0.0
+        buf[2 + hd + nb:2 + hd + nb + n * td] = mt.reshape(-1)
+        self.ring, out = predictor_mod._fused_step(
+            p.params, self.ring, staged.to(DEVICE, non_blocking=True),
+            nb=nb, task_dim=td, per_task=per_task)
+        return out.cpu().numpy()[:n]
+
+
+def graph_fused_parity(n_hosts: int, max_tasks: int) -> dict:
+    """At each of ``GRAPH_JOBS``, ``GRAPH_INTERVALS`` intervals (every
+    other one with per-task scores) of one predictor's fused-step
+    programs against the eager ``_fused_step`` on inputs and a ring
+    assembled apart (``EagerIntervals``): equal bit for bit.  Per warm
+    interval, one staged copy and one graph replay."""
+    out = {}
+    for n_jobs in GRAPH_JOBS:
+        pred = StragglerPredictor(n_hosts=n_hosts, max_tasks=max_tasks,
+                                  horizon=PAPER["horizon"], seed=SEED,
+                                  device=DEVICE)
+        tel_gen = Telemetry(n_hosts, max_tasks, seed=SEED + n_jobs)
+        eager, unequal, worst = None, 0, 0.0
+        stages, replays = [], []
+        for t in range(GRAPH_INTERVALS):
+            tel = tel_gen.step(n_jobs)
+            per_task = bool(t % 2)
+            pred.k = K_LO + (K_HI - K_LO) * float(tel["host_load"].mean())
+            row = np.ascontiguousarray(tel["m_h"], np.float32)
+            eager = eager or EagerIntervals(pred, [row])
+            pred.push_host_row(row)
+            s0, r0 = pred.h2d_stages, programs.stats["replays"]
+            got = pred.predict_interval(tel["m_t"], tel["q"],
+                                        per_task=per_task)
+            stages.append(pred.h2d_stages - s0)
+            replays.append(programs.stats["replays"] - r0)
+            if per_task:
+                got = np.concatenate([got[0][:, None], got[1]], axis=1)
+            want = eager(row, tel["m_t"], tel["q"], per_task)
+            if not np.array_equal(got, want, equal_nan=True):
+                unequal += 1
+                worst = max(worst, float(np.nanmax(np.abs(got - want))))
+        # the first interval stages the ring and the packed batch, and the
+        # first of each trigger may capture (a key new to the process)
+        # instead of replaying; the CPU (a rehearsal) replays nothing
+        once = int(torch.device(DEVICE).type == "cuda")
+        if stages != [2] + [1] * (GRAPH_INTERVALS - 1) \
+                or max(replays[:2]) > once \
+                or replays[2:] != [once] * (GRAPH_INTERVALS - 2):
+            raise AssertionError(f"{n_jobs} jobs: staged copies {stages}, "
+                                 f"replays {replays} an interval")
+        if unequal:
+            raise AssertionError(f"{n_jobs} jobs: {unequal} of "
+                                 f"{GRAPH_INTERVALS} intervals differ from "
+                                 f"the eager step, up to {worst:.3e}")
+        out[n_jobs] = dict(intervals=GRAPH_INTERVALS, bucket=pred.batch_size(
+            n_jobs), bit_equal=True, staged_per_warm_interval=1,
+            replays_per_warm_interval=1)
+        print(f"[graphs] {n_jobs} jobs: {GRAPH_INTERVALS} intervals "
+              f"(E_S and per-task scores) replayed bit-equal to the eager "
+              f"_fused_step; 1 staged copy and 1 graph replay a warm "
+              f"interval")
+    return out
+
+
+def _copies(ops: dict, what: str) -> int:
+    return sum(c for k, (_, c) in ops.items() if what in k)
+
+
+def graph_intervals(n_hosts: int, max_tasks: int, reps: int = 20) -> dict:
+    """Host ms per warm interval at each of ``TIMED_BUCKETS`` jobs, the
+    graph path (``predict_interval``) and the eager step side by side in
+    turns on the same telemetry; then a profiled window of
+    ``GRAPH_PROFILED`` warm intervals each way at 1, 16 and 256 jobs: the
+    device's ops, the host-to-device and device-to-host copies, busy ms
+    per interval."""
+    out = {}
+    for nb in TIMED_BUCKETS:
+        pred = StragglerPredictor(n_hosts=n_hosts, max_tasks=max_tasks,
+                                  horizon=PAPER["horizon"], seed=SEED,
+                                  device=DEVICE)
+        tel_gen = Telemetry(n_hosts, max_tasks, seed=SEED + nb)
+        hist = [np.ascontiguousarray(tel_gen.step(nb)["m_h"], np.float32)]
+        eager = EagerIntervals(pred, hist)
+        pred.push_host_row(hist[-1])
+        graph_ms, eager_ms = [], []
+
+        def both(tel, timed: bool):
+            row = np.ascontiguousarray(tel["m_h"], np.float32)
+            pred.push_host_row(row)
+            t0 = time.perf_counter()
+            got = pred.predict_interval(tel["m_t"], tel["q"])
+            t1 = time.perf_counter()
+            want = eager(row, tel["m_t"], tel["q"])
+            t2 = time.perf_counter()
+            if not np.array_equal(got, want, equal_nan=True):
+                raise AssertionError(f"bucket {nb}: the replay and the "
+                                     f"eager step differ")
+            if timed:
+                graph_ms.append((t1 - t0) * 1e3)
+                eager_ms.append((t2 - t1) * 1e3)
+
+        for i in range(reps + 3):
+            both(tel_gen.step(nb), i >= 3)
+        row = dict(graph_ms=float(np.median(graph_ms)),
+                   eager_ms=float(np.median(eager_ms)))
+        if nb in PROFILED_BUCKETS:
+            tels = [tel_gen.step(nb) for _ in range(GRAPH_PROFILED)]
+            it = iter(tels)
+
+            def graph_one():
+                tel = next(it)
+                pred.push_host_row(np.ascontiguousarray(tel["m_h"],
+                                                        np.float32))
+                pred.predict_interval(tel["m_t"], tel["q"])
+
+            g_ops = _device_ops(graph_one, GRAPH_PROFILED)
+            it = iter(tels)
+
+            def eager_one():
+                tel = next(it)
+                eager(np.ascontiguousarray(tel["m_h"], np.float32),
+                      tel["m_t"], tel["q"])
+
+            e_ops = _device_ops(eager_one, GRAPH_PROFILED)
+            for name, ops in (("graph", g_ops), ("eager", e_ops)):
+                row[f"{name}_device_ops"] = sum(
+                    c for _, c in ops.values()) / GRAPH_PROFILED
+                row[f"{name}_busy_ms"] = sum(
+                    t for t, _ in ops.values()) / 1e6 / GRAPH_PROFILED
+                row[f"{name}_h2d"] = _copies(ops, "HtoD") / GRAPH_PROFILED
+                row[f"{name}_d2h"] = _copies(ops, "DtoH") / GRAPH_PROFILED
+                row[f"{name}_cell_launches"] = sum(
+                    c for k, (_, c) in ops.items()
+                    if "lstm_cell_kernel" in k) / GRAPH_PROFILED
+            print(f"[graphs] bucket {nb}: device ops per interval "
+                  f"{row['graph_device_ops']} graph / "
+                  f"{row['eager_device_ops']} eager; copies HtoD "
+                  f"{row['graph_h2d']} / {row['eager_h2d']}, DtoH "
+                  f"{row['graph_d2h']} / {row['eager_d2h']}; busy "
+                  f"{row['graph_busy_ms']:.4f} / {row['eager_busy_ms']:.4f}"
+                  f" ms")
+            # the staged copies are counted exactly in graph_fused_parity;
+            # a trace may miss the window's first copy, never adds one
+            if row["graph_h2d"] > 1 or row["graph_d2h"] > 1:
+                raise AssertionError(f"bucket {nb}: a warm interval traced "
+                                     f"{row['graph_h2d']} staged copies and "
+                                     f"{row['graph_d2h']} readbacks")
+        out[nb] = row
+    print("[graphs] host ms per warm interval (graph / eager): " + ", ".join(
+        f"{nb}: {r['graph_ms']:.3f} / {r['eager_ms']:.3f}"
+        for nb, r in out.items()))
+    return out
+
+
+def _bit_equal(got, want) -> bool:
+    return all(torch.equal(a, b) for a, b in zip(convert.leaves(got),
+                                                 convert.leaves(want)))
+
+
+def graph_training() -> dict:
+    """``GRAPH_STEPS`` Adam steps of START's ``train_step`` at the paper's
+    width (64 of ``GRAPH_TRAIN_N`` seeded examples a step) through its
+    program (``net.Training``, as ``fit`` runs it) and eagerly, in turns:
+    every loss, every param and the Adam state bit-equal; ms per step
+    each way; 10 ``lstm_cell`` launches a step each way.  Then IGRU-SD's
+    ``_gru_step`` likewise on ``GRU_TRAIN``."""
+    pred = start_controller(DEVICE).predictor
+    rng = np.random.default_rng(SEED)
+    xs = rng.uniform(0, 1, (PAPER["horizon"], GRAPH_TRAIN_N,
+                            pred.input_dim)).astype(np.float32)
+    ys = np.stack([rng.uniform(1, 4, GRAPH_TRAIN_N),
+                   rng.uniform(0.1, 3, GRAPH_TRAIN_N)], -1).astype(np.float32)
+    steps = net.Training(pred.params, pred.opt, xs, ys, TRAIN_BATCH,
+                         TRAIN_LR)
+    xs_d, ys_d = torch.from_numpy(xs).to(DEVICE), torch.from_numpy(ys).to(
+        DEVICE)
+    params, opt = pred.params, pred.opt
+    g_loss, e_loss, g_ms, e_ms = [], [], [], []
+    lstm_cell.launches = 0
+    for _ in range(GRAPH_STEPS):
+        idx = rng.permutation(GRAPH_TRAIN_N)[:TRAIN_BATCH]
+        t0 = time.perf_counter()
+        g_loss.append(steps.step(idx))
+        t1 = time.perf_counter()
+        idx_d = torch.from_numpy(idx).to(DEVICE)
+        params, opt, loss = net.train_step(params, opt, xs_d[:, idx_d],
+                                           ys_d[idx_d], lr=TRAIN_LR)
+        e_loss.append(float(loss))
+        t2 = time.perf_counter()
+        g_ms.append((t1 - t0) * 1e3)
+        e_ms.append((t2 - t1) * 1e3)
+    launches = lstm_cell.launches
+    g_params, g_opt = steps.result()
+    if g_loss != e_loss or not _bit_equal((g_params, g_opt), (params, opt)):
+        raise AssertionError(f"train_step graph vs eager: losses {g_loss} "
+                             f"against {e_loss}, state equal "
+                             f"{_bit_equal((g_params, g_opt), (params, opt))}")
+    if launches != 2 * GRAPH_STEPS * CELLS_PER_STEP:
+        raise AssertionError(f"lstm_cell launched {launches} times in "
+                             f"{GRAPH_STEPS} steps each way")
+    out = dict(train_step=dict(steps=GRAPH_STEPS, bit_equal=True,
+                               graph_ms=float(np.median(g_ms[1:])),
+                               eager_ms=float(np.median(e_ms[1:])),
+                               first_graph_ms=g_ms[0], launches=launches))
+    print(f"[graphs] train_step: {GRAPH_STEPS} steps graph and eager "
+          f"bit-equal (losses, params, Adam state), ms per step "
+          f"{out['train_step']['graph_ms']:.3f} graph / "
+          f"{out['train_step']['eager_ms']:.3f} eager (first graph step, "
+          f"its capture, {g_ms[0]:.1f}); lstm_cell {launches} launches")
+
+    t, b, f = GRU_TRAIN
+    params = baselines.gru_init(SEED, f, 16, device=DEVICE)
+    x = rng.uniform(0, 1, (t, b, f)).astype(np.float32)
+    y = rng.uniform(0.5, 2.0, b).astype(np.float32)
+    steps = baselines.gru_training(params, x, y)
+    x_d, y_d = torch.from_numpy(x).to(DEVICE), torch.from_numpy(y).to(DEVICE)
+    opt = net.adam_init(params)
+    g_ms, e_ms, g_loss, e_loss = [], [], [], []
+    for _ in range(GRAPH_STEPS):
+        t0 = time.perf_counter()
+        with programs.LOCK:
+            g_loss.append(float(steps.run()))
+        t1 = time.perf_counter()
+        params, opt, loss = baselines._gru_step(params, opt, x_d, y_d)
+        e_loss.append(float(loss))
+        t2 = time.perf_counter()
+        g_ms.append((t1 - t0) * 1e3)
+        e_ms.append((t2 - t1) * 1e3)
+    g_params, g_opt = steps.result()
+    if g_loss != e_loss or not _bit_equal((g_params, g_opt), (params, opt)):
+        raise AssertionError(f"_gru_step graph vs eager: losses {g_loss} "
+                             f"against {e_loss}")
+    out["gru_step"] = dict(steps=GRAPH_STEPS, bit_equal=True,
+                           graph_ms=float(np.median(g_ms[1:])),
+                           eager_ms=float(np.median(e_ms[1:])),
+                           first_graph_ms=g_ms[0])
+    print(f"[graphs] _gru_step: {GRAPH_STEPS} steps graph and eager "
+          f"bit-equal, ms per step {out['gru_step']['graph_ms']:.3f} graph "
+          f"/ {out['gru_step']['eager_ms']:.3f} eager")
+    return out
+
+
+def graphs_phase(n_hosts: int, max_tasks: int) -> dict:
+    """Phase 4b: the captured programs against their eager functions,
+    their host ms beside the eager path's, the captures made and
+    ``autotune_unroll``'s choice per bucket."""
+    before = dict(programs.stats)
+    out = dict(fused=graph_fused_parity(n_hosts, max_tasks),
+               intervals=graph_intervals(n_hosts, max_tasks))
+    out.update(graph_training())
+    pred = StragglerPredictor(n_hosts=n_hosts, max_tasks=max_tasks,
+                              horizon=PAPER["horizon"], seed=SEED,
+                              device=DEVICE)
+    out["autotune_unroll"] = pred.autotune_unroll(buckets=PROFILED_BUCKETS)
+    out["captures"] = {k: programs.stats[k] - before[k]
+                       for k in ("captures", "capture_ms", "pool_bytes",
+                                 "replays")}
+    out["captures_total"] = dict(programs.stats)
+    print(f"[graphs] autotune_unroll pinned {out['autotune_unroll']}; "
+          f"{out['captures']['captures']} captures in the phase "
+          f"({out['captures']['capture_ms']:.1f} ms, graph pools "
+          f"{out['captures']['pool_bytes']} bytes), "
+          f"{out['captures']['replays']} replays; process: "
+          f"{programs.stats['captures']} captures, "
+          f"{programs.stats['capture_ms']:.1f} ms, "
+          f"{programs.stats['pool_bytes']} bytes")
+    return out
+
+
 # --------------------------------- phase 5 ---------------------------------
 # START's training and simulation at the paper's width
 
@@ -3001,6 +3333,10 @@ def teacher_forced(model: Model, params, prompts, served,
 
 
 def free_cuda() -> None:
+    """Free what the card caches: the captured programs' graphs, pools and
+    static buffers (``programs.clear``; a later call captures again) and
+    the allocator's free blocks."""
+    programs.clear()
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5703,6 +6039,8 @@ def main() -> None:
         print(f"[slice] lstm_cell launches {launches} = {layers * horizon} x "
               f"{fused} fused intervals; one staged copy per warm interval")
         buckets = time_buckets(n_hosts, max_tasks, floor)
+    with phase("captured programs"):
+        graphs = graphs_phase(n_hosts, max_tasks)
 
     with phase("START training and simulation"):
         xs, ys = start_warmup()
@@ -5937,6 +6275,7 @@ def main() -> None:
             r for r in res["timing"]
             if r["shape"] == "B={} L={} D={} N={}".format(*shape)]
     print(json.dumps({"slice": slice_stats, "ms_per_interval": buckets}))
+    print(json.dumps({"graphs": graphs}))
     print(json.dumps({"start_train_gate": start_gate,
                       "start_train": start_timing,
                       "start_sim": start_sims}))

@@ -16,8 +16,16 @@ package by a plain copy (``repro_torch.convert``).
 Every LSTM cell goes through ``repro_torch.kernels.lstm_cell``: the CUDA
 kernel for tensors on the card, its plain version for tensors on the CPU;
 training differentiates the plain cell (the wrapper's autograd Function
-on the card).  There is no ``jit`` here: ``unroll`` arguments are kept
-for parity with the JAX signatures and have no effect in eager PyTorch.
+on the card).
+
+The functions here are eager, and are the reference.  The programs the
+JAX package jits, ``predict_sequence``, ``predict_sequence_opt`` and
+``train_step``, are also programs (``repro_torch.core.programs``:
+:data:`PREDICT_SEQUENCE`, :data:`PREDICT_SEQUENCE_OPT`,
+:data:`TRAIN_STEP`): one CUDA graph per shape key on the card, keyed on
+the static arguments JAX keys on (``unroll``, ``lr``).  A graph holds no
+loop, so ``unroll`` is part of a key only (the counts follow JAX's) and
+changes no value.
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.convert import leaves, tree_map, unflatten
+from repro_torch.core import programs
 from repro_torch.kernels.lstm_cell import lstm_cell, lstm_cell_ref
 
 EMA_W = 0.8          # weight of the *latest* resource matrix (paper §3.2)
@@ -192,7 +201,8 @@ def decode_sequence(params: Params, lam: torch.Tensor,
     """Run the LSTM over precomputed (T, ..., ENC_OUT) encodings and
     return the final step's (alpha, beta), shape (..., 2).  The head runs
     on the last step only: earlier steps' outputs are never read.
-    ``unroll`` has no effect (eager PyTorch has no scan to unroll)."""
+    ``unroll`` (JAX's ``lax.scan`` unroll) changes nothing here: the
+    steps run in order, eagerly or replayed from a graph."""
     state = init_state(params, lam.shape[1:-1])
     hs, cs = list(state.h), list(state.c)
     top = None
@@ -205,7 +215,8 @@ def predict_sequence_opt(params: Params, xs: torch.Tensor,
                          unroll: int = 1) -> torch.Tensor:
     """Tier-1 twin of :func:`predict_sequence` for batches whose host
     blocks vary per row (the multi-tenant serving batch): the encoder
-    runs once over the whole (T, nb) grid.  ``unroll`` has no effect."""
+    runs once over the whole (T, nb) grid.  ``unroll`` keys its program
+    (:data:`PREDICT_SEQUENCE_OPT`) and changes no value."""
     return decode_sequence(params, encoder_apply(params, ema_smooth(xs)))
 
 
@@ -284,3 +295,83 @@ def train_step(params: Params, opt: AdamState, xs: torch.Tensor,
     loss, grads = loss_and_grads(params, xs, targets)
     params, opt = adam_update(params, grads, opt, lr=lr)
     return params, opt, loss
+
+
+def sequence_entry(params: Params, xs) -> programs.Entry:
+    """The :data:`PREDICT_SEQUENCE` entry for ``params``' and the
+    (T, ..., input_dim) ``xs``'s shapes, with ``params`` refreshed in it
+    and ``xs`` copied in: ``run()`` gives (alpha, beta), the entry's own
+    output.  Call under ``programs.LOCK``."""
+    dev = leaves(params)[0].device
+    e = PREDICT_SEQUENCE.entry(
+        (dev, programs.signature(params), tuple(xs.shape)),
+        lambda: (tree_map(torch.empty_like, params),
+                 torch.empty(tuple(xs.shape), dtype=torch.float32,
+                             device=dev)))
+    e.refresh(0, params)
+    e.copy_in(1, xs)
+    return e
+
+
+def _train_in_place(params: Params, opt: AdamState, xs: torch.Tensor,
+                    targets: torch.Tensor, *, lr: float) -> torch.Tensor:
+    """:func:`train_step` on the minibatch ``xs`` (T, rows, ...) /
+    ``targets`` (rows, 2), writing the new params and Adam state over
+    ``params`` and ``opt``; returns the loss (the :data:`TRAIN_STEP`
+    program)."""
+    new_params, new_opt, loss = train_step(params, opt, xs, targets, lr=lr)
+    programs.write_back((params, opt), (new_params, new_opt))
+    return loss
+
+
+# the programs the JAX package jits (encoder_lstm.py: predict_sequence,
+# predict_sequence_opt, train_step): one graph per key on the card
+PREDICT_SEQUENCE = programs.Program("predict_sequence", predict_sequence)
+PREDICT_SEQUENCE_OPT = programs.Program("predict_sequence_opt",
+                                        predict_sequence_opt)
+TRAIN_STEP = programs.Program("train_step", _train_in_place)
+
+
+class Training:
+    """:data:`TRAIN_STEP` over one data set, as ``fit`` runs it:
+    :meth:`step` takes one Adam step on the examples ``idx`` and returns
+    the loss, :meth:`result` gives copies of ``[params, opt]`` after the
+    last step.  The params and Adam state are loaded into the entry once.
+    The (T, N, ...) data set stays on the device with this object, and
+    each step gathers its ``rows`` examples into the entry's minibatch
+    inputs outside the graph, so the entry holds no data set and, as JAX
+    keys ``train_step`` on ``xs[:, idx]``, is keyed on the minibatch's
+    shapes and ``lr`` only: every fit at that minibatch shape replays one
+    capture."""
+
+    def __init__(self, params: Params, opt: AdamState, xs, targets,
+                 rows: int, lr: float):
+        dev = leaves(params)[0].device
+        self.xs = torch.as_tensor(xs, dtype=torch.float32).to(dev)
+        self.targets = torch.as_tensor(targets, dtype=torch.float32).to(dev)
+        shape_x = (self.xs.shape[0], int(rows), *self.xs.shape[2:])
+        shape_y = (int(rows), *self.targets.shape[1:])
+
+        def make():
+            return (tree_map(torch.empty_like, params),
+                    AdamState(*(tree_map(torch.empty_like, x) for x in opt)),
+                    torch.empty(shape_x, dtype=torch.float32, device=dev),
+                    torch.empty(shape_y, dtype=torch.float32, device=dev))
+
+        key = (dev, programs.signature(params, opt), shape_x, shape_y,
+               float(lr))
+        self._steps = programs.Steps(TRAIN_STEP, key, make, (params, opt),
+                                     lr=float(lr))
+
+    def step(self, idx) -> float:
+        """One Adam step on the examples ``idx`` (``rows`` of them)."""
+        idx = torch.as_tensor(np.asarray(idx, np.int64)).to(self.xs.device)
+        with programs.LOCK:
+            e = self._steps.load()
+            torch.index_select(self.xs, 1, idx, out=e.args[2])
+            torch.index_select(self.targets, 0, idx, out=e.args[3])
+            return float(e.run())
+
+    def result(self) -> list:
+        """Copies of ``[params, opt]`` after the last step."""
+        return self._steps.result()

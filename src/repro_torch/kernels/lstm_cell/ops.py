@@ -8,6 +8,12 @@ the call through :class:`_Cell`, whose forward launches the kernel and
 whose backward differentiates the plain cell recomputed from the saved
 inputs, as the JAX package's ``custom_vjp`` does; there is no backward
 kernel.
+
+A launch is counted in ``lstm_cell.launches`` where it runs.  While a
+CUDA graph captures the current stream the kernel is recorded, not run:
+the launch is counted in ``lstm_cell.recorded`` instead, and the graph's
+replays add what it recorded to ``launches``
+(``repro_torch.core.programs``).
 """
 from __future__ import annotations
 
@@ -89,7 +95,10 @@ def _launch(x, h, c, wx, wh, b):
         bsz, n_in, hid, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"lstm_cell kernel launch failed: CUDA error {rc}")
-    lstm_cell.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        lstm_cell.recorded += 1
+    else:
+        lstm_cell.launches += 1
     return h_out, c_out
 
 
@@ -123,7 +132,8 @@ def lstm_cell(x, h, c, wx, wh, b):
     x (B, In); h, c (B, H); wx (In, 4H); wh (H, 4H); b (4H,); gates
     packed [i, f, g, o]; float32 or bfloat16, fp32 math.  Differentiable
     in all six inputs.  ``lstm_cell.launches`` counts kernel launches
-    (CPU calls do not launch and do not count)."""
+    (CPU calls do not launch and do not count); ``lstm_cell.recorded``
+    counts launches recorded into a CUDA graph being captured."""
     _check(x, h, c, wx, wh, b)
     if x.device.type == "cpu":
         return lstm_cell_ref(x, h, c, wx, wh, b)
@@ -136,3 +146,4 @@ def lstm_cell(x, h, c, wx, wh, b):
 
 
 lstm_cell.launches = 0
+lstm_cell.recorded = 0

@@ -583,11 +583,9 @@ class PredictionService:
                 "buffer_pairs": len(self.buffer),
                 "buckets": sorted(set().union(
                     *(p.buckets_used for p in preds))),
-                # the distinct (path, batch shape) pairs dispatched by any
-                # of the service's predictors (the JAX service reports
-                # its process's XLA compiles here)
-                "compile_count": len(set().union(
-                    *(p.dispatched for p in preds))),
+                # the process's captures of the prediction programs (the
+                # JAX service reports its process's XLA compiles here)
+                "compile_count": self.model.compile_count,
                 "last_retrain_error": self.last_retrain_error,
                 **self.stats_counters,
             }

@@ -30,6 +30,7 @@ import torch
 
 from repro_torch.convert import leaves
 from repro_torch.core import encoder_lstm as net
+from repro_torch.core import programs
 from repro_torch.core.pareto import fit_pareto_np
 from repro_torch.core.predictor import StragglerPredictor
 
@@ -89,14 +90,17 @@ class ReplayBuffer:
 
 def shadow_loss(params, eval_xs: np.ndarray, eval_ys: np.ndarray) -> float:
     """Replay held-back telemetry through a parameter set -> MSE, on the
-    parameters' device."""
+    parameters' device: ``net.mse_loss`` with the network run as the
+    ``predict_sequence`` program, as the JAX package's runs its jitted
+    ``predict_sequence``."""
     if eval_xs.shape[1] == 0:
         return float("nan")
     dev = leaves(params)[0].device
-    with torch.no_grad():
-        return float(net.mse_loss(
-            params, torch.from_numpy(np.ascontiguousarray(eval_xs)).to(dev),
-            torch.from_numpy(np.ascontiguousarray(eval_ys)).to(dev)))
+    ys = torch.from_numpy(np.ascontiguousarray(eval_ys, np.float32)).to(dev)
+    with programs.LOCK:
+        pred = net.sequence_entry(params, np.ascontiguousarray(
+            eval_xs, np.float32)).run()
+        return float(torch.mean((pred - ys) ** 2))
 
 
 def fit_candidate(champion: StragglerPredictor, train_xs: np.ndarray,

@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.convert import leaves, tree_map, unflatten
 from repro_torch.core import encoder_lstm as nets
+from repro_torch.core import programs
 from repro_torch.core.predictor import fp32_ieee, resolve_device
 from repro_torch.policy import (Action, DONE, EVENT_INTERVAL, EVENT_SUBMIT,
                                 PENDING, Policy, PretrainContext,
@@ -345,6 +346,41 @@ def _gru_step(params: dict, opt: nets.AdamState, xs: torch.Tensor,
     return params, opt, loss.detach()
 
 
+def _gru_in_place(params: dict, opt: nets.AdamState, xs: torch.Tensor,
+                  y: torch.Tensor) -> torch.Tensor:
+    """:func:`_gru_step` writing the new params and Adam state over
+    ``params`` and ``opt``; returns the loss (the :data:`GRU_STEP`
+    program)."""
+    new_params, new_opt, loss = _gru_step(params, opt, xs, y)
+    programs.write_back((params, opt), (new_params, new_opt))
+    return loss
+
+
+#: the program the JAX package jits as ``_gru_step``: one graph per shape
+#: key on the card
+GRU_STEP = programs.Program("gru_step", _gru_in_place)
+
+
+def gru_training(params: dict, xs, y) -> programs.Steps:
+    """:data:`GRU_STEP` from ``params`` and a fresh Adam state on one data
+    set: ``run()`` takes one step, ``result()`` gives copies of
+    ``[params, opt]``.  Keyed, as JAX's ``_gru_step``, on the shapes."""
+    dev = leaves(params)[0].device
+    opt = nets.adam_init(params)
+    xs = torch.as_tensor(xs, dtype=torch.float32, device=dev)
+    y = torch.as_tensor(y, dtype=torch.float32, device=dev)
+
+    def make():
+        return (tree_map(torch.empty_like, params),
+                nets.AdamState(*(tree_map(torch.empty_like, x)
+                                 for x in opt)),
+                torch.empty_like(xs), torch.empty_like(y))
+
+    return programs.Steps(GRU_STEP,
+                          (dev, programs.signature(params, opt, xs, y)),
+                          make, (params, opt), (xs, y))
+
+
 @register("igru-sd", substrates=("sim", "pod"),
           epochs_knob="igru_epochs",
           description="GRU resource/latency prediction with proactive "
@@ -399,11 +435,12 @@ class IGRUSD(Policy):
         return tech
 
     def train(self, xs: np.ndarray, y: np.ndarray, epochs: int = 200):
-        opt = nets.adam_init(self.params)
-        xs_d = torch.as_tensor(xs, device=self.device)
-        y_d = torch.as_tensor(y, device=self.device)
+        """``epochs`` Adam steps of the :data:`GRU_STEP` program over the
+        whole set, from a fresh Adam state."""
+        steps = gru_training(self.params, xs, y)
         for _ in range(epochs):
-            self.params, opt, _ = _gru_step(self.params, opt, xs_d, y_d)
+            steps.run()
+        self.params = steps.result()[0]
 
     def _task_feats(self, view: TelemetryView, i: int) -> np.ndarray:
         tt = view.tasks

@@ -8,8 +8,9 @@ encoder-decoder) served on the card against the same model on the CPU,
 reduced LMs of each family trained on the card against the CPU, IGRU-SD's
 GRU on the card against the CPU, a 2-worker sweep on the card
 against the serial run, the prediction service on the card against its
-CPU twin and over TCP, the trainer's checkpoint drill, and the pod
-runtime's online Encoder-LSTM policy at 400 hosts against its CPU twin.  They
+CPU twin and over TCP, the trainer's checkpoint drill, the pod
+runtime's online Encoder-LSTM policy at 400 hosts against its CPU twin,
+and START's captured programs (CUDA graphs) against their eager runs.  They
 need an NVIDIA Hopper card and ``nvcc`` and skip elsewhere; run them on
 the card with
 
@@ -1205,3 +1206,155 @@ def test_one_rank_nccl_mesh_step_is_the_unsharded_step(cuda, tmp_path):
         assert mesh_losses == losses
         for a, b in zip(convert.leaves(mesh_p), convert.leaves(p)):
             np.testing.assert_array_equal(a, b)
+
+
+# ------------------ captured programs (CUDA graphs) ------------------------
+
+
+def _hist_and_jobs(rng, n_hosts, max_tasks, n):
+    row = rng.uniform(0, 1, (n_hosts, 11)).astype(np.float32)
+    mt = rng.uniform(0, 1, (n, max_tasks, 5)).astype(np.float32)
+    q = rng.integers(1, max_tasks + 1, n).astype(np.float32)
+    return row, mt, q
+
+
+@pytest.mark.parametrize("per_task", [False, True])
+def test_fused_step_replay_equals_the_eager_step(cuda, per_task):
+    """Intervals at three batch shapes through the fused step's graphs
+    (each key's first call its warm-up, the rest replays) against the
+    eager ``_fused_step`` on the card on inputs and a ring assembled
+    apart (the smoke's ``EagerIntervals``): bit for bit, with 10 cell
+    launches an interval either way."""
+    pred = StragglerPredictor(n_hosts=16, max_tasks=6, seed=2, device=cuda)
+    rng = np.random.default_rng(3)
+    eager = None
+    for t in range(12):
+        row, mt, q = _hist_and_jobs(rng, 16, 6, (1, 5, 16)[t % 3])
+        eager = eager or chip_smoke.EagerIntervals(pred, [row])
+        pred.push_host_row(row)
+        before = lstm_cell.launches
+        got = pred.predict_interval(mt, q, per_task=per_task)
+        assert lstm_cell.launches - before == 2 * pred.horizon
+        if per_task:
+            got = np.concatenate([got[0][:, None], got[1]], axis=1)
+        want = eager(row, mt, q, per_task)
+        assert lstm_cell.launches - before == 4 * pred.horizon
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("per_task", [False, True])
+def test_predict_tenants_replay_equals_eager(cuda, per_task):
+    """Three ticks of a tenant batch (the serving batch's programs, then
+    their replays) against the eager ``predict_sequence_opt`` and Pareto
+    tail on the card: bit for bit."""
+    from repro_torch.core import predictor as P
+    pred = StragglerPredictor(n_hosts=16, max_tasks=6, seed=4, device=cuda)
+    rng = np.random.default_rng(5)
+    for _ in range(3):
+        seqs = [rng.uniform(0, 1, (5, 16, 11)).astype(np.float32)
+                for _ in range(3)]
+        jobs = [_hist_and_jobs(rng, 16, 6, n)[1:] for n in (2, 1, 3)]
+        got = pred.predict_tenants(seqs, [mt for mt, _ in jobs],
+                                   [q for _, q in jobs], per_task=per_task)
+        nb = pred.batch_size(6)
+        xs = np.zeros((5, nb, pred.input_dim), np.float32)
+        qp = np.ones(nb, np.float32)
+        lo = 0
+        for s, (mt, q) in zip(seqs, jobs):
+            n = len(q)
+            xs[:, lo:lo + n, :pred.host_dim] = s.reshape(5, 1, -1)
+            xs[:, lo:lo + n, pred.host_dim:] = mt.reshape(1, n, -1)
+            qp[lo:lo + n] = q
+            lo += n
+        xs[:, lo:, :pred.host_dim] = seqs[-1].reshape(5, 1, -1)
+        ab = net.predict_sequence_opt(pred.params, torch.from_numpy(xs)
+                                      .to(cuda))
+        k = torch.tensor(pred.k, dtype=torch.float32, device=cuda)
+        bs = torch.tensor(pred.beta_scale, dtype=torch.float32, device=cuda)
+        q_d = torch.from_numpy(qp).to(cuda)
+        if per_task:
+            want = P._pareto_tail_per_task(
+                ab, q_d, k, bs, torch.from_numpy(np.ascontiguousarray(
+                    xs[-1, :, pred.host_dim:])).to(cuda)).cpu().numpy()
+            got = np.concatenate([np.concatenate([e[:, None], s], axis=1)
+                                  for e, s in got])
+        else:
+            want = P._pareto_tail(ab, q_d, k, bs)[3].cpu().numpy()
+            got = np.concatenate(got)
+        np.testing.assert_array_equal(got, want[:6])
+
+
+def test_train_step_replay_equals_eager(cuda):
+    """Five ``train_step``s through the program (``fit``'s path) and
+    eagerly on the card from the same params and minibatches: losses,
+    params and Adam state bit for bit; 10 cell launches a step each
+    way."""
+    pred = StragglerPredictor(n_hosts=16, max_tasks=6, seed=6, device=cuda)
+    rng = np.random.default_rng(7)
+    xs = rng.uniform(0, 1, (5, 40, pred.input_dim)).astype(np.float32)
+    ys = rng.uniform(1, 3, (40, 2)).astype(np.float32)
+    steps = net.Training(pred.params, pred.opt, xs, ys, 16, 1e-3)
+    params, opt = pred.params, pred.opt
+    xs_d, ys_d = torch.from_numpy(xs).to(cuda), torch.from_numpy(ys).to(cuda)
+    before = lstm_cell.launches
+    for _ in range(5):
+        idx = rng.permutation(40)[:16]
+        got = steps.step(idx)
+        i_d = torch.from_numpy(idx).to(cuda)
+        params, opt, loss = net.train_step(params, opt, xs_d[:, i_d],
+                                           ys_d[i_d], lr=1e-3)
+        assert got == float(loss)
+    assert lstm_cell.launches - before == 2 * 5 * 10
+    for a, b in zip(convert.leaves(steps.result()),
+                    convert.leaves((params, opt))):
+        assert torch.equal(a, b)
+
+
+def test_gru_step_replay_equals_eager(cuda):
+    """IGRU-SD's training through the ``gru_step`` program against the
+    eager ``_gru_step`` on the card: params bit for bit."""
+    pol = baselines.IGRUSD(seed=1, device=cuda)
+    rng = np.random.default_rng(8)
+    xs = rng.uniform(0, 1, (5, 64, 3)).astype(np.float32)
+    y = rng.uniform(0.5, 2, 64).astype(np.float32)
+    params, opt = pol.params, net.adam_init(pol.params)
+    for _ in range(6):
+        params, opt, _ = baselines._gru_step(
+            params, opt, torch.from_numpy(xs).to(cuda),
+            torch.from_numpy(y).to(cuda))
+    pol.train(xs, y, epochs=6)
+    for a, b in zip(convert.leaves(pol.params), convert.leaves(params)):
+        assert torch.equal(a, b)
+
+
+def test_replays_count_the_launches_they_replay(cuda):
+    """N calls of one fused-step key: the first runs eagerly (10 cell
+    launches) and captures (none counted), the others replay (10 each):
+    10 N in all, the graph's record being 10."""
+    from repro_torch.core import predictor as P
+    from repro_torch.core import programs
+    pred = StragglerPredictor(n_hosts=9, max_tasks=3, seed=1, device=cuda)
+    rng = np.random.default_rng(9)
+    before, replays = lstm_cell.launches, programs.stats["replays"]
+    for _ in range(7):
+        row, mt, q = _hist_and_jobs(rng, 9, 3, 3)
+        pred.push_host_row(row)
+        pred.predict_interval(mt, q)
+    assert lstm_cell.launches - before == 7 * 10
+    assert programs.stats["replays"] - replays == 6
+    entries = [e for e in P.FUSED_STEP._entries.values()
+               if e.key[3] == pred.host_dim]
+    assert [e.launches for e in entries] == [(10,)]
+
+
+def test_a_capture_whose_program_syncs_raises(cuda):
+    """A program that reads a value to the host cannot be captured: its
+    first call raises (after its eager warm-up) instead of running
+    eagerly, and the card works afterwards."""
+    from repro_torch.core import programs
+    prog = programs.Program("syncs", lambda x: x * float(x.sum()))
+    e = prog.entry(("syncs",), lambda: (torch.ones(4, device=cuda),))
+    with pytest.raises(RuntimeError):
+        e.run()
+    assert e.graph is None
+    assert float((torch.ones(3, device=cuda) * 2).sum()) == 6.0

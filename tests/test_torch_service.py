@@ -14,8 +14,9 @@ against the JAX service on the same seeded streams from the same weights.
   port's VersionStore is a copy of the one the JAX service wrote):
   E_S and per-task scores within the Tier-1 bound (``tests/tolerance.py``,
   rel 1e-5), equal actions, ``sanitized`` lists and ``stats()`` counters
-  (apart from ``compile_count``, which counts XLA compiles in JAX and
-  dispatched shapes in the port); a retrain / shadow / promote /
+  (apart from ``compile_count``, which counts the process's XLA compiles
+  in JAX and its captures of the prediction programs in the port, which
+  other tests in one process change); a retrain / shadow / promote /
   rollback cycle with losses within 1e-5 relative and the same
   decisions; degraded-mode E_S within the bound; the sanitizer bit-equal
   on a seeded corpus of malformed snapshots.
