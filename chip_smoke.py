@@ -113,7 +113,10 @@ Phases:
    ``Engine(n_slots=4, max_len=4096)`` serving 6 seeded requests
    (prompts of 12 to 3000 tokens, 16 new tokens each); every prefill
    launches ``flash_attention`` once per layer and every decoded token
-   ``decode_attention`` (one kernel) once per layer; the same token
+   ``decode_attention`` (one kernel) once per layer; every engine here
+   and below decodes by replay (``serve/programs.py``: one capture a
+   slot, four in all, each replay counted with the launches it records);
+   the same token
    streams re-run under teacher forcing through the plain attention
    functions agree within 1e-4 on every step's logits, with equal greedy
    tokens except where the plain path's top-2 margin is under 1e-4;
@@ -194,6 +197,23 @@ Phases:
    12 experts timed; the bf16 loss and gradients at 2 experts, twice,
    bit-equal, with no optimizer step; the reduced config's fp32
    training gate, ``launch.train`` and ``launch.serve``);
+12g. decode graphs: in the fp32 gate and the bf16 run of one arch of
+   each family (yi-6b, qwen3-moe-30b-a3b, deepseek-v3-671b,
+   falcon-mamba-7b, seamless-m4t-large-v2 through ``decode_step``,
+   Jamba), the compiled decode step on one slot's caches at 4096
+   positions against the eager step (``decode_graphs``): 6 replayed
+   tokens bit-equal to the eager step at the same tensor position
+   (logits and caches), that step within the fp32 gate's bound of the
+   host-int one at the 300-token prompt, one capture, the launches a
+   replay records and, in bf16
+   at the longest prompt, in the trace; host ms per token graph and
+   eager side by side with device busy and ops.  Then this phase: the
+   decode kernel reading kv_len from the device against its plain version
+   at kv_len 1, 28, 2048 and 4096 of a 4096-row cache whose rows past
+   kv_len hold another request's keys, one launch captured and replayed
+   at changing kv_len bit-equal to eager launches, its device time at
+   its S-derived split beside the host-int launch's at kv_len 28 and
+   4096; and every family's results held together;
 13. the multi-tenant prediction service at the paper's width
    (``Profile(n_hosts=400, max_tasks=10, horizon=5, k=1.5)``), in both
    triggers: a service on the card and its CPU twin from one weight set
@@ -305,7 +325,7 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, decode_attention_ref)
 from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
-    LAUNCHES_PER_CALL)
+    LAUNCHES_PER_CALL, decode_split)
 from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
     BF16_EXCESS, bf16_rounding_excess)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -328,7 +348,9 @@ from repro_torch.models.lm import Model, full_precision, layer  # noqa: E402
 from repro_torch.policy import wire  # noqa: E402
 from repro_torch.serve.engine import (  # noqa: E402
     Engine, EngineConfig, Request)
-from repro_torch.serve.kv_cache import pad_to_length  # noqa: E402
+from repro_torch.serve import programs as serve_programs  # noqa: E402
+from repro_torch.serve.kv_cache import (  # noqa: E402
+    load_into, pad_to_length, zeros_padded)
 from repro_torch.service import (  # noqa: E402
     PredictionService, Profile, ServiceClient, ServiceConfig, ServiceDaemon)
 from repro_torch.sim.config import SimConfig  # noqa: E402
@@ -3111,29 +3133,47 @@ def routed_by(log: RouteLog):
         backend.moe_router = saved
 
 
-class Recorder:
-    """The model as the engine sees it, keeping the logits of every call,
-    prefill logits by prompt length, decode logits by position (the
-    prompts' lengths are far enough apart that positions identify the
-    request), and keying the router calls of each in ``log``."""
+class RecordingEngine(Engine):
+    """The engine as it serves, keeping the logits of every step, prefill
+    logits by prompt length, decode logits by position (the prompts'
+    lengths are far enough apart that positions identify the request),
+    and keying the router calls of each in ``log``.  A slot's decode step
+    replays its CUDA graph, which runs no Python: at the slot's capture
+    the log holds the warm-up step's router calls, then the capture's,
+    whose outputs every replay rewrites; after a replay those are read."""
 
-    def __init__(self, model: Model, log: RouteLog):
-        self.model, self.log = model, log
+    def __init__(self, model: Model, params, cfg: EngineConfig,
+                 log: RouteLog):
+        super().__init__(model, params, cfg)
+        self.log = log
         self.prefill_logits: dict[int, torch.Tensor] = {}
         self.decode_logits: dict[int, torch.Tensor] = {}
+        self._routes: dict[int, list] = {}    # slot -> the capture's calls
 
-    def prefill(self, params, batch):
-        n = batch["tokens"].shape[1]
+    def _prefill(self, toks):
+        n = toks.shape[1]
         self.log.key = ("prefill", n)
-        logits, caches = self.model.prefill(params, batch)
+        logits, caches = super()._prefill(toks)
         self.prefill_logits[n] = logits
         return logits, caches
 
-    def decode_step(self, params, caches, tokens, pos):
-        self.log.key = ("decode", pos)
-        logits, caches = self.model.decode_step(params, caches, tokens, pos)
-        self.decode_logits[pos] = logits
-        return logits, caches
+    def _decode(self, slot, st):
+        key = self.log.key = ("decode", st["pos"])
+        captures = programs.stats["captures"]
+        logits = super()._decode(slot, st)
+        calls = self.log.calls.setdefault(key, [])
+        if programs.stats["captures"] > captures:
+            self._routes[slot] = calls[len(calls) // 2:]
+            del calls[len(calls) // 2:]
+        elif not calls and slot in self._routes:
+            calls.extend((idx.clone(), gap) for idx, gap in
+                         self._routes[slot])
+        self.decode_logits[st["pos"]] = logits.clone()
+        return logits
+
+    def release(self) -> None:
+        self._routes.clear()     # tensors of the graphs' pools
+        super().release()
 
 
 @contextlib.contextmanager
@@ -3201,21 +3241,29 @@ def lm_prompts(vocab: int) -> list[np.ndarray]:
 
 
 def serve_engine(model: Model, params, prompts) -> dict:
-    """The main path: ``Engine`` serving every prompt, launch counts set
-    to 0 just before and read just after."""
+    """The main path: ``Engine`` serving every prompt, each slot's decode
+    step captured once and replayed, launch counts (the replays' included)
+    set to 0 just before and read just after."""
     log = RouteLog(backend.moe_router)
-    rec = Recorder(model, log)
-    eng = Engine(rec, params, EngineConfig(n_slots=N_SLOTS, max_len=MAX_LEN))
+    eng = RecordingEngine(model, params, EngineConfig(n_slots=N_SLOTS,
+                                                      max_len=MAX_LEN), log)
     for i, p in enumerate(prompts):
         eng.submit(Request(req_id=i, tokens=p, max_new=MAX_NEW))
     torch.cuda.synchronize()
     reset_launches()
+    before = dict(programs.stats)
     t0 = time.perf_counter()
     with routed_by(log):
         done = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernel_launches()
+    graphs = {k: programs.stats[k] - before[k] for k in before}
+    eng.release()        # the slots' caches and graphs: the gates need room
+    slots = min(N_SLOTS, len(prompts))
+    if graphs["captures"] != (slots if DEVICE == "cuda" else 0):
+        raise AssertionError(f"engine: {graphs['captures']} captures for "
+                             f"{slots} slots")
     cfg = model.cfg
     n = layer_counts(cfg)
     decoded = sum(len(r.out) - 1 for r in done)
@@ -3230,7 +3278,10 @@ def serve_engine(model: Model, params, prompts) -> dict:
                              f"{launches}, expected {want}")
     tokens = sum(len(r.out) for r in done)
     print(f"[lm] engine served {len(done)} requests, {tokens} tokens in "
-          f"{wall:.3f} s: flash_attention {launches['flash_attention']} "
+          f"{wall:.3f} s, decode by replay: {graphs['captures']} captures "
+          f"(one a slot, {graphs['capture_ms']:.1f} ms, pools "
+          f"{graphs['pool_bytes']} B), {graphs['replays']} replays; "
+          f"flash_attention {launches['flash_attention']} "
           f"launches = {n['attn']} x {len(prompts)} prefills, "
           f"decode_attention {launches['decode_attention']} = "
           f"{LAUNCHES_PER_CALL} x {n['attn']} x {decoded} decoded tokens, "
@@ -3240,9 +3291,9 @@ def serve_engine(model: Model, params, prompts) -> dict:
           f"{n['ssm']} x {len(prompts)} prefills (the SSM decode is plain "
           f"ops)" + (f"; {n['mla']} MLA layers attend through the plain "
                      f"functions, no kernel" if n["mla"] else ""))
-    return dict(done=sorted(done, key=lambda r: r.req_id), rec=rec,
+    return dict(done=sorted(done, key=lambda r: r.req_id), rec=eng,
                 routes=log.calls, wall_s=wall, tokens=tokens,
-                launches=launches)
+                launches=launches, graphs=graphs)
 
 
 def route_diffs(eng_calls, plain_calls) -> tuple[int, list]:
@@ -3412,6 +3463,10 @@ def lm_gate(arch: str, n_layers: int | None = None,
             model, params, prompts[:3], tol)
     if cfg.family == "vlm":
         out["patches"] = frontend_serve(model, params, prompts, hold=True)
+    out["graphs"] = served["graphs"]
+    if arch in DECODE_GRAPH_ARCHS:
+        out["decode_graphs"] = decode_graphs(arch, model, params, prompts[2],
+                                             tol)
     del params, served
     free_cuda()
     return out
@@ -3712,6 +3767,10 @@ def lm_timing(arch: str, n_layers: int | None = None,
                routing=dict(tf["routing"], first=len(tf["routing"]["first"])))
     if cfg.family == "vlm":
         out["patches"] = frontend_serve(model, params, prompts, hold=False)
+    out["graphs"] = served["graphs"]
+    if arch in DECODE_GRAPH_ARCHS:
+        out["decode_graphs"] = decode_graphs(arch, model, params,
+                                             prompts[-1], timed=True)
     del params, served
     free_cuda()
     return out
@@ -3751,27 +3810,52 @@ def frontend_serve(model: Model, params, prompts, hold: bool) -> dict:
         logits, caches = model.prefill(params, {"tokens": toks, key: pe})
         return logits, pad_to_length(caches, p_len + len(p) + MAX_NEW)
 
+    slot = {}
+
     def run(p, forced=None):
-        logits, caches = prefill(p)
+        """The kernels' run decodes by replay on one slot's caches (one
+        capture for every prompt, as the engine's slot), the plain one
+        (``forced``) eagerly."""
+        if forced is None:
+            toks = torch.as_tensor(p, device=DEVICE)[None]
+            logits, pre = model.prefill(params, {"tokens": toks, key: pe})
+            caches = slot.setdefault("caches", zeros_padded(pre, MAX_LEN))
+            load_into(caches, pre)
+            del pre
+
+            def decode(tok, pos):
+                return serve_programs.decode_step(model, params, caches,
+                                                  tok, pos)
+        else:
+            logits, caches = prefill(p)
+
+            def decode(tok, pos):
+                return model.decode_step(params, caches, tok, pos)[0]
         out, steps = [], [logits[0, -1]]
         for j in range(MAX_NEW - 1):
             tok = int(torch.argmax(steps[-1])) if forced is None \
                 else forced[j]
             out.append(tok)
-            logits, caches = model.decode_step(
-                params, caches, torch.tensor([[tok]], device=DEVICE),
-                p_len + len(p) + j)
-            steps.append(logits[0, -1])
+            logits = decode(torch.tensor([[tok]], device=DEVICE),
+                            p_len + len(p) + j)
+            steps.append(logits[0, -1].clone())
         out.append(int(torch.argmax(steps[-1])))
         return out, steps
 
     torch.cuda.synchronize()
     reset_launches()
+    captures = programs.stats["captures"]
     t0 = time.perf_counter()
     kern = [run(p) for p in sel]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernel_launches()
+    slot.clear()
+    with programs.LOCK:
+        serve_programs.DECODE_STEP.prune()
+    captures = programs.stats["captures"] - captures
+    if captures != (1 if DEVICE == "cuda" else 0):
+        raise AssertionError(f"{key}: {captures} captures for one slot")
     n = layer_counts(cfg)
     decoded = len(sel) * (MAX_NEW - 1)
     want = {k: 0 for k in launches}
@@ -3903,6 +3987,300 @@ def profile_decode(model, params, caches, tok, pos, reps: int = 8) -> dict:
 
     return profile_window(f"decode from position {pos}, per token", step,
                           reps)
+
+
+# ---------------------- decode graphs (ROADMAP 4.6b) -----------------------
+# One arch of each family the engine serves (dense GQA, MoE, MLA with
+# shared experts and a dense prefix, SSM, encoder-decoder, hybrid) has its
+# compiled decode step (``serve/programs.py``) held against the eager one
+# at full width with the serving phases' depth cuts: in its fp32 gate at
+# the 300-token prompt (bit for bit, and the tensor-position eager step
+# within the gate's bound of the host-int one, whose split differs there:
+# at 12 tokens both take one split and agree bit for bit), and in its
+# bf16 run at the longest, also timed beside the eager step and profiled,
+# the replay's launches held against the trace.  The other archs'
+# engines decode by replay too, their launches counted.
+DECODE_GRAPH_ARCHS = (LM_ARCH, MOE_ARCH, SSM_ARCH, "deepseek-v3-671b",
+                      "seamless-m4t-large-v2", "jamba-1.5-large-398b")
+DECODE_GRAPH_STEPS = 6      # tokens held bit for bit, each way
+DECODE_GRAPHS: dict = {}    # arch -> {"float32": ..., "bfloat16": ...}
+# the device-kv_len decode kernel (the graphs' one): yi-6b's decode in an
+# S = 4096 slot at kv_len 1, 28, S / 2 and S, the rows past kv_len holding
+# another request's keys; device time at 28 and 4096 beside the host-int
+# launch; one launch captured and replayed at changing kv_len
+DECODE_DEVICE = [(1, 32, 4, 4096, 128, n) for n in (1, 28, 2048, 4096)]
+DECODE_DEVICE_TIMED = (28, 4096)
+DECODE_REPLAYED = (1, 28, 2048, 4096, 700)
+
+
+def slot_caches(pre) -> list:
+    """A slot's caches at MAX_LEN with the prefill's ``pre`` copied in,
+    as the engine keeps them."""
+    caches = zeros_padded(pre, MAX_LEN)
+    load_into(caches, pre)
+    return caches
+
+
+def replay_record(model: Model, params, caches) -> tuple[dict, object]:
+    """(the launches one replay of the entry on ``caches`` adds, by
+    kernel; the entry)."""
+    ident = programs.identity(params, caches)
+    entry, = [e for e in serve_programs.DECODE_STEP._entries.values()
+              if e.key[0] is model and e.key[1] == ident]
+    return {w.__name__: k for w, k in entry.launches.items()}, entry
+
+
+def decode_graphs(arch: str, model: Model, params, prompt,
+                  tol: float | None = None, extra: dict | None = None,
+                  timed: bool = False) -> dict:
+    """The compiled decode step against the eager one on one slot's
+    caches at MAX_LEN, the prompt's prefill copied into three: for
+    DECODE_GRAPH_STEPS greedy tokens each goes through the step's graph
+    (its first call the warm-up and the capture, then replays), the eager
+    ``decode_step`` at the same tensor position and the eager step at the
+    host-int position: the replays' logits and caches bit-equal to the
+    tensor path's, the tensor path within ``tol`` (the family's gate) of
+    the host-int one, one capture, the launches a replay records, and the
+    launch counts over the steps exact.  ``timed``: then MAX_NEW warm
+    tokens each way (the graph against the eager host-int step, each on
+    its own caches), host ms per token as the engine decodes (argmax and
+    readback included), and a profiled window each way (device busy and
+    ops), the replay's kernels counted in the trace against its
+    record."""
+    cfg = model.cfg
+    dt = str(cfg.dtype)[6:]
+    n = layer_counts(cfg)
+    toks = torch.as_tensor(prompt, device=DEVICE)[None]
+    logits, pre = model.prefill(params, {"tokens": toks, **(extra or {})})
+    graph_c, tensor_c, int_c = (slot_caches(pre) for _ in range(3))
+    del pre
+    s0 = toks.shape[1]
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    torch.cuda.synchronize()
+    before = dict(programs.stats)
+    reset_launches()
+    drift = 0.0
+    for j in range(DECODE_GRAPH_STEPS):
+        pos = s0 + j
+        got = serve_programs.decode_step(model, params, graph_c, tok,
+                                         pos).clone()
+        want, _ = model.decode_step(params, tensor_c, tok,
+                                    torch.tensor(pos, device=DEVICE))
+        host, _ = model.decode_step(params, int_c, tok, pos)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{cfg.name} {dt}: the replayed decode "
+                                 f"step's logits differ from the eager "
+                                 f"step's at position {pos}")
+        drift = max(drift, (want - host).abs().max().item())
+        tok = torch.argmax(got[:, -1], dim=-1)[:, None]
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    if not all(torch.equal(a, b) for a, b in zip(convert.leaves(graph_c),
+                                                 convert.leaves(tensor_c))):
+        raise AssertionError(f"{cfg.name} {dt}: the replays' caches differ "
+                             f"from the eager steps'")
+    per_step = {k: v for k, v in dict(
+        decode_attention=LAUNCHES_PER_CALL * n["attn"], moe_router=n["moe"],
+        flash_attention=n["cross"]).items() if v}
+    want = {k: 0 for k in launches}
+    want.update({k: 3 * DECODE_GRAPH_STEPS * v for k, v in per_step.items()})
+    if launches != want:
+        raise AssertionError(f"{cfg.name} {dt}: launches over the steps "
+                             f"{launches}, expected {want}")
+    record, entry = replay_record(model, params, graph_c)
+    captures = programs.stats["captures"] - before["captures"]
+    if DEVICE == "cuda" and (record != per_step or captures != 1):
+        raise AssertionError(f"{cfg.name} {dt}: a replay records {record}, "
+                             f"expected {per_step}; {captures} captures")
+    if tol is not None and not drift <= tol:
+        raise AssertionError(f"{cfg.name} {dt}: the tensor-position step "
+                             f"drifts {drift} from the host-int one "
+                             f"(bound {tol})")
+    out = dict(context=s0, steps=DECODE_GRAPH_STEPS, bit_equal=True,
+               drift_tensor_vs_int=drift, tol=tol, record=record,
+               launches=launches, captures=captures,
+               capture_ms=entry.capture_ms, pool_bytes=entry.pool_bytes)
+    print(f"[decode graphs] {cfg.name} {dt}, {cfg.n_layers} layers, from "
+          f"position {s0}: {DECODE_GRAPH_STEPS} replayed tokens bit-equal "
+          f"to the eager tensor-position step (logits and caches); that "
+          f"step vs the host-int one: max abs logit drift {drift:.3e}"
+          + (f" (bound {tol})" if tol is not None else "")
+          + f"; a replay records {record}; {captures} capture, "
+          f"{entry.capture_ms:.1f} ms, pool {entry.pool_bytes} B")
+    if timed:
+        out.update(decode_graph_timing(model, params, graph_c, int_c, tok,
+                                       s0 + DECODE_GRAPH_STEPS, per_step))
+    DECODE_GRAPHS.setdefault(arch, {})[dt] = out
+    del graph_c, tensor_c, int_c, entry
+    with programs.LOCK:
+        serve_programs.DECODE_STEP.prune()
+    return out
+
+
+def decode_graph_timing(model: Model, params, graph_c, int_c, tok, pos,
+                        per_step: dict) -> dict:
+    """Host ms per warm token and a profiled window, the graph's replays
+    against the eager host-int step, each on its own caches from
+    ``pos``; the replay's kernels in the trace against ``per_step``."""
+    cfg = model.cfg
+    graph = dict(tok=tok, pos=pos)
+    eager = dict(tok=tok, pos=pos)
+
+    def graph_step():
+        o = serve_programs.decode_step(model, params, graph_c, graph["tok"],
+                                       graph["pos"])
+        graph["tok"] = torch.argmax(o[:, -1], dim=-1)[:, None]
+        graph["pos"] += 1
+
+    def eager_step():
+        o, _ = model.decode_step(params, int_c, eager["tok"], eager["pos"])
+        eager["tok"] = torch.argmax(o[:, -1], dim=-1)[:, None]
+        eager["pos"] += 1
+
+    ms = {}
+    for name, step, st in (("graph", graph_step, graph),
+                           ("eager", eager_step, eager)):
+        times = [_sync_ms(lambda: (step(), int(st["tok"][0, 0])))
+                 for _ in range(MAX_NEW)]
+        ms[name] = float(np.median(times[2:]))
+    flash = ("flash_wgmma_kernel" if cfg.dtype == torch.bfloat16
+             else "flash_attention_kernel")
+    names = dict(decode_attention="decode_kernel", moe_router="router_kernel",
+                 flash_attention=flash)
+    need = tuple(names[k] for k in per_step)
+    prof = {"graph": profile_window(
+        f"{cfg.name} decode graph replays from position {graph['pos']}, "
+        f"per token", graph_step, 8, need=need),
+        "eager": profile_window(
+            f"{cfg.name} eager decode from position {eager['pos']}, per "
+            f"token", eager_step, 8)}
+    traced = {k: prof["graph"]["kernels"].get(names[k], {}).get("calls", 0)
+              for k in per_step}
+    if DEVICE == "cuda" and traced != per_step:
+        raise AssertionError(f"{cfg.name}: a replay's kernels in the trace "
+                             f"{traced}, its record {per_step}")
+    busy = {k: round(v["device_busy_ms"], 4) for k, v in prof.items()}
+    ops = {k: round(v["device_ops"], 1) for k, v in prof.items()}
+    print(f"[decode graphs] {cfg.name} {str(cfg.dtype)[6:]} per token at "
+          f"context {pos}: host ms graph {ms['graph']:.3f} / eager "
+          f"{ms['eager']:.3f}; device busy ms {busy}, device ops {ops}; "
+          f"the replay's kernels in the trace {traced}")
+    return dict(host_ms=ms, busy_ms=busy, device_ops=ops, traced=traced,
+                profile=prof)
+
+
+def check_decode_device(floor: float) -> dict:
+    """The decode kernel reading kv_len from the device (the captured
+    step's launch): against the plain version at DECODE_DEVICE, the rows
+    past kv_len finite keys and values of another request (not zeros, not
+    NaN), the bf16 gate as ``check_decode``'s; device us per launch at the
+    fixed split (from S) beside the host-int launch (its split from
+    kv_len) at DECODE_DEVICE_TIMED; and one launch captured into a CUDA
+    graph, replayed at each of DECODE_REPLAYED after the kv_len changed,
+    bit-equal to an eager launch and within tolerance of the plain
+    version."""
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    excess, device = -float("inf"), {}
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for i, (b, h, hkv, s, d, n) in enumerate(DECODE_DEVICE):
+        label = (f"B={b} H={h} Hkv={hkv} S={s} D={d} kv_len={n} (device "
+                 f"kv_len, stale rows past it)")
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator().manual_seed(300 + i)
+            q, k, v = (torch.randn(sh, generator=g).to("cuda", dtype)
+                       for sh in ((b, h, d), (b, hkv, s, d), (b, hkv, s, d)))
+            want = decode_attention_ref(q, k, v, kv_len=n)
+            want32 = decode_attention_ref(q.float(), k.float(), v.float(),
+                                          kv_len=n)
+            kv = torch.tensor(n, dtype=torch.int32, device="cuda")
+            got = decode_attention(q, k, v, kv_len=kv)
+            _compare("decode_attention", got, want, dtype, worst, label)
+            if dtype == torch.bfloat16:
+                e = bf16_rounding_excess(got, want32)
+                if not e <= BF16_EXCESS:
+                    raise AssertionError(
+                        f"decode_attention {label}: bf16 output {e:.3e} of "
+                        f"max|o| past half an ulp of the fp32 result")
+                excess = max(excess, e)
+            if n not in DECODE_DEVICE_TIMED:
+                continue
+            split = decode_split(b * hkv, s, n_sm)
+            host_split = decode_split(b * hkv, n, n_sm)
+            us = launch_us(lambda: decode_attention(q, k, v, kv_len=kv),
+                           "::decode_kernel<")
+            us_host = launch_us(lambda: decode_attention(q, k, v, kv_len=n),
+                                "::decode_kernel<")
+            device[f"{str(dtype)[6:]} kv_len={n}"] = dict(
+                device_kv_len_us=us, split=list(split), host_int_us=us_host,
+                host_int_split=list(host_split))
+            print(f"[kernel] decode_attention {label} {str(dtype)[6:]}: "
+                  f"{us:.3f} us device per launch at the split {split} of "
+                  f"S, {us_host:.3f} us with a host-int kv_len at its split "
+                  f"{host_split} ({us / floor:.2f}x / {us_host / floor:.2f}x "
+                  f"the floor)")
+    replayed = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator().manual_seed(400)
+        q, k, v = (torch.randn(sh, generator=g).to("cuda", dtype)
+                   for sh in ((1, 32, 128), (1, 4, 4096, 128),
+                              (1, 4, 4096, 128)))
+        kv = torch.ones((), dtype=torch.int32, device="cuda")
+        decode_attention(q, k, v, kv_len=kv)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = decode_attention(q, k, v, kv_len=kv)
+        err = 0.0
+        for n in DECODE_REPLAYED:
+            kv.fill_(n)
+            graph.replay()
+            eager = decode_attention(q, k, v, kv_len=kv)
+            torch.cuda.synchronize()
+            if not torch.equal(out, eager):
+                raise AssertionError(f"decode_attention {dtype}: the replay "
+                                     f"at kv_len {n} differs from an eager "
+                                     f"launch")
+            want = decode_attention_ref(q, k, v, kv_len=n)
+            _compare("decode_attention", out, want, dtype, worst,
+                     f"replayed at kv_len={n}")
+            err = max(err, (out.float() - want.float()).abs().max().item())
+        replayed[str(dtype)[6:]] = err
+        del graph
+    print(f"[kernel] decode_attention with a device kv_len: max abs err "
+          f"fp32 {worst[torch.float32]:.3e} (bound 2e-5), bf16 "
+          f"{worst[torch.bfloat16]:.3e} (bound 2e-2), bf16 past half an ulp "
+          f"{excess:.3e} of max|o|; one captured launch replayed at kv_len "
+          f"{DECODE_REPLAYED} bit-equal to eager launches, max abs err "
+          f"against the plain version {replayed}")
+    return dict(worst={str(k)[6:]: v for k, v in worst.items()},
+                bf16_excess=excess, device_us=device,
+                replayed_kv_len=list(DECODE_REPLAYED), replayed_err=replayed)
+
+
+def decode_graphs_phase(floor: float) -> dict:
+    """The device-kv_len kernel's checks, then every family's decode
+    graph results from its LM phases (each family present, bit-equal,
+    one capture)."""
+    kernel = check_decode_device(floor)
+    missing = [a for a in DECODE_GRAPH_ARCHS
+               if set(DECODE_GRAPHS.get(a, {})) != {"float32", "bfloat16"}]
+    if missing:
+        raise AssertionError(f"decode graphs not held for {missing}")
+    for arch in DECODE_GRAPH_ARCHS:
+        r = DECODE_GRAPHS[arch]
+        t = r["bfloat16"]
+        print(f"[decode graphs] {arch}: fp32 drift tensor vs int "
+              f"{r['float32']['drift_tensor_vs_int']:.3e} (bound "
+              f"{r['float32']['tol']}); a replay records "
+              f"{r['bfloat16']['record']}; bf16 host ms per token graph "
+              f"{t['host_ms']['graph']:.3f} / eager "
+              f"{t['host_ms']['eager']:.3f}, busy {t['busy_ms']}, ops "
+              f"{t['device_ops']}; pool "
+              f"{t['pool_bytes']} B a slot, capture {t['capture_ms']:.1f} ms")
+    return dict(kernel=kernel, archs={
+        a: {dt: {k: v for k, v in r.items() if k != "profile"}
+            for dt, r in DECODE_GRAPHS[a].items()}
+        for a in DECODE_GRAPH_ARCHS})
 
 
 # -------------------------- training phases --------------------------------
@@ -4394,6 +4772,9 @@ def encdec_gate(arch: str) -> dict:
         model, params, prompts[:3], LOGIT_TOL,
         extra={"frame_embeds": frontend_embeds(cfg)})
     out["frameless"] = frameless_refused(model, params)
+    out["decode_graphs"] = decode_graphs(
+        arch, model, params, prompts[2], LOGIT_TOL,
+        extra={"frame_embeds": frontend_embeds(cfg)})
     out.update(n_layers=cfg.n_layers, encoder_layers=cfg.encoder_layers,
                params_b=cfg.param_count() / 1e9, logit_tol=LOGIT_TOL)
     print(f"[lm] {cfg.name} fp32 peak {out['peak_gib']:.2f} GiB")
@@ -4411,7 +4792,11 @@ def encdec_timing(arch: str) -> dict:
     model = Model(cfg)
     params = model.init(SEED, DEVICE)
     torch.cuda.reset_peak_memory_stats()
-    out = frontend_serve(model, params, lm_prompts(cfg.vocab), hold=False)
+    prompts = lm_prompts(cfg.vocab)
+    out = frontend_serve(model, params, prompts, hold=False)
+    out["decode_graphs"] = decode_graphs(
+        arch, model, params, prompts[-1],
+        extra={"frame_embeds": frontend_embeds(cfg)}, timed=True)
     wbytes = weight_bytes(params)
     out.update(peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                weight_gb=wbytes / 1e9,
@@ -6116,6 +6501,9 @@ def main() -> None:
     new_lm = {arch: new_lm_phases(arch, plan)
               for arch, plan in NEW_LM.items()}
     eh = encdec_hybrid_phases()
+    with phase("decode graphs"):
+        graphs_lm = decode_graphs_phase(floor)
+        free_cuda()
     with phase("prediction service"):
         service = service_phase()
         free_cuda()
@@ -6221,6 +6609,13 @@ def main() -> None:
     # d_inner 16384
     kernels[1]["new_geometries"] = flash["cross"]
     kernels[2]["new_geometries"] = decode["mha"]
+    # the decode step's graphs: the device-kv_len launch's checks and
+    # times, and what one replay of each family's step launches
+    kernels[2]["device_kv_len"] = graphs_lm["kernel"]
+    for i in (1, 2, 3):
+        kernels[i]["launches_a_replay"] = {
+            arch: r["bfloat16"]["record"].get(kernels[i]["name"], 0)
+            for arch, r in graphs_lm["archs"].items()}
     kernels[3]["new_geometries"] = router["jamba"]
     # the scan: launches from the fp32 training gate, times at the timed
     # run's shape in bf16 (the config's own dtype); no PyTorch call
@@ -6307,6 +6702,7 @@ def main() -> None:
         k: ({kk: vv for kk, vv in v.items() if kk != "flips"}
             if isinstance(v, dict) else v) for k, v in eh.items()}},
         default=str))
+    print(json.dumps({"decode_graphs": graphs_lm}, default=str))
     print(json.dumps({"service": service}))
     print(json.dumps({"pod": pod}))
     print(json.dumps({"distribution": dist_rec}))

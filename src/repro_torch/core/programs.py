@@ -17,6 +17,14 @@ through the entry's buffers:
 * :meth:`Entry.copy_in` copies a caller's input into a static input on
   every call; :meth:`Entry.refresh` copies weights only when they are not
   the ones loaded (another object, or the same tensors changed in place);
+* arguments too large to copy (an LM's weights, a serving slot's caches)
+  are *bound*: the entry reads and writes the caller's own tensors in
+  place, its key holds their identity (:func:`identity`: address, shape,
+  stride, dtype), and the caller passes the same tensors to every
+  :meth:`Entry.run`; another tree is another entry, never a copy.  The
+  entry keeps only weak references to them, and an entry whose bound
+  tensors died is dropped at the program's next lookup of a new key or
+  by :meth:`Program.prune`;
 * a static buffer that several entries capture and one caller at a time
   owns (the fused step's M_H ring) is a :class:`Resident`;
 * a call's outputs are the entry's static outputs: a caller reads or
@@ -38,7 +46,12 @@ import weakref
 import torch
 
 from repro_torch.convert import leaves, tree_map
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.lstm_cell import lstm_cell
+from repro_torch.kernels.mamba_scan import (mamba_scan, mamba_scan_bwd,
+                                            mamba_scan_with_state)
+from repro_torch.kernels.moe_router import moe_router
 
 #: held around every sequence of loads, run and readback of an entry
 LOCK = threading.RLock()
@@ -46,7 +59,8 @@ LOCK = threading.RLock()
 #: kernel wrappers whose launches a graph replays: each counts a launch
 #: recorded during capture in ``recorded``, and a replay adds the graph's
 #: recorded launches to ``launches``
-_COUNTED = (lstm_cell,)
+_COUNTED = (lstm_cell, decode_attention, flash_attention, moe_router,
+            mamba_scan, mamba_scan_bwd, mamba_scan_with_state)
 
 #: process-wide: captures made, their wall ms, the device memory their
 #: pools reserved (bytes), and graph replays
@@ -61,6 +75,13 @@ def signature(*trees) -> tuple:
     """The shapes and dtypes of every leaf of ``trees`` (a cache key)."""
     return tuple((tuple(t.shape), t.dtype) for tree in trees
                  for t in leaves(tree))
+
+
+def identity(*trees) -> tuple:
+    """Where every leaf of ``trees`` lies and how it is laid out (the key
+    of arguments an entry binds): address, shape, stride, dtype, device."""
+    return tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype,
+                  t.device) for tree in trees for t in leaves(tree))
 
 
 def clear() -> None:
@@ -102,19 +123,26 @@ def _same(token, x) -> bool:
 
 
 class Entry:
-    """One program at one key: its static arguments (``args``, trees of
-    tensors in the function's argument order), its graph on the card and
-    its static outputs."""
+    """One program at one key: its bound arguments (the caller's trees,
+    held by weak reference), its static arguments (``args``, trees of
+    tensors, after the bound ones in the function's argument order), its
+    graph on the card and its static outputs."""
 
-    def __init__(self, program: Program, key, args: tuple, static: dict):
+    def __init__(self, program: Program, key, args: tuple, static: dict,
+                 bound: tuple = (), pool=None):
         self.program = program
         self.key = key
         self.args = args
         self.static = static
+        self._bound = [weakref.ref(t) for t in leaves(bound)]
+        #: the key of a memory pool shared with other entries (None: the
+        #: graph's own)
+        self.pool = pool
         self._loaded = [None] * len(args)
         self.graph = None
         self.out = None
-        self.launches = tuple(0 for _ in _COUNTED)
+        #: kernel wrapper -> the launches one replay adds (its record)
+        self.launches: dict = {}
         #: the :class:`Resident` over the state a :class:`Steps` updates
         self.state = None
         self.capture_ms = 0.0
@@ -142,33 +170,50 @@ class Entry:
         self._loaded[i] = _token(x)
         return True
 
-    def run(self):
-        """Run the program once on the static arguments and return its
-        outputs: eagerly on the CPU; on the card, the first call runs it
-        eagerly and captures it, later calls replay the graph."""
-        dev = leaves(self.args)[0].device
+    def binds(self, bound: tuple) -> bool:
+        """Whether ``bound`` is the trees this entry was built on: the same
+        tensors, all alive."""
+        ts = leaves(bound)
+        return len(ts) == len(self._bound) and all(
+            r() is t for r, t in zip(self._bound, ts))
+
+    def alive(self) -> bool:
+        return all(r() is not None for r in self._bound)
+
+    def run(self, *bound):
+        """Run the program once on ``bound`` (the trees the entry binds)
+        and the static arguments and return its outputs: eagerly on the
+        CPU; on the card, the first call runs it eagerly and captures it,
+        later calls replay the graph."""
+        if not self.binds(bound):
+            raise ValueError(f"{self.program.name}: an entry runs on the "
+                             f"tensors it was built on")
+        args = bound + self.args
+        dev = leaves(args)[0].device
         if dev.type != "cuda":
-            return self.program.fn(*self.args, **self.static)
+            return self.program.fn(*args, **self.static)
         if self.graph is None:
-            return self._capture(dev)
+            return self._capture(dev, args)
         self.graph.replay()
         stats["replays"] += 1
-        for wrapper, n in zip(_COUNTED, self.launches):
+        for wrapper, n in self.launches.items():
             wrapper.launches += n
         return self.out
 
-    def _capture(self, dev: torch.device):
+    def _capture(self, dev: torch.device, args: tuple):
         # PyTorch's recipe: the warm-up on a side stream (this call's own
         # result), then the capture on that stream into the graph's
-        # private pool.  ``torch.cuda.graph`` would also collect garbage
-        # and empty the allocator's cache first, ~0.1 s a capture in a
-        # large process; a private pool takes none of the cached blocks,
-        # so the memory reserved during the capture is the pool's.
+        # private pool.  A private pool takes none of the blocks the
+        # allocator caches, and nothing can be freed while a capture runs,
+        # so the cache is emptied first (the warm-up's blocks, an LM
+        # prefill's), as ``torch.cuda.graph`` does; its garbage collection,
+        # ~0.1 s a capture in a large process, is left out.  The memory
+        # reserved during the capture is the pool's.
         cur = torch.cuda.current_stream(dev)
         side = _side_stream(dev)
         side.wait_stream(cur)
         with torch.cuda.stream(side):
-            out = self.program.fn(*self.args, **self.static)
+            out = self.program.fn(*args, **self.static)
         cur.wait_stream(side)
         for t in leaves(out):
             if isinstance(t, torch.Tensor):
@@ -176,18 +221,24 @@ class Entry:
         before = [w.recorded for w in _COUNTED]
         t0 = time.perf_counter()
         torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
         mem0 = torch.cuda.memory_reserved(dev)
         graph = torch.cuda.CUDAGraph()
+        # the pool of a live graph of the same pool key (a pool lives as
+        # long as one of its graphs), else a new one
+        pool = None if self.pool is None else next(
+            (e.graph.pool() for e in self.program._entries.values()
+             if e.pool == self.pool and e.graph is not None), None)
         with torch.cuda.stream(side):
-            graph.capture_begin(capture_error_mode="thread_local")
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
             try:
-                static_out = self.program.fn(*self.args, **self.static)
+                static_out = self.program.fn(*args, **self.static)
             finally:
                 graph.capture_end()
         self.capture_ms = (time.perf_counter() - t0) * 1e3
         self.pool_bytes = torch.cuda.memory_reserved(dev) - mem0
-        self.launches = tuple(w.recorded - b
-                              for w, b in zip(_COUNTED, before))
+        self.launches = {w: w.recorded - b for w, b in zip(_COUNTED, before)
+                         if w.recorded > b}
         self.graph, self.out = graph, static_out
         stats["captures"] += 1
         stats["capture_ms"] += self.capture_ms
@@ -210,14 +261,32 @@ class Program:
         """The number of keys captured (``jax.jit``'s ``_cache_size()``)."""
         return len(self._entries)
 
-    def entry(self, key, make, **static) -> Entry:
+    def entry(self, key, make, bound: tuple = (), pool=None,
+              **static) -> Entry:
         """The entry at ``key``, built from ``make()`` (a tuple of the
-        static argument trees) and ``static`` on its first use; ``key``
-        holds the static values too.  Call under :data:`LOCK`."""
+        static argument trees), ``bound`` (the caller's trees it reads in
+        place; ``key`` then holds their :func:`identity`) and ``static``
+        on its first use; ``key`` holds the static values too.  Entries
+        built with one ``pool`` key capture into one memory pool: safe
+        where they never run at once and each call's outputs are read
+        before another of them runs (a graph may reuse the memory of the
+        others' intermediates and outputs).  Entries whose bound tensors
+        died are dropped here.  Call under :data:`LOCK`."""
         e = self._entries.get(key)
-        if e is None:
-            e = self._entries[key] = Entry(self, key, tuple(make()), static)
+        if e is None or not e.binds(bound):
+            self.prune()
+            e = self._entries[key] = Entry(self, key, tuple(make()), static,
+                                           bound, pool)
         return e
+
+    def prune(self) -> int:
+        """Drop the entries whose bound tensors died (their graphs and
+        pools are freed once nothing else holds them); returns how many.
+        Call under :data:`LOCK`."""
+        dead = [k for k, e in self._entries.items() if not e.alive()]
+        for k in dead:
+            del self._entries[k]
+        return len(dead)
 
 
 def _clone(tree):

@@ -104,6 +104,18 @@ def build_log(name: str) -> str:
     return target(sources()[name]).with_suffix(".log").read_text()
 
 
+def count(wrapper, n: int = 1) -> None:
+    """Count ``n`` launches of ``wrapper``'s kernel in ``wrapper.launches``
+    or, while a CUDA graph captures the current stream (the kernel is
+    recorded, not run), in ``wrapper.recorded``: each replay of the graph
+    adds what it recorded to ``launches`` (``repro_torch.core.programs``)."""
+    import torch
+    if torch.cuda.is_current_stream_capturing():
+        wrapper.recorded += n
+    else:
+        wrapper.launches += n
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
     lib = _loaded.get(name)

@@ -13,14 +13,24 @@
 // long).  I/O is fp32 or bf16; scores, softmax statistics and P @ V are
 // fp32.
 //
+// kv_len comes in one of two ways.  decode_attention_{f32,bf16} take it by
+// value: the split follows it and the TMA maps end at row kv_len, so rows
+// past it load as zeros.  decode_attention_dev_{f32,bf16} read it from
+// device memory (an int32 the graph of a decode step writes, one launch
+// for every position): the split and the maps follow the cache's length
+// S, and a split that starts at or past kv_len holds no key.  Rows past
+// kv_len then hold a slot's stale keys and values, which must be finite:
+// their scores become -1e30 and their probabilities 0, so they add
+// exactly nothing.
+//
 // What bounds it: bytes.  At yi-6b's shapes (Hkv = 4, G = 8, D = 128) and
 // kv_len = 4096, one call reads 2 * 4 * 4096 * 128 * 2 B = 8.4 MB of bf16
 // K/V (2.5 us at 3.35 TB/s) for 67 MFLOP.  The Pallas kernel walks the
 // keys of one (b, KV head) in order on one core; here they are split over
 // n_splits <= 16 blocks that form one thread block cluster, so the card
 // fills at B = 1.  A block's 8 warps each keep an online softmax (m, l,
-// acc) over their share of the block's keys; keys at or past kv_len are
-// never read.  Keys and values arrive as TMA boxes into a 2-stage ring
+// acc) over their share of the block's keys; keys at or past kv_len
+// weigh 0.  Keys and values arrive as TMA boxes into a 2-stage ring
 // of swizzled shared memory (Ring); the types differ in the arithmetic
 // of a step:
 //
@@ -269,8 +279,8 @@ struct WarpF32 {
   }
 
   // keys [c0, c0 + 8): rows row0 ... row0 + 7 of the key and value tiles
-  // at ks and vs (shared addresses); rows past kv_len hold zeros (the
-  // TMA's fill), the others finite values
+  // at ks and vs (shared addresses); every row finite (past kv_len the
+  // TMA's zeros or stale values, masked)
   __device__ __forceinline__ void step(uint32_t ks, uint32_t vs, int row0,
                                        int c0, int k_end, float sm_scale,
                                        Smem<D, GP>& sm, int warp) {
@@ -455,8 +465,8 @@ struct WarpBf16 {
   }
 
   // keys [c0, c0 + 16): rows row0 ... row0 + 15 of the key and value
-  // tiles at ks and vs (shared addresses); rows past kv_len hold zeros
-  // (the TMA's fill), the others finite values
+  // tiles at ks and vs (shared addresses); every row finite (past kv_len
+  // the TMA's zeros or stale values, masked)
   __device__ __forceinline__ void step(uint32_t ks, uint32_t vs, int row0,
                                        int c0, int k_end, float sm_scale) {
     const int mi = lane >> 3, row = row0 + 8 * (mi >> 1) + (lane & 7);
@@ -574,9 +584,9 @@ template <typename T, int D, int GP>
 __global__ void __launch_bounds__(kThreads, 1)
 decode_kernel(const __grid_constant__ CUtensorMap map_k,
               const __grid_constant__ CUtensorMap map_v,
-              const T* __restrict__ q, T* __restrict__ o, int group,
-              int kv_len, int n_splits, int split_keys, float sm_scale,
-              int bk0) {
+              const T* __restrict__ q, T* __restrict__ o,
+              const int* __restrict__ kv_len_dev, int group, int kv_len_arg,
+              int n_splits, int split_keys, float sm_scale, int bk0) {
   constexpr bool kMma = sizeof(T) == 2;
   using W = Warp<T, D, GP>;
   __shared__ __align__(16) Smem<D, GP> sm;
@@ -597,6 +607,7 @@ decode_kernel(const __grid_constant__ CUtensorMap map_k,
   const int split = blockIdx.x;         // == rank in the cluster
   const int bk = bk0 + blockIdx.y;      // b * Hkv + KV head
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int kv_len = kv_len_dev != nullptr ? __ldg(kv_len_dev) : kv_len_arg;
   const int k_begin = split * split_keys;
   const int k_end = min(kv_len, k_begin + split_keys);
   const T* qp = q + (size_t)bk * group * D;
@@ -785,14 +796,15 @@ PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
   return fn;
 }
 
-// A 3-D map over (D, kv_len, B * Hkv) of the cache (rows seq apart per
+// A 3-D map over (D, rows, B * Hkv) of the cache (rows seq apart per
 // head), boxes of (kAtom, 64, 1), swizzled as Ring::at reads them: a box
-// that runs past kv_len reads zeros, not the keys past it.
+// that runs past `rows` (kv_len, or seq when kv_len is read on the
+// device) reads zeros, not the keys past it.
 template <typename T, int D, int GP>
-bool tensor_map(CUtensorMap* map, const void* ptr, int kv_len, int seq,
+bool tensor_map(CUtensorMap* map, const void* ptr, int rows, int seq,
                 int heads) {
   using R = typename Warp<T, D, GP>::R;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)kv_len,
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
                               (cuuint64_t)heads};
   const cuuint64_t strides[2] = {(cuuint64_t)D * sizeof(T),
                                  (cuuint64_t)seq * D * sizeof(T)};  // bytes
@@ -813,16 +825,18 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int kv_len, int seq,
 
 template <typename T, int D, int GP>
 int launch_g(const void* q, const void* k, const void* v, void* o,
-             int batch, int n_kv, int group, int seq, int kv_len,
-             int n_splits, int split_keys, float sm_scale, void* stream) {
+             const int* kv_len_dev, int batch, int n_kv, int group, int seq,
+             int kv_len, int n_splits, int split_keys, float sm_scale,
+             void* stream) {
   auto kernel = decode_kernel<T, D, GP>;
   constexpr int slots = Slots<D, GP>::kFloats * 4 + 1024;
   constexpr int ring = Warp<T, D, GP>::R::kSmem;
   constexpr int smem = ring > slots ? ring : slots;
   if (encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap map_k, map_v;
-  if (!tensor_map<T, D, GP>(&map_k, k, kv_len, seq, batch * n_kv) ||
-      !tensor_map<T, D, GP>(&map_v, v, kv_len, seq, batch * n_kv))
+  const int rows = kv_len_dev != nullptr ? seq : kv_len;
+  if (!tensor_map<T, D, GP>(&map_k, k, rows, seq, batch * n_kv) ||
+      !tensor_map<T, D, GP>(&map_v, v, rows, seq, batch * n_kv))
     return (int)cudaErrorInvalidValue;
   // the > 48 KB of dynamic shared memory and clusters past 8 blocks are
   // opted in once per device and kernel (the attributes are per device)
@@ -852,12 +866,13 @@ int launch_g(const void* q, const void* k, const void* v, void* o,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   // b * Hkv on grid y, in slices of at most 65535, a launch each
-  const int rows = batch * n_kv;
-  for (int bk0 = 0; bk0 < rows; bk0 += kMaxGridY) {
+  const int heads = batch * n_kv;
+  for (int bk0 = 0; bk0 < heads; bk0 += kMaxGridY) {
     cfg.gridDim = dim3((unsigned)n_splits,
-                       (unsigned)min(kMaxGridY, rows - bk0));
+                       (unsigned)min(kMaxGridY, heads - bk0));
     cudaLaunchKernelEx(&cfg, kernel, map_k, map_v, (const T*)q, (T*)o,
-                       group, kv_len, n_splits, split_keys, sm_scale, bk0);
+                       kv_len_dev, group, kv_len, n_splits, split_keys,
+                       sm_scale, bk0);
     rc = (int)cudaGetLastError();
     if (rc != 0) return rc;
   }
@@ -866,36 +881,42 @@ int launch_g(const void* q, const void* k, const void* v, void* o,
 
 template <typename T, int D>
 int launch_d(const void* q, const void* k, const void* v, void* o,
-             int batch, int n_kv, int group, int seq, int kv_len,
-             int n_splits, int split_keys, float sm_scale, void* stream) {
+             const int* kv_len_dev, int batch, int n_kv, int group, int seq,
+             int kv_len, int n_splits, int split_keys, float sm_scale,
+             void* stream) {
   if (group <= 8)
-    return launch_g<T, D, 8>(q, k, v, o, batch, n_kv, group, seq, kv_len,
-                             n_splits, split_keys, sm_scale, stream);
-  return launch_g<T, D, 16>(q, k, v, o, batch, n_kv, group, seq, kv_len,
-                            n_splits, split_keys, sm_scale, stream);
+    return launch_g<T, D, 8>(q, k, v, o, kv_len_dev, batch, n_kv, group, seq,
+                             kv_len, n_splits, split_keys, sm_scale, stream);
+  return launch_g<T, D, 16>(q, k, v, o, kv_len_dev, batch, n_kv, group, seq,
+                            kv_len, n_splits, split_keys, sm_scale, stream);
 }
 
+// kv_len_dev null: kv_len is the host's; else the kernel reads it there
+// and the split must cover all seq rows
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int batch,
-           int n_kv, int group, int seq, int kv_len, int head_dim,
-           int n_splits, int split_keys, float sm_scale, void* stream) {
-  if (group < 1 || group > 16 || kv_len < 1 || kv_len > seq ||
+int launch(const void* q, const void* k, const void* v, void* o,
+           const int* kv_len_dev, int batch, int n_kv, int group, int seq,
+           int kv_len, int head_dim, int n_splits, int split_keys,
+           float sm_scale, void* stream) {
+  const int covered = kv_len_dev != nullptr ? seq : kv_len;
+  if (group < 1 || group > 16 || covered < 1 || covered > seq ||
       n_splits < 1 || n_splits > kMaxSplits || split_keys < 1 ||
-      (long long)n_splits * split_keys < kv_len)
+      (long long)n_splits * split_keys < covered)
     return (int)cudaErrorInvalidValue;
   switch (head_dim) {
     case 16:
-      return launch_d<T, 16>(q, k, v, o, batch, n_kv, group, seq, kv_len,
-                             n_splits, split_keys, sm_scale, stream);
+      return launch_d<T, 16>(q, k, v, o, kv_len_dev, batch, n_kv, group, seq,
+                             kv_len, n_splits, split_keys, sm_scale, stream);
     case 32:
-      return launch_d<T, 32>(q, k, v, o, batch, n_kv, group, seq, kv_len,
-                             n_splits, split_keys, sm_scale, stream);
+      return launch_d<T, 32>(q, k, v, o, kv_len_dev, batch, n_kv, group, seq,
+                             kv_len, n_splits, split_keys, sm_scale, stream);
     case 64:
-      return launch_d<T, 64>(q, k, v, o, batch, n_kv, group, seq, kv_len,
-                             n_splits, split_keys, sm_scale, stream);
+      return launch_d<T, 64>(q, k, v, o, kv_len_dev, batch, n_kv, group, seq,
+                             kv_len, n_splits, split_keys, sm_scale, stream);
     case 128:
-      return launch_d<T, 128>(q, k, v, o, batch, n_kv, group, seq, kv_len,
-                              n_splits, split_keys, sm_scale, stream);
+      return launch_d<T, 128>(q, k, v, o, kv_len_dev, batch, n_kv, group,
+                              seq, kv_len, n_splits, split_keys, sm_scale,
+                              stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -908,9 +929,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
 // launched).  Block s of a (b, KV head) takes the keys
 // [s * split_keys, min(kv_len, (s + 1) * split_keys)); the n_splits <= 16
 // blocks of a (b, KV head) form one cluster.  The caller guarantees
-// 0 < kv_len <= seq, n_splits * split_keys >= kv_len, 1 <= group <= 16,
-// head_dim in {16, 32, 64, 128}, contiguous 16-byte-aligned tensors of one
-// dtype.
+// 0 < kv_len <= seq, n_splits * split_keys >= kv_len (>= seq for the
+// _dev_ launchers), 1 <= group <= 16, head_dim in {16, 32, 64, 128},
+// contiguous 16-byte-aligned tensors of one dtype.
 // The kernel's TMA box rows and largest cluster, which the wrapper's
 // split policy assumes.
 extern "C" void decode_attention_limits(int* box_rows, int* max_splits) {
@@ -924,8 +945,8 @@ extern "C" int decode_attention_f32(const void* q, const void* k,
                                     int head_dim, int n_splits,
                                     int split_keys, float sm_scale,
                                     void* stream) {
-  return launch<float>(q, k, v, o, batch, n_kv, group, seq, kv_len, head_dim,
-                       n_splits, split_keys, sm_scale, stream);
+  return launch<float>(q, k, v, o, nullptr, batch, n_kv, group, seq, kv_len,
+                       head_dim, n_splits, split_keys, sm_scale, stream);
 }
 
 extern "C" int decode_attention_bf16(const void* q, const void* k,
@@ -934,7 +955,32 @@ extern "C" int decode_attention_bf16(const void* q, const void* k,
                                      int kv_len, int head_dim, int n_splits,
                                      int split_keys, float sm_scale,
                                      void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, batch, n_kv, group, seq, kv_len,
-                               head_dim, n_splits, split_keys, sm_scale,
+  return launch<__nv_bfloat16>(q, k, v, o, nullptr, batch, n_kv, group, seq,
+                               kv_len, head_dim, n_splits, split_keys,
+                               sm_scale, stream);
+}
+
+// The same with kv_len read from device memory (one int32, 0 < *kv_len <=
+// seq, which the caller guarantees); n_splits * split_keys >= seq.
+extern "C" int decode_attention_dev_f32(const void* q, const void* k,
+                                        const void* v, void* o,
+                                        const int* kv_len, int batch,
+                                        int n_kv, int group, int seq,
+                                        int head_dim, int n_splits,
+                                        int split_keys, float sm_scale,
+                                        void* stream) {
+  return launch<float>(q, k, v, o, kv_len, batch, n_kv, group, seq, 0,
+                       head_dim, n_splits, split_keys, sm_scale, stream);
+}
+
+extern "C" int decode_attention_dev_bf16(const void* q, const void* k,
+                                         const void* v, void* o,
+                                         const int* kv_len, int batch,
+                                         int n_kv, int group, int seq,
+                                         int head_dim, int n_splits,
+                                         int split_keys, float sm_scale,
+                                         void* stream) {
+  return launch<__nv_bfloat16>(q, k, v, o, kv_len, batch, n_kv, group, seq,
+                               0, head_dim, n_splits, split_keys, sm_scale,
                                stream);
 }

@@ -5,8 +5,16 @@ raises; on CPU tensors it runs the plain version
 (:func:`decode_attention_ref`).  The keys of each (b, KV head) are split
 over the blocks of one thread block cluster by :func:`decode_split`,
 from the card's SM count; the blocks merge through shared memory, so the
-call needs no scratch memory.  It never pads: the kernel reads only the
-first ``kv_len`` keys of the cache.  Inference only.
+call needs no scratch memory.  It never pads.  Inference only.
+
+``kv_len`` is a host int or a 0-d integer tensor on the inputs' device.
+A host int sets the split, and the kernel reads only the first
+``kv_len`` keys.  A tensor is read by the kernel itself: the split
+follows the cache's length S, so the launch is the same at every
+position and a CUDA graph of a decode step replays it (the serving
+engine's); the keys past ``kv_len`` are then read and masked, and must
+be finite (a slot's stale keys are).  Launches are counted in
+``decode_attention.launches`` (``recorded`` while a graph captures).
 """
 from __future__ import annotations
 
@@ -19,7 +27,11 @@ from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 _SYMBOLS = {torch.float32: "decode_attention_f32",
             torch.bfloat16: "decode_attention_bf16"}
+_DEV_SYMBOLS = {torch.float32: "decode_attention_dev_f32",
+                torch.bfloat16: "decode_attention_dev_bf16"}
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+    ctypes.c_float, ctypes.c_void_p]
+_DEV_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
     ctypes.c_float, ctypes.c_void_p]
 HEAD_DIMS = (16, 32, 64, 128)     # the kernel's instantiations
 MAX_GROUP = 16                    # query heads per KV head
@@ -46,9 +58,9 @@ def decode_split(batch_heads: int, kv_len: int, n_sm: int) -> tuple[int, int]:
     return -(-kv_len // split_keys), split_keys
 
 
-def _launcher(dtype: torch.dtype):
+def _launcher(dtype: torch.dtype, device_len: bool = False):
     lib = _build.library("decode_attention")
-    fn = getattr(lib, _SYMBOLS[dtype])
+    fn = getattr(lib, (_DEV_SYMBOLS if device_len else _SYMBOLS)[dtype])
     if fn.argtypes is None:
         box, splits = ctypes.c_int(), ctypes.c_int()
         lib.decode_attention_limits(ctypes.byref(box), ctypes.byref(splits))
@@ -57,12 +69,12 @@ def _launcher(dtype: torch.dtype):
                 f"decode_attention kernel has a {box.value}-row box and "
                 f"clusters of {splits.value}; decode_split assumes "
                 f"{KEYS_PER_STEP} and {MAX_SPLITS}")
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = _DEV_ARGTYPES if device_len else _ARGTYPES
         fn.restype = ctypes.c_int
     return fn
 
 
-def _check(q, k, v, kv_len: int) -> None:
+def _check(q, k, v, kv_len) -> None:
     ts = (q, k, v)
     if any(t.requires_grad for t in ts):
         raise ValueError("decode_attention is inference-only: an input "
@@ -80,15 +92,25 @@ def _check(q, k, v, kv_len: int) -> None:
     if k.shape != (b, hkv, s, d) or hkv == 0 or h % hkv:
         raise ValueError(f"decode_attention shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}")
-    if not isinstance(kv_len, int) or not 0 < kv_len <= s:
+    if isinstance(kv_len, torch.Tensor):
+        if (kv_len.dim() or kv_len.dtype not in (torch.int32, torch.int64)
+                or kv_len.device != q.device):
+            raise ValueError(f"decode_attention takes kv_len as a host int "
+                             f"or a 0-d int32 or int64 tensor on "
+                             f"{q.device}, got "
+                             f"{kv_len.dtype} {tuple(kv_len.shape)} on "
+                             f"{kv_len.device}")
+    elif not isinstance(kv_len, int) or not 0 < kv_len <= s:
         raise ValueError(f"decode_attention needs an int 0 < kv_len <= {s}, "
                          f"got {kv_len!r}")
 
 
-def decode_attention(q, k, v, kv_len: int | None = None,
+def decode_attention(q, k, v, kv_len: int | torch.Tensor | None = None,
                      sm_scale: float | None = None):
     """One token against a cache: q (B, H, D); k, v (B, Hkv, S, D); keys
-    at positions >= ``kv_len`` (a host int, default S) are masked.
+    at positions >= ``kv_len`` are masked: a host int (default S), or a
+    0-d integer tensor on q's device with 0 < kv_len <= S, which the
+    kernel reads on the card (rows past it must then be finite).
     Returns (B, H, D) in q's dtype.  ``decode_attention.launches`` counts
     kernel launches, one per CUDA call up to B * Hkv = 65535 and one more
     per further 65535 (CPU calls do not count)."""
@@ -120,26 +142,38 @@ def decode_attention(q, k, v, kv_len: int | None = None,
     if dev not in _n_sm:
         _n_sm[dev] = torch.cuda.get_device_properties(
             dev).multi_processor_count
-    n_splits, split_keys = decode_split(b * hkv, kv_len, _n_sm[dev])
+    device_len = isinstance(kv_len, torch.Tensor)
+    n_splits, split_keys = decode_split(b * hkv, s if device_len else kv_len,
+                                        _n_sm[dev])
     _launch(q, k, v, out, kv_len, sm_scale, n_splits, split_keys)
     return out
 
 
-def _launch(q, k, v, out, kv_len: int, sm_scale: float | None,
+def _launch(q, k, v, out, kv_len, sm_scale: float | None,
             n_splits: int, split_keys: int) -> None:
     """The kernel on checked CUDA tensors, with the split given (the
-    on-card tests also force splits that hold no key)."""
+    on-card tests also force splits that hold no key); ``kv_len`` a host
+    int, or a 0-d tensor the kernel reads (the split then covers S)."""
     b, h, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
     scale = sm_scale if sm_scale is not None else d ** -0.5
-    rc = _launcher(q.dtype)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hkv,
-        h // hkv, s, kv_len, d, n_splits, split_keys, scale,
-        torch.cuda.current_stream().cuda_stream)
+    stream = torch.cuda.current_stream().cuda_stream
+    if isinstance(kv_len, torch.Tensor):
+        kv = kv_len.to(torch.int32)
+        rc = _launcher(q.dtype, device_len=True)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            kv.data_ptr(), b, hkv, h // hkv, s, d, n_splits, split_keys,
+            scale, stream)
+    else:
+        rc = _launcher(q.dtype)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+            hkv, h // hkv, s, kv_len, d, n_splits, split_keys, scale,
+            stream)
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {rc}")
-    decode_attention.launches += -(-(b * hkv) // _MAX_GRID_Y)
+    _build.count(decode_attention, -(-(b * hkv) // _MAX_GRID_Y))
 
 
 decode_attention.launches = 0
+decode_attention.recorded = 0

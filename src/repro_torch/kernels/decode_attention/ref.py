@@ -50,38 +50,45 @@ def bf16_rounding_excess(got, want32) -> float:
     return excess / max(mag.max().item(), 1e-30)
 
 
-def decode_attention_split_ref(q, k, v, *, kv_len: int, n_splits: int,
+def decode_attention_split_ref(q, k, v, *, kv_len, n_splits: int,
                                split_keys: int,
                                sm_scale: float | None = None):
     """The kernel's split and merge, in plain PyTorch: split s takes the
-    keys [s * split_keys, min(kv_len, (s + 1) * split_keys)) and keeps
-    (m, l, acc) = (max score, sum exp(s - m), sum exp(s - m) v); the splits
-    merge in split order, each weighed by exp(m_s - max m).  A split with
-    no key has m = -1e30, l = 0, acc = 0 and weighs 0.  The wrapper's
-    split is ``ops.decode_split``'s."""
+    keys [s * split_keys, min(S, (s + 1) * split_keys)), masks those at or
+    past ``kv_len`` (a host int or a 0-d tensor) and keeps (m, l, acc) =
+    (max valid score, sum exp(s - m), sum exp(s - m) v) over the rest; a
+    masked key weighs exactly 0, so its finite value adds nothing.  The
+    splits merge in split order, each weighed by exp(m_s - max m).  A split
+    with no valid key has m = -1e30, l = 0, acc = 0 and weighs 0.  The
+    wrapper's split is ``ops.decode_split``'s, over ``kv_len`` keys for a
+    host int and over all S for a tensor, whose splits past it hold no
+    valid key."""
     b, h, dq = q.shape
-    _, hkv, _, _ = k.shape
+    _, hkv, sk, _ = k.shape
     g = h // hkv
+    dev = q.device
     sm_scale = sm_scale if sm_scale is not None else dq ** -0.5
     qg = q.reshape(b, hkv, g, dq).float()
     parts = []
     for s in range(n_splits):
-        lo, hi = s * split_keys, min(kv_len, (s + 1) * split_keys)
+        lo, hi = s * split_keys, min(sk, (s + 1) * split_keys)
         if hi <= lo:
-            parts.append((torch.full((b, hkv, g), NEG_INF),
-                          torch.zeros(b, hkv, g),
-                          torch.zeros(b, hkv, g, v.shape[-1])))
+            parts.append((torch.full((b, hkv, g), NEG_INF, device=dev),
+                          torch.zeros(b, hkv, g, device=dev),
+                          torch.zeros(b, hkv, g, v.shape[-1], device=dev)))
             continue
+        valid = torch.arange(lo, hi, device=dev) < kv_len
         sc = torch.einsum("bhgd,bhkd->bhgk", qg,
                           k[:, :, lo:hi].float()) * sm_scale
+        sc = torch.where(valid, sc, NEG_INF)
         m = sc.amax(-1)
-        p = torch.exp(sc - m[..., None])
+        p = torch.where(valid, torch.exp(sc - m[..., None]), 0.0)
         parts.append((m, p.sum(-1),
                       torch.einsum("bhgk,bhkd->bhgd", p,
                                    v[:, :, lo:hi].float())))
     mx = torch.stack([m for m, _, _ in parts]).amax(0)
     den = torch.zeros_like(mx)
-    out = torch.zeros(b, hkv, g, v.shape[-1])
+    out = torch.zeros(b, hkv, g, v.shape[-1], device=dev)
     for m, l_s, acc in parts:
         f = torch.exp(m - mx)
         den = den + l_s * f

@@ -91,8 +91,8 @@ def _forward(q, k, v, causal: bool, sm_scale: float | None):
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc}")
-    flash_attention.launches += (1 if q.dtype == torch.bfloat16
-                                 else -(-(b * h) // _MAX_GRID_Y))
+    _build.count(flash_attention, 1 if q.dtype == torch.bfloat16
+                 else -(-(b * h) // _MAX_GRID_Y))
     return out
 
 
@@ -127,9 +127,11 @@ def flash_attention(q, k, v, causal: bool = True,
     in q, k and v (the backward is the plain version's).
     ``flash_attention.launches`` counts kernel launches, forward ones
     only, a recompute under ``torch.utils.checkpoint`` included (CPU
-    calls do not launch and do not count)."""
+    calls do not launch and do not count); ``flash_attention.recorded``
+    those recorded into a CUDA graph being captured."""
     _check(q, k, v)
     return _Flash.apply(q, k, v, causal, sm_scale)
 
 
 flash_attention.launches = 0
+flash_attention.recorded = 0

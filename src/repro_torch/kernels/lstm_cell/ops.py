@@ -95,10 +95,7 @@ def _launch(x, h, c, wx, wh, b):
         bsz, n_in, hid, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"lstm_cell kernel launch failed: CUDA error {rc}")
-    if torch.cuda.is_current_stream_capturing():
-        lstm_cell.recorded += 1
-    else:
-        lstm_cell.launches += 1
+    _build.count(lstm_cell)
     return h_out, c_out
 
 

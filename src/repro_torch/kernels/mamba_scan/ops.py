@@ -114,7 +114,7 @@ def _launch(u, delta, a, b, c, skip, keep_states: bool,
         raise RuntimeError(f"mamba_scan kernel launch failed: CUDA error "
                            f"{rc}")
     # the serving variant counts apart from the training scan
-    (mamba_scan_with_state if keep_last else mamba_scan).launches += 1
+    _build.count(mamba_scan_with_state if keep_last else mamba_scan)
     return y, states, last
 
 
@@ -151,7 +151,7 @@ def mamba_scan_bwd(u, delta, a, b, c, skip, g, states):
     if rc != 0:
         raise RuntimeError(f"mamba_scan backward kernel launch failed: CUDA "
                            f"error {rc}")
-    mamba_scan_bwd.launches += BWD_LAUNCHES_PER_CALL
+    _build.count(mamba_scan_bwd, BWD_LAUNCHES_PER_CALL)
     return grads
 
 
@@ -217,6 +217,6 @@ def mamba_scan_with_state(u, delta, a, b, c, skip):
     return y, last
 
 
-mamba_scan.launches = 0
-mamba_scan_bwd.launches = 0
-mamba_scan_with_state.launches = 0
+mamba_scan.launches = mamba_scan.recorded = 0
+mamba_scan_bwd.launches = mamba_scan_bwd.recorded = 0
+mamba_scan_with_state.launches = mamba_scan_with_state.recorded = 0

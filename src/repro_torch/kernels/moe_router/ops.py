@@ -76,7 +76,7 @@ def _forward(logits, k: int):
     if rc != 0:
         raise RuntimeError(f"moe_router kernel launch failed: CUDA error "
                            f"{rc}")
-    moe_router.launches += 1
+    _build.count(moe_router)
     return w, idx
 
 
@@ -107,9 +107,11 @@ def moe_router(logits, k: int):
     token the k largest softmax probabilities, renormalised to sum to 1,
     in descending order, the lower expert index first on ties.  The
     weights are differentiable in the logits.  ``moe_router.launches``
-    counts kernel launches (CPU calls do not count)."""
+    counts kernel launches (CPU calls do not count), ``moe_router.recorded``
+    those recorded into a CUDA graph being captured."""
     _check(logits, k)
     return _Router.apply(logits, k)
 
 
 moe_router.launches = 0
+moe_router.recorded = 0

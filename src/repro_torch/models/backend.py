@@ -22,8 +22,10 @@ def attention(q, k, v, *, causal: bool = True):
     return _flash_kernel(q, k, v, causal)
 
 
-def decode_attention(q, k, v, *, kv_len: int):
-    """q (B, H, D); k, v (B, Hkv, S, D); the first ``kv_len`` keys."""
+def decode_attention(q, k, v, *, kv_len):
+    """q (B, H, D); k, v (B, Hkv, S, D); the first ``kv_len`` keys: a host
+    int, or a 0-d integer tensor that the kernel reads on the card (a
+    decode step's graph replays at every position)."""
     return _decode_kernel(q, k, v, kv_len=kv_len)
 
 

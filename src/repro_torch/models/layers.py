@@ -158,17 +158,32 @@ def attn_prefill(p: dict, cfg: ModelConfig, x, cos, sin, *,
     return out, {"k": kc, "v": vc}
 
 
-def attn_decode(p: dict, cfg: ModelConfig, x, cache: dict, pos: int,
+def write_at(cache, dim: int, pos, x) -> None:
+    """``cache``'s slice ``pos`` along ``dim`` set to ``x`` (its shape less
+    that dim), in place.  ``pos`` is a host int or a 0-d integer tensor
+    (JAX's traced scalar), written through ``index_copy_`` with a one-
+    element index on the device: no value comes to the host, so a CUDA
+    graph of the decode step replays it at any position."""
+    if isinstance(pos, torch.Tensor):
+        cache.index_copy_(dim, pos.reshape(1),
+                          x.unsqueeze(dim).to(cache.dtype))
+    else:
+        cache.select(dim, pos).copy_(x)
+
+
+def attn_decode(p: dict, cfg: ModelConfig, x, cache: dict, pos,
                 cos_t, sin_t):
     """One-token decode. x: (B, 1, d); cache k/v: (B, Hkv, S, hd), written
-    in place at ``pos`` (a host int; the JAX package returns an updated
-    copy, the values are the same); cos_t/sin_t: (1, hd/2) at pos."""
+    in place at ``pos`` (a host int or a 0-d integer tensor, JAX's scalar;
+    the JAX package returns an updated copy, the values are the same);
+    cos_t/sin_t: (1, hd/2) at pos.  The decode kernel takes ``kv_len =
+    pos + 1`` in the same form: a tensor it reads on the device."""
     b = x.shape[0]
     q, k, v = _qkv(p, cfg, x)
     q = apply_rope(q, cos_t, sin_t)[:, 0]          # (B, H, hd)
     k = apply_rope(k, cos_t, sin_t)[:, 0]          # (B, Hkv, hd)
-    cache["k"][:, :, pos] = k
-    cache["v"][:, :, pos] = v[:, 0]
+    write_at(cache["k"], 2, pos, k)
+    write_at(cache["v"], 2, pos, v[:, 0])
     o = backend.decode_attention(q.contiguous(), cache["k"], cache["v"],
                                  kv_len=pos + 1)
     out = o.reshape(b, 1, -1) @ p["wo"]
@@ -242,16 +257,17 @@ def mla_prefill(p: dict, cfg: ModelConfig, x, cos, sin):
     return out, {"c_kv": c_kv, "k_rope": k_rope[:, :, 0]}
 
 
-def mla_decode(p: dict, cfg: ModelConfig, x, cache: dict, pos: int,
+def mla_decode(p: dict, cfg: ModelConfig, x, cache: dict, pos,
                cos_t, sin_t):
     """Absorbed-matrix decode entirely in latent space (DeepSeek-V2 §MLA):
     scores_h,s = <W_UK_h^T q_nope_h, c_s> + <q_rope_h, k_rope_s>;
     out_h = W_UV_h (sum_s p_s c_s).  The cache {c_kv: (B, S, dc),
-    k_rope: (B, S, dr)} is written in place at ``pos`` (a host int) along
-    axis 1.  The absorbed products run in fp32 as JAX's einsums do, the
-    attention through ``decode_attention_ref`` (the plain function, as
-    JAX: one latent "KV head" of dc + dr dims for all H query heads is no
-    shape of the decode kernel), and the output is cast to x's dtype."""
+    k_rope: (B, S, dr)} is written in place at ``pos`` (a host int or a
+    0-d integer tensor) along axis 1.  The absorbed products run in fp32
+    as JAX's einsums do, the attention through ``decode_attention_ref``
+    (the plain function, as JAX: one latent "KV head" of dc + dr dims for
+    all H query heads is no shape of the decode kernel; its mask takes a
+    tensor ``kv_len``), and the output is cast to x's dtype."""
     b = x.shape[0]
     h = cfg.n_heads
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
@@ -261,8 +277,8 @@ def mla_decode(p: dict, cfg: ModelConfig, x, cache: dict, pos: int,
     kv = (x @ p["wkv_a"])[:, 0]
     c_t = rms_norm(p["kv_norm"], kv[..., :dc], cfg.norm_eps)
     kr_t = apply_rope(kv[:, None, None, dc:], cos_t, sin_t)[:, 0, 0]
-    cache["c_kv"][:, pos] = c_t
-    cache["k_rope"][:, pos] = kr_t
+    write_at(cache["c_kv"], 1, pos, c_t)
+    write_at(cache["k_rope"], 1, pos, kr_t)
     c_kv, k_rope = cache["c_kv"], cache["k_rope"]
     # absorb W_UK into q:  q_lat (B, H, dc)
     wkv_b = p["wkv_b"].reshape(dc, h, dn + dv)

@@ -506,10 +506,12 @@ class Model:
         x = L.rms_norm(params["ln_f"], x, cfg.norm_eps)
         return self._logits(params, x[:, -1:]), caches
 
-    def decode_step(self, params, caches, tokens, pos: int):
-        """tokens: (B, 1) int; pos: host int, the current position.
-        Returns (logits (B, 1, V) fp32, caches), the caches updated in
-        place."""
+    def decode_step(self, params, caches, tokens, pos):
+        """tokens: (B, 1) int; pos: the current position, a host int or a
+        0-d integer tensor on the params' device (JAX's traced scalar:
+        nothing of it comes to the host, so a CUDA graph of the step
+        replays at any position; ``serve/programs.py``).  Returns (logits
+        (B, 1, V) fp32, caches), the caches updated in place."""
         cfg = self.cfg
         x = params["embed"][tokens].to(cfg.dtype)
         cos_t, sin_t = self._rope_at(pos, x.device)
@@ -538,11 +540,12 @@ class Model:
     def _rope_dim(self) -> int:
         return self.cfg.qk_rope_dim if self.cfg.use_mla else self.cfg.hd
 
-    def _rope_at(self, pos: int, device=None):
+    def _rope_at(self, pos, device=None):
         dim = self._rope_dim()
         inv = 1.0 / (self.cfg.rope_theta
                      ** (torch.arange(0, dim, 2, dtype=torch.float32,
                                       device=device) / dim))
-        f = float(pos) * inv
+        f = (pos.float() if isinstance(pos, torch.Tensor)
+             else float(pos)) * inv
         return torch.cos(f)[None], torch.sin(f)[None]
 

@@ -1,21 +1,25 @@
 """Mixture-of-Experts layer on one device: the JAX package's
 ``models/moe.py`` (top-k softmax router, sort-based capacity dispatch,
-SwiGLU experts, weighted combine), computed on the routed rows only.
+SwiGLU experts, weighted combine), with its static shapes: no value
+comes to the host, so a CUDA graph of a decode step replays it.
 
-The JAX ``grouped_ffn`` scatters the copies into an (E, C, d) buffer and
-runs every expert over all C slots.  At inference C is the token count
-rounded up to 8 (dropless), so that is 16x the routed products at
-qwen3's prefill and all 128 experts' weights read for every decoded
-token.  Here the same copies are kept and dropped (the first C of each
-expert in a stable sort by expert, as ``jnp.argsort`` orders them) and
-each expert's kept rows go through one ``torch.matmul`` each.  The
-per-expert counts come to the host once per layer to cut the rows.
+The dispatch is JAX's ``grouped_ffn``: a stable sort of the copies by
+expert, each expert's first copy found by ``searchsorted``, a copy kept
+while its place in its expert is below the capacity C, the kept copies
+scattered into an (E, C, d) buffer that batched products run the experts
+over.  Where the copies are no more than the experts (T k <= E: every
+decoded token, the engine decoding one at a time), that layout would
+read every expert's weights for a few rows (qwen3: 1.2 GB a layer for
+one token), so there each copy's expert weights are gathered instead
+(``index_select``, a static (T k, d, f)) and its rows multiplied alone;
+the values are those of the buffer's rows, the dropped copies masked
+the same way.
 
 The combine adds a token's k weighted copies in the order the JAX
 ``.at[tok].add`` applies them, sorted by expert and rounded to the
 activation dtype after each add, so bf16 rounds where JAX's does.
 (``index_add_`` on the card adds with atomics, in an order that changes
-from run to run.)
+from run to run, and a replay would differ from the eager step.)
 
 Training (``inference=False``, JAX's default) keeps each expert's first
 ``_capacity(T, E, k, capacity_factor)`` copies and drops the rest; the
@@ -182,40 +186,43 @@ def grouped_ffn(x, idx, w, wg, wu, wd, capacity: int, valid=None,
     (all valid).  Each expert keeps its first ``capacity`` copies in a
     stable sort by expert; the rest are dropped.  An invalid copy sorts
     as expert E, after every valid one, takes no capacity and adds zero.
-    ``offsets`` (E host ints, default 0): copies of each expert that
-    other processes' tokens, earlier in the global order, already put
-    before these (they count against its capacity).  Returns (T, d)."""
+    ``offsets`` ((E,) integer tensor on x's device, default 0): copies of
+    each expert that other processes' tokens, earlier in the global
+    order, already put before these (they count against its capacity).
+    Static shapes throughout, no host read.  Returns (T, d)."""
     t, d = x.shape
     k = idx.shape[1]
     e = wg.shape[0]
+    c = capacity
+    n = t * k
     flat_e = idx.reshape(-1).long()
     if valid is not None:
         flat_e = torch.where(valid.reshape(-1), flat_e, e)
-    _, order = torch.sort(flat_e, stable=True)
-    counts = torch.bincount(flat_e, minlength=e + 1).tolist()
+    sorted_e, order = torch.sort(flat_e, stable=True)
+    starts = torch.searchsorted(sorted_e, torch.arange(e + 1,
+                                                       device=x.device))
+    pos_in_e = torch.arange(n, device=x.device) - starts[sorted_e]
+    if offsets is not None:
+        pos_in_e = pos_in_e + torch.cat(
+            [offsets.to(pos_in_e), pos_in_e.new_zeros(1)])[sorted_e]
+    keep = (pos_in_e < c) & (sorted_e < e)
     tok = order // k
     xs = x[tok]                          # the copies, sorted by expert
-    pieces = []
-    # split and unbind, not an index per expert: an index's backward
-    # would fill and add a gradient the size of all the copies (or of a
-    # whole expert stack) for every expert
-    offsets = offsets if offsets is not None else [0] * e
-    for xe, n, off, g, u, dn in zip(xs.split(counts), counts, offsets,
-                                    wg.unbind(0), wu.unbind(0),
-                                    wd.unbind(0)):
-        if n == 0:
-            continue
-        kept = min(n, max(capacity - off, 0))
-        if kept == 0:
-            pieces.append(xs.new_zeros(n, d))
-            continue
-        xe = xe[:kept]
-        pieces.append((silu(xe @ g) * (xe @ u)) @ dn)
-        if kept < n:                     # dropped copies add zero
-            pieces.append(xs.new_zeros(n - kept, d))
-    if counts[e]:                        # invalid copies add zero
-        pieces.append(xs.new_zeros(counts[e], d))
-    y = torch.cat(pieces) * w.reshape(-1)[order][:, None]
+    if n <= e:
+        # each copy through its own expert's gathered weights
+        ex = sorted_e.clamp(max=e - 1)
+        xr = xs[:, None]
+        h = silu(torch.bmm(xr, wg.index_select(0, ex))) \
+            * torch.bmm(xr, wu.index_select(0, ex))
+        y = torch.bmm(h, wd.index_select(0, ex))[:, 0]
+    else:
+        slot = torch.where(keep, sorted_e * c + pos_in_e, e * c)
+        buf = x.new_zeros(e * c + 1, d).index_copy(0, slot, xs)
+        xe = buf[:e * c].view(e, c, d)
+        h = silu(torch.bmm(xe, wg)) * torch.bmm(xe, wu)
+        ye = torch.bmm(h, wd).view(e * c, d)
+        y = ye[slot.clamp(max=e * c - 1)]
+    y = torch.where(keep[:, None], y, 0.0) * w.reshape(-1)[order][:, None]
     # regroup by token (stable: each token's copies stay in expert order)
     _, by_tok = torch.sort(tok, stable=True)
     y = y[by_tok].view(t, k, d)
@@ -286,14 +293,14 @@ def moe_apply(p: dict, cfg: ModelConfig, x, ep: EPContext | None = None,
     return out
 
 
-def _dp_offsets(idx, n_experts: int, ep: EPContext) -> list[int]:
+def _dp_offsets(idx, n_experts: int, ep: EPContext):
     """Per expert, the copies routed to it by the dp processes before this
-    one (one all-gather of the (E,) counts over the dp group)."""
+    one, an (E,) tensor on idx's device (one all-gather of the (E,)
+    counts over the dp group)."""
     counts = torch.bincount(idx.reshape(-1).long(), minlength=n_experts)
     every = [torch.empty_like(counts) for _ in range(ep.dp_size)]
     dist.all_gather(every, counts, group=ep.dp_group)
-    before = sum(every[:ep.dp_rank], torch.zeros_like(counts))
-    return before.tolist()
+    return sum(every[:ep.dp_rank], torch.zeros_like(counts))
 
 
 def aux_load_balance_loss(p: dict, cfg: ModelConfig, x):

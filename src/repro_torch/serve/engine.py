@@ -2,12 +2,19 @@
 straggler re-dispatch, in PyTorch.
 
 The engine runs a fixed set of slots.  Requests queue in; a free slot
-prefills its request (one ``flash_attention`` launch per attention layer
-on the card, one ``mamba_scan_with_state`` per SSM layer), pads the
-caches to ``max_len`` once, and joins the decode loop, which decodes
-every active slot one token per step (one ``decode_attention`` call per
-attention layer, writing the cache in place at the slot's position; an
-SSM layer steps its recurrent state in place).  START integration:
+prefills its request eagerly (one ``flash_attention`` launch per
+attention layer on the card, one ``mamba_scan_with_state`` per SSM
+layer), copies the caches into the slot's own static caches (allocated
+at ``max_len`` with zeros once, the encoder's states and the recurrent
+states included), and joins the decode loop, which decodes every active
+slot one token per step through the compiled ``decode_step``
+(``serve/programs.py``, JAX's ``jax.jit(model.decode_step)``): one copy
+of the token and the position into the slot's entry, one replay of the
+slot's CUDA graph (captured at the slot's first step; one capture a slot
+until ``release``), the logits read by the greedy argmax.  The graph
+replays one ``decode_attention`` launch per attention layer, which
+reads the position on the device and writes the cache in place; an SSM
+layer steps its recurrent state in place.  START integration:
 per-slot decode latency telemetry feeds the port's
 ``STARTController``; slots whose replica is a predicted
 straggler are speculatively re-dispatched to the healthiest replica —
@@ -23,8 +30,10 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import programs
 from repro_torch.models.lm import Model
-from repro_torch.serve.kv_cache import SlotManager, pad_to_length
+from repro_torch.serve.kv_cache import SlotManager, load_into, zeros_padded
+from repro_torch.serve.programs import DECODE_STEP, decode_step
 
 
 @dataclasses.dataclass
@@ -58,6 +67,7 @@ class Engine:
         self.queue: deque[Request] = deque()
         self.done: list[Request] = []
         self._state: dict[int, dict] = {}  # slot -> {caches, pos, req, last}
+        self._caches: dict[int, list] = {}   # slot -> its static caches
         self.on_step = on_step
 
     # ------------------------------ intake --------------------------------
@@ -72,14 +82,27 @@ class Engine:
             slot = self.slots.assign(req.req_id)
             toks = torch.as_tensor(np.asarray(req.tokens), dtype=torch.long,
                                    device=self.device)[None]
-            logits, caches = self.model.prefill(self.params,
-                                                {"tokens": toks})
-            caches = pad_to_length(caches, self.cfg.max_len)
+            logits, caches = self._prefill(toks)
             nxt = self._sample(logits)
             req.out.append(int(nxt[0, 0]))
             self._state[slot] = {
-                "caches": caches, "pos": len(req.tokens), "req": req,
-                "last": nxt}
+                "caches": self._load(slot, caches), "pos": len(req.tokens),
+                "req": req, "last": nxt}
+
+    def _prefill(self, toks):
+        return self.model.prefill(self.params, {"tokens": toks})
+
+    def _load(self, slot: int, caches) -> list:
+        """The slot's static caches with the prefill's ``caches`` copied
+        in; allocated at ``max_len`` on the slot's first use (again only if
+        a request's cache shapes differ)."""
+        buf = self._caches.get(slot)
+        if buf is None or programs.signature(buf) != programs.signature(
+                zeros_padded(caches, self.cfg.max_len, "meta")):
+            buf = self._caches[slot] = zeros_padded(caches,
+                                                    self.cfg.max_len)
+        load_into(buf, caches)
+        return buf
 
     def _sample(self, logits):
         if self.cfg.greedy:
@@ -95,10 +118,7 @@ class Engine:
         active = list(self._state.items())
         for slot, st in active:
             t0 = time.perf_counter()
-            logits, caches = self.model.decode_step(
-                self.params, st["caches"], st["last"].reshape(1, 1),
-                st["pos"])
-            st["caches"] = caches
+            logits = self._decode(slot, st)
             st["pos"] += 1
             nxt = self._sample(logits)
             st["last"] = nxt
@@ -113,6 +133,20 @@ class Engine:
                 self.slots.release(slot)
                 del self._state[slot]
         return len(self._state)
+
+    def _decode(self, slot: int, st: dict):
+        """One token of ``slot`` through its compiled step: the logits."""
+        return decode_step(self.model, self.params, st["caches"],
+                           st["last"].reshape(1, 1), st["pos"])
+
+    def release(self) -> None:
+        """Drop the idle slots' static caches, and with them their
+        compiled steps (graphs and memory pools); a slot allocates and
+        captures again at its next request."""
+        for slot in [s for s in self._caches if s not in self._state]:
+            del self._caches[slot]
+        with programs.LOCK:
+            DECODE_STEP.prune()
 
     def run(self, max_iters: int = 10_000) -> list[Request]:
         it = 0

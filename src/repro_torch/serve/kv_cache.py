@@ -11,7 +11,10 @@ states, which have no seq axis to pad).  This module allocates them at a
 fixed max length, which decode then writes in place at each position,
 and keeps the slot bookkeeping for continuous batching: each batch row is
 a slot that can be re-assigned to a new request when its sequence
-finishes.
+finishes.  The engine gives each slot static caches at the max length
+(:func:`zeros_padded`, once) and copies every admitted request's prefill
+caches into them (:func:`load_into`), so the slot's captured decode step
+reads the same addresses request after request.
 """
 from __future__ import annotations
 
@@ -43,6 +46,44 @@ def alloc_like(cache_specs, batch: int | None = None):
         return f(node, ax)
 
     return walk(cache_specs)
+
+
+def zeros_padded(caches, target_len: int, device=None):
+    """Zero caches of the shapes ``pad_to_length(caches, target_len)``
+    gives, allocated anew on ``device`` (default: each cache's own; a
+    slot's static caches)."""
+
+    def zeros(key, v):
+        shape = list(v.shape)
+        if key in _SEQ_KEYS:
+            shape[-2] = max(shape[-2], target_len)
+        return torch.zeros(shape, dtype=v.dtype, device=device or v.device)
+
+    def walk(node):
+        return {k: walk(v) if isinstance(v, dict) else zeros(k, v)
+                for k, v in node.items()}
+
+    return [walk(c) for c in caches]
+
+
+def load_into(dst, caches) -> None:
+    """Copy prefill ``caches`` into ``dst`` (as :func:`zeros_padded` made
+    it): an attention cache into the first positions of its seq axis,
+    every other cache whole.  The positions past the prompt keep what
+    they held (another request's keys, finite): decode masks them by its
+    ``kv_len`` and overwrites them one by one."""
+
+    def walk(d, c):
+        for k, v in c.items():
+            if isinstance(v, dict):
+                walk(d[k], v)
+            elif k in _SEQ_KEYS:
+                d[k].narrow(v.dim() - 2, 0, v.shape[-2]).copy_(v)
+            else:
+                d[k].copy_(v)
+
+    for d, c in zip(dst, caches):
+        walk(d, c)
 
 
 def pad_to_length(caches, target_len: int):

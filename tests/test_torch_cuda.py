@@ -1344,7 +1344,7 @@ def test_replays_count_the_launches_they_replay(cuda):
     assert programs.stats["replays"] - replays == 6
     entries = [e for e in P.FUSED_STEP._entries.values()
                if e.key[3] == pred.host_dim]
-    assert [e.launches for e in entries] == [(10,)]
+    assert [e.launches for e in entries] == [{lstm_cell: 10}]
 
 
 def test_a_capture_whose_program_syncs_raises(cuda):
@@ -1358,3 +1358,183 @@ def test_a_capture_whose_program_syncs_raises(cuda):
         e.run()
     assert e.graph is None
     assert float((torch.ones(3, device=cuda) * 2).sum()) == 6.0
+
+
+# --------------- the LM decode step as a CUDA graph (per slot) --------------
+
+
+@pytest.mark.parametrize("b,h,hkv,s,d,kvlen", [
+    # yi-6b's decode in a 4096-row slot: kv_len 1, 28, S / 2 and S
+    *[(1, 32, 4, 4096, 128, n) for n in (1, 28, 2048, 4096)],
+    (1, 4, 2, 40, 16, 17), (3, 32, 2, 100, 32, 77),
+    (1, 24, 8, 4096, 128, 513), (1, 64, 8, 600, 128, 268),
+    (1, 16, 16, 4096, 64, 28)])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 2e-2)])
+def test_decode_attention_reads_kv_len_on_the_card(cuda, b, h, hkv, s, d,
+                                                   kvlen, dtype, atol):
+    """``kv_len`` as a 0-d device tensor: the kernel reads it, its split
+    follows S, and the rows past kv_len hold another request's keys and
+    values (finite), which add nothing: against the plain version, the
+    plain split-and-merge at the S-derived split, and bf16 rounding."""
+    q, k, v = _qkv([(b, h, d), (b, hkv, s, d), (b, hkv, s, d)], dtype,
+                   3 * s + kvlen, cuda)
+    want = decode_attention_ref(q, k, v, kv_len=kvlen)
+    want32 = _decode_fp32(q, k, v, kvlen)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    n_splits, split_keys = decode_ops.decode_split(b * hkv, s, n_sm)
+    split = decode_attention_split_ref(q.cpu(), k.cpu(), v.cpu(),
+                                       kv_len=torch.tensor(kvlen),
+                                       n_splits=n_splits,
+                                       split_keys=split_keys)
+    kv32 = torch.tensor(kvlen, dtype=torch.int32, device=cuda)
+    before = decode_attention.launches
+    got = decode_attention(q, k, v, kv_len=kv32)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    for w in (want, split.to(cuda)):
+        torch.testing.assert_close(got.float(), w.float(), rtol=atol,
+                                   atol=atol)
+    if dtype == torch.bfloat16:
+        assert bf16_rounding_excess(got, want32) <= BF16_EXCESS
+    # an int64 kv_len, and the same bits from run to run
+    assert torch.equal(decode_attention(q, k, v, kv_len=kv32.long()), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_captured_decode_kernel_replays_at_changing_kv_len(cuda, dtype):
+    """One launch captured into a CUDA graph with kv_len a device int32,
+    replayed after the kv_len changed (1, 28, 2048, 4096, 700): each
+    replay bit-equal to an eager launch at the same kv_len and within
+    the plain version's tolerance; the capture records one launch and
+    launches nothing."""
+    q, k, v = _qkv([(1, 32, 128), (1, 4, 4096, 128), (1, 4, 4096, 128)],
+                   dtype, 11, cuda)
+    kv = torch.ones((), dtype=torch.int32, device=cuda)
+    decode_attention(q, k, v, kv_len=kv)          # the opt-ins, eagerly
+    torch.cuda.synchronize()
+    launched, recorded = decode_attention.launches, decode_attention.recorded
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode_attention(q, k, v, kv_len=kv)
+    assert decode_attention.recorded == recorded + 1
+    assert decode_attention.launches == launched
+    atol = 2e-5 if dtype == torch.float32 else 2e-2
+    for n in (1, 28, 2048, 4096, 700):
+        kv.fill_(n)
+        graph.replay()
+        eager = decode_attention(q, k, v, kv_len=kv)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager), n
+        torch.testing.assert_close(
+            out.float(), decode_attention_ref(q, k, v, kv_len=n).float(),
+            rtol=atol, atol=atol)
+
+
+class _LoggedEngine(Engine):
+    """The engine, keeping every decoded step's logits: (request, position,
+    logits)."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.steps = []
+
+    def _decode(self, slot, st):
+        logits = super()._decode(slot, st)
+        self.steps.append((st["req"].req_id, st["pos"], logits.clone()))
+        return logits
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "qwen3-moe-30b-a3b",
+                                  "falcon-mamba-7b", "jamba-1.5-large-398b",
+                                  "deepseek-v3-671b", "internvl2-26b"])
+def test_reduced_engine_replays_equal_the_eager_decode(cuda, arch):
+    """Four requests through two slots of the engine (each slot's step
+    captured once, then replayed; a reused slot keeps the earlier
+    request's keys past its prompt): every step's logits bit-equal to the
+    eager ``decode_step`` with the same tensor position on fresh caches,
+    fed the same tokens; two captures."""
+    from repro_torch.core import programs
+    from repro_torch.serve.kv_cache import load_into, zeros_padded
+    cfg = dataclasses.replace(get_reduced(arch), param_dtype="float32")
+    model = Model(cfg)
+    params = model.init(0, cuda)
+    eng = _LoggedEngine(model, params, EngineConfig(n_slots=2, max_len=64))
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, 5 + 7 * i) for i in range(4)]
+    for i, p in enumerate(prompts):
+        eng.submit(Request(req_id=i, tokens=p, max_new=6))
+    captures = programs.stats["captures"]
+    done = {r.req_id: r.out for r in eng.run()}
+    assert programs.stats["captures"] - captures == 2
+    for i, p in enumerate(prompts):
+        toks = torch.as_tensor(p, device=cuda)[None]
+        _, pre = model.prefill(params, {"tokens": toks})
+        caches = zeros_padded(pre, 64)
+        load_into(caches, pre)
+        steps = [(pos, lg) for r, pos, lg in eng.steps if r == i]
+        assert [pos for pos, _ in steps] == list(range(len(p),
+                                                       len(p) + 5))
+        for j, (pos, logits) in enumerate(steps):
+            want, _ = model.decode_step(
+                params, caches, torch.tensor([[done[i][j]]], device=cuda),
+                torch.tensor(pos, device=cuda))
+            assert torch.equal(logits, want), (i, j)
+
+
+def test_replays_count_decode_and_router_launches(cuda):
+    """Reduced qwen3 (GQA attention and a routed MoE in every layer)
+    through the engine: each slot's entry records one ``decode_attention``
+    and one ``moe_router`` launch per layer, and the counts over the run
+    are exact: the warm-up's launches plus each replay's record."""
+    from repro_torch.serve import programs as serve_programs
+    cfg = dataclasses.replace(get_reduced("qwen3-moe-30b-a3b"),
+                              param_dtype="float32")
+    model = Model(cfg)
+    params = model.init(0, cuda)
+    eng = Engine(model, params, EngineConfig(n_slots=2, max_len=48))
+    for i in range(3):
+        eng.submit(Request(req_id=i, tokens=np.arange(4 + i) % cfg.vocab,
+                           max_new=5))
+    d0, r0 = decode_attention.launches, moe_router.launches
+    eng.run()
+    torch.cuda.synchronize()
+    n = chip_smoke.layer_counts(cfg)
+    decoded = 3 * 4
+    assert decode_attention.launches - d0 == n["attn"] * decoded
+    assert moe_router.launches - r0 == n["moe"] * (3 + decoded)
+    entries = [e for e in serve_programs.DECODE_STEP._entries.values()
+               if e.key[0] is model]
+    assert len(entries) == 2
+    assert all(e.launches == {decode_attention: n["attn"],
+                              moe_router: n["moe"]} for e in entries)
+
+
+def test_slots_share_a_pool_and_capture_again_after_release(cuda):
+    """An engine's slots capture into one memory pool; ``release`` drops
+    their caches and graphs (the pool with them), and the next requests
+    allocate and capture again, giving the same tokens."""
+    from repro_torch.core import programs
+    from repro_torch.serve import programs as serve_programs
+    cfg = dataclasses.replace(get_reduced("qwen3-moe-30b-a3b"),
+                              param_dtype="float32")
+    model = Model(cfg)
+    eng = Engine(model, model.init(0, cuda), EngineConfig(n_slots=2,
+                                                          max_len=48))
+    runs = []
+    for _ in range(2):
+        for i in range(3):
+            eng.submit(Request(req_id=i, tokens=np.arange(5 + 3 * i)
+                               % cfg.vocab, max_new=5))
+        captures = programs.stats["captures"]
+        runs.append({r.req_id: r.out for r in eng.run()})
+        eng.done.clear()
+        assert programs.stats["captures"] - captures == 2
+        entries = [e for e in serve_programs.DECODE_STEP._entries.values()
+                   if e.key[0] is model]
+        assert len(entries) == 2
+        assert entries[0].graph.pool() == entries[1].graph.pool()
+        eng.release()
+        assert not [e for e in serve_programs.DECODE_STEP._entries.values()
+                    if e.key[0] is model]
+    assert runs[0] == runs[1]
