@@ -138,17 +138,25 @@ Phases:
    ``repro_torch.launch.serve`` once at qwen3-moe-30b-a3b;
 11. SSM training, fp32: falcon-mamba-7b at full width, 8 of its 64
    layers (seeded weights), three AdamW steps of ``Trainer`` on
-   ``SyntheticLM`` batches of 2 x 256 tokens, every layer's forward and
-   its recompute in the backward launching ``mamba_scan`` and its
-   backward ``mamba_scan_bwd``; then from the params before each step the
-   same loss through the plain scan (autograd of the plain version),
-   within 1e-5 relative, step 1's gradients within 1e-4 relative in
-   norm, and step 1 again from its params bit-equal (``train_gate``);
-12. SSM training, bf16: falcon-mamba-7b at full width, 32 of its 64
-   layers, batches of 4 x 512 tokens, one warm step and three timed (ms
-   per step, tokens/s), one step by its parts (forward / backward /
-   optimizer, and the scan backward's share timed inside it),
-   profiler device busy per step, peak memory (``train_timing``); and
+   ``SyntheticLM`` batches of 2 x 256 tokens through its compiled step
+   (``train/programs.py``: here and in every training phase below the
+   first step runs eagerly and captures the step as a CUDA graph, the
+   others replay it; one capture a state tree, its ms and pool bytes
+   printed), every layer's forward and its recompute in the backward
+   launching ``mamba_scan`` and its backward ``mamba_scan_bwd``, counted
+   through the replays; then from the params before each step the same
+   loss through the plain scan (autograd of the plain version), within
+   1e-5 relative, step 1's gradients within 1e-4 relative in norm, and
+   the eager ``make_train_step``'s three steps from the same start
+   bit-equal to the compiled ones: every loss, and after them every
+   param and moment (``train_gate``);
+12. SSM training, bf16: falcon-mamba-7b at full width, 16 of its 64
+   layers, batches of 4 x 512 tokens, the compiled step once warm (its
+   capture) and three replays timed (ms per step, tokens/s) and one
+   profiled, then the eager step on the same state the same way (host
+   and device busy ms per step, graph beside eager), one step by its
+   parts (forward / backward / optimizer, and the scan backward's share
+   timed inside it), peak memory (``train_timing``); and
    ``repro_torch.launch.train`` once, reduced, on the card;
 12a. SSM serving, fp32: falcon-mamba-7b at full width, 8 of its 64
    layers, the engine and requests of phase 7; every prefill launches
@@ -162,15 +170,15 @@ Phases:
 12c. dense training: yi-6b at full width, an fp32 gate at 4 layers as
    phase 11's (attention through ``flash_attention``'s autograd Function,
    2 launches per layer per step, none in the backward, against autograd
-   through the plain attention); bf16 at 16 layers, 2 x 2048 tokens, as
+   through the plain attention); bf16 at 8 layers, 2 x 2048 tokens, as
    phase 12, with the plain attention backward's share of the step and
    the plain path's loss curve from the same seed beside the kernels';
    ``repro_torch.launch.train`` once at its default arch, demo-100m;
 12d. MoE training: qwen3-moe-30b-a3b at full width, the fp32 gate at 2
    layers (the router's Function also 2 launches per MoE layer per step;
-   the copies the training capacity drops counted; the repeated step
-   bit-equal, so the recompute routes as the forward), bf16 at 4 layers
-   as phase 12c;
+   the copies the training capacity drops counted on the eager steps;
+   those steps bit-equal to the replays, so the recompute routes as the
+   forward), bf16 at 4 layers as phase 12c;
 12e. the decoder-only archs ported last, each at full width with the
    depth cuts of ``NEW_LM``: minitron-4b and phi4-mini-3.8b (GQA group
    3), deepseek-67b (group 8 at 64 heads), internvl2-26b (group 6; its
@@ -360,6 +368,7 @@ from repro_torch.sim.scenarios import make_config  # noqa: E402
 from repro_torch.sim.techniques import FIELD  # noqa: E402
 from repro_torch.sim.techniques import baselines, start_tech  # noqa: E402
 from repro_torch.train import optimizer as Opt  # noqa: E402
+from repro_torch.train import programs as train_programs  # noqa: E402
 from repro_torch.train.data import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.train.checkpoint import VersionStore  # noqa: E402
 from repro_torch.train.trainer import (  # noqa: E402
@@ -541,19 +550,23 @@ GRAD_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-3, 2**-7)}
 SFU_PER_S = 16 * 132 * 1.98e9
 # SSM training: falcon-mamba-7b at full width; the fp32 gate keeps 8 of
 # 64 layers (1.38 B params x 16 B of params, grads and moments = 22 GB),
-# the bf16 run 32 (3.91 B params x 12 B = 47 GB; 64 layers need 87 GB)
+# the bf16 run 16 (2.07 B params x 12 B = 25 GB; 32 until the timing ran
+# the eager step beside the graph, for the smoke's time; 64 layers need
+# 87 GB)
 SSM_ARCH = "falcon-mamba-7b"
 SSM_GATE_LAYERS, SSM_GATE_BATCH, SSM_GATE_SEQ = 8, 2, 256
-SSM_LAYERS, SSM_BATCH, SSM_SEQ = 32, 4, 512
+SSM_LAYERS, SSM_BATCH, SSM_SEQ = 16, 4, 512
 # dense and MoE training at full width, batches of B x S tokens: the fp32
 # gates at yi-6b's 4 layers (1.23 B params x 16 B of params, gradients and
 # AdamW moments = 19.7 GB) and qwen3-moe-30b-a3b's 2 (1.87 B, 30.0 GB);
-# the bf16 runs at yi-6b's 16 layers (3.31 B params x 12 B = 39.7 GB) and
-# qwen3's 4 (3.12 B, 37.5 GB), with room for the plain attention
-# backward's (B, Hkv, G, S, S) fp32 scores at S = 2048 (1.07 GB a layer)
+# the bf16 runs at yi-6b's 8 layers (16 until the timing ran the eager
+# step beside the graph, for the smoke's time; 16 are 3.31 B params x
+# 12 B = 39.7 GB) and qwen3's 4 (3.12 B, 37.5 GB), with room for the
+# plain attention backward's (B, Hkv, G, S, S) fp32 scores at S = 2048
+# (1.07 GB a layer)
 DENSE_GATE_LAYERS, MOE_TRAIN_GATE_LAYERS = 4, 2
 LM_GATE_BATCH, LM_GATE_SEQ = 2, 256
-DENSE_LAYERS, MOE_TRAIN_LAYERS = 16, 4
+DENSE_LAYERS, MOE_TRAIN_LAYERS = 8, 4
 LM_BATCH, LM_SEQ = 2, 2048
 # the decoder-only archs ported last, each at full width: the fp32
 # serving gate's and the bf16 serving run's layers (None: all; for the
@@ -574,30 +587,34 @@ LM_BATCH, LM_SEQ = 2, 2048
 # (12.75 B, 51 GB), its training gate 1 and bf16 training 4 (4.45 B, 53
 # GB); internvl2-26b's fp32 gate 24 of 48 (10.5 B, 42 GB), training gate
 # 2, bf16 training 8 (4.28 B, 51 GB); minitron-4b and phi4-mini-3.8b
-# train 4 layers in the gate and 16 in bf16 (3.33 / 2.84 B).
+# train 4 layers in the gate and 8 in bf16 (16 until the timing ran the
+# eager step beside the graph, as internvl2-26b's 4 were 8).
 # deepseek-v3-671b keeps its 3 dense MLA layers and 2 (bf16) or 1 (fp32)
 # MoE layers of all 256 experts in serving (26.64 / 15.14 B); in training
 # the 256 experts' AdamW moments alone (11.3 B x 8 B per MoE layer) pass
 # the card, so its training cuts the expert count, the one width-like cut:
-# 16 in the fp32 gate (4.54 B x 16 B = 73 GB, the snapshots in host
-# memory, as deepseek-67b's: its 1-layer gate's 2.37 B x 28 B ran out of
-# the card), 32 in bf16 (5.24 B x 12 B = 63 GB) at 2 x 1024 tokens (its
-# plain MLA attention's (B, 128, S, S) fp32 scores are 4.3 GB a temporary
-# at 2 x 2048); top-8, the expert width, the MLA ranks and the dense
-# prefix stay
+# 12 in the fp32 gate (4.39 B x 12 B of params and moments = 49.1 GiB
+# beside the captured step's pool, the snapshots in host memory, as
+# deepseek-67b's: its 1-layer gate's 2.37 B x 28 B ran out of the card;
+# 16 experts, 4.57 B x 12 B = 51.0 GiB, ran out in the capture, whose
+# private pool cannot hand back its split free blocks while it captures
+# as the eager step's cache does), 32 in bf16 (5.24 B x 12 B = 63 GB) at
+# 2 x 1024 tokens (its plain MLA attention's (B, 128, S, S) fp32 scores
+# are 4.3 GB a temporary at 2 x 2048); top-8, the expert width, the MLA
+# ranks and the dense prefix stay
 NEW_LM = {
     "minitron-4b": dict(gate=8, serve=8, serve_entry=True,
-                        train_gate=(4, None), train=(16, 2, 2048, None)),
+                        train_gate=(4, None), train=(8, 2, 2048, None)),
     "phi4-mini-3.8b": dict(gate=8, serve=8, serve_entry=True,
                            train_gate=(4, None),
-                           train=(16, 2, 2048, None)),
+                           train=(8, 2, 2048, None)),
     "deepseek-67b": dict(gate=8, serve=12, serve_entry=False,
                          train_gate=(1, None), train=(4, 2, 2048, None),
                          host_snapshots=True),
     "internvl2-26b": dict(gate=12, serve=12, serve_entry=True,
-                          train_gate=(2, None), train=(8, 2, 2048, None)),
+                          train_gate=(2, None), train=(4, 2, 2048, None)),
     "deepseek-v3-671b": dict(gate=4, serve=5, serve_entry=False,
-                             train_gate=(4, 16), train=(4, 2, 1024, 32),
+                             train_gate=(4, 12), train=(4, 2, 1024, 32),
                              host_snapshots=True),
 }
 # the vlm's prompts served after its patch embeddings
@@ -2077,8 +2094,13 @@ def graph_intervals(n_hosts: int, max_tasks: int, reps: int = 20) -> dict:
 
 
 def _bit_equal(got, want) -> bool:
-    return all(torch.equal(a, b) for a, b in zip(convert.leaves(got),
-                                                 convert.leaves(want)))
+    """Every tensor leaf of ``got`` equal to ``want``'s bit for bit
+    (``want``'s moved to ``got``'s device; ``None`` leaves, an optimizer
+    state's unused fields, skipped)."""
+    a = [t for t in convert.leaves(got) if t is not None]
+    b = [t for t in convert.leaves(want) if t is not None]
+    return len(a) == len(b) and all(
+        torch.equal(x, y.to(x.device)) for x, y in zip(a, b))
 
 
 def graph_training() -> dict:
@@ -4148,17 +4170,25 @@ def decode_graph_timing(model: Model, params, graph_c, int_c, tok, pos,
     names = dict(decode_attention="decode_kernel", moe_router="router_kernel",
                  flash_attention=flash)
     need = tuple(names[k] for k in per_step)
-    prof = {"graph": profile_window(
-        f"{cfg.name} decode graph replays from position {graph['pos']}, "
-        f"per token", graph_step, 8, need=need),
-        "eager": profile_window(
-            f"{cfg.name} eager decode from position {eager['pos']}, per "
-            f"token", eager_step, 8)}
-    traced = {k: prof["graph"]["kernels"].get(names[k], {}).get("calls", 0)
-              for k in per_step}
-    if DEVICE == "cuda" and traced != per_step:
+    # a window whose trace lost device events (the profiler drops one now
+    # and then) is taken again, up to PROFILE_TRIES windows
+    for _ in range(PROFILE_TRIES):
+        replays = profile_window(
+            f"{cfg.name} decode graph replays from position "
+            f"{graph['pos']}, per token", graph_step, 8, need=need)
+        traced = {k: replays["kernels"].get(names[k], {}).get("calls", 0)
+                  for k in per_step}
+        if DEVICE != "cuda" or traced == per_step:
+            break
+        print(f"[decode graphs] {cfg.name}: the profiled window's trace "
+              f"holds {traced} of a replay's {per_step} a token: profiled "
+              f"again")
+    else:
         raise AssertionError(f"{cfg.name}: a replay's kernels in the trace "
                              f"{traced}, its record {per_step}")
+    prof = {"graph": replays, "eager": profile_window(
+        f"{cfg.name} eager decode from position {eager['pos']}, per token",
+        eager_step, 8)}
     busy = {k: round(v["device_busy_ms"], 4) for k, v in prof.items()}
     ops = {k: round(v["device_ops"], 1) for k, v in prof.items()}
     print(f"[decode graphs] {cfg.name} {str(cfg.dtype)[6:]} per token at "
@@ -4378,25 +4408,55 @@ def lm_batch(cfg, data: SyntheticLM, i: int) -> dict:
     return b
 
 
+def train_graph(model: Model, captures: int, replays: int) -> dict:
+    """What ``model``'s compiled training steps did since the process-wide
+    counts ``captures`` and ``replays`` (``train/programs.py``): captures
+    and replays made, and each of its entries' capture ms, pool bytes and
+    the kernel launches one replay records."""
+    entries = [e for e in train_programs.TRAIN_STEP._entries.values()
+               if e.key[0] is model]
+    return dict(captures=programs.stats["captures"] - captures,
+                replays=programs.stats["replays"] - replays,
+                capture_ms=[e.capture_ms for e in entries],
+                pool_bytes=[e.pool_bytes for e in entries],
+                record=[{w.__name__: n for w, n in e.launches.items()}
+                        for e in entries])
+
+
+def _graph_line(g: dict) -> str:
+    ms = ", ".join(f"{t:.1f}" for t in g["capture_ms"])
+    gib = ", ".join(f"{b / 2**30:.2f}" for b in g["pool_bytes"])
+    return (f"{g['captures']} capture ({ms} ms, pool {gib} GiB), "
+            f"{g['replays']} replays")
+
+
 def train_gate(arch: str, n_layers: int, batch: int, seq: int,
                experts: int | None = None,
                host_snapshots: bool = False, reduced: bool = False) -> dict:
     """fp32 at full width, ``n_layers`` layers.  The main path:
-    ``Trainer``'s ``GATE_STEPS`` steps through the kernels, launch counts
+    ``Trainer.compile_step``'s ``GATE_STEPS`` steps through the kernels
+    (``train/programs.py``: the first runs eagerly and captures the step
+    as a CUDA graph, the others replay it; one capture), launch counts
     set to 0 just before and read just after.  Then, from the params
     before each of its steps, the same loss through the plain versions
     (held to 1e-5 relative), and step 1's gradients both ways (held to
-    1e-4 relative in norm); step 1 again from its params, which must give
-    the same loss and params bit for bit (a MoE layer's recompute in the
-    backward must route as its forward did).  Last, reported and not
-    held, the plain path's own steps from the same start: Adam's first
-    steps divide each gradient by its own magnitude, so where a gradient
-    is near 0 the two paths' fp32 noise moves the params apart, and the
-    losses drift apart step by step.  ``experts`` cuts the MoE layers'
-    expert count; with ``host_snapshots`` the params before each step are
-    kept in host memory (deepseek-v3's fp32 params, gradients and AdamW
-    moments fill the card); ``reduced`` takes the arch's reduced config
-    (its width too) in place of the full one."""
+    1e-4 relative in norm).  Then the eager ``make_train_step``'s
+    ``GATE_STEPS`` steps from the same start, each loss bit-equal to the
+    main path's (a replay does what the eager step does, and a MoE
+    layer's recompute in the backward routes as its forward did), with
+    the copies the MoE capacity drops counted on them (a count reads to
+    the host, which a capture cannot hold); after them every param and
+    moment bit-equal to the main path's last state, or, with
+    ``host_snapshots`` (no room to keep that state), the params after
+    each step bit-equal to the main path's.  Last, reported and not
+    held, the plain path's own eager steps from the same start: Adam's
+    first steps divide each gradient by its own magnitude, so where a
+    gradient is near 0 the two paths' fp32 noise moves the params apart,
+    and the losses drift apart step by step.  ``experts`` cuts the MoE
+    layers' expert count; with ``host_snapshots`` the params before each
+    step are kept in host memory (deepseek-v3's fp32 params, gradients
+    and AdamW moments fill the card); ``reduced`` takes the arch's
+    reduced config (its width too) in place of the full one."""
     cfg, model, trainer = _trainer(arch, n_layers, "float32", experts,
                                    reduced)
     keep = (lambda t: t.to("cpu", copy=True)) if host_snapshots \
@@ -4419,21 +4479,23 @@ def train_gate(arch: str, n_layers: int, batch: int, seq: int,
     step = trainer.compile_step()
     snaps, losses = [], []
     torch.cuda.synchronize()
+    captures, replays = programs.stats["captures"], programs.stats["replays"]
     reset_launches()
-    with counting_drops() as drops:
-        for b in batches:
-            snaps.append(convert.tree_map(keep, params))
-            params, state, m = step(params, state, b)
-            losses.append(float(m["loss"]))
-        torch.cuda.synchronize()
+    for b in batches:
+        snaps.append(convert.tree_map(keep, params))
+        params, state, m = step(params, state, b)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
     launches = kernel_launches()
+    graph = train_graph(model, captures, replays)
+    # the main path's last state, held against the eager steps' below
+    final = None if host_snapshots else (params, state)
     del params, state
-    free_cuda()
+    free_cuda()                     # the entry, its graph and its pool
     peak = torch.cuda.max_memory_allocated() / 2**30
     # step 0's params on the card once for both gradients and its loss
     # (host snapshots cross the bus as few times as they can)
     p0 = on_card(snaps[0])
-    _, g_kern = value_and_grad(model, p0, batches[0])
     before = kernel_launches()
     with plain_training():
         with torch.no_grad():
@@ -4441,26 +4503,37 @@ def train_gate(arch: str, n_layers: int, batch: int, seq: int,
                      for i, (p, b) in enumerate(zip(snaps, batches))]
         _, g_plain = value_and_grad(model, p0, batches[0])
     plain_launches = {k: v - before[k] for k, v in kernel_launches().items()}
+    if final is not None:
+        del snaps[1:]               # room for the eager steps beside it
+    _, g_kern = value_and_grad(model, p0, batches[0])
     grad_rel, worst_leaf = tree_rel(g_kern, g_plain)
-    del g_kern, g_plain, snaps[2:]
+    del g_kern, g_plain, p0
     free_cuda()
-    # step 1 again from step 0's params: the card copy itself where the
-    # snapshots are in host memory (no room for a second), else a copy
-    p = p0 if host_snapshots else fresh(snaps[0])
-    del p0
+    # the eager step from the same start, bit for bit
+    p = fresh(snaps[0])
     st = Opt.init(trainer.opt_cfg, p)
-    p, st, m = step(p, st, batches[0])
-    repeat = dict(loss=float(m["loss"]) == losses[0],
-                  params=all(torch.equal(a, b.to(a.device)) for a, b in zip(
-                      convert.leaves(p), convert.leaves(snaps[1]))))
-    del p, st, snaps[1]
+    eager = make_train_step(model, trainer.opt_cfg, trainer.tcfg)
+    eager_losses, stepwise = [], []
+    with counting_drops() as drops:
+        for i, b in enumerate(batches):
+            p, st, m = eager(p, st, b)
+            eager_losses.append(float(m["loss"]))
+            if final is None and i + 1 < len(snaps):
+                stepwise.append(_bit_equal(p, snaps[i + 1]))
+    bit = dict(losses=eager_losses == losses)
+    if final is None:
+        bit["params"] = all(stepwise)
+    else:
+        bit.update(params=_bit_equal(p, final[0]),
+                   moments=_bit_equal(st, final[1]))
+    del p, st, final, snaps[1:]
     free_cuda()
     with plain_training():
         p = on_card(snaps[0])
         st = Opt.init(trainer.opt_cfg, p)
         own = []
         for b in batches:
-            p, st, m = step(p, st, b)
+            p, st, m = eager(p, st, b)
             own.append(float(m["loss"]))
         del p, st, snaps
         free_cuda()
@@ -4475,34 +4548,43 @@ def train_gate(arch: str, n_layers: int, batch: int, seq: int,
           f"{seq}: losses {losses}; the plain path from the same params "
           f"{plain}, max rel {max(rel):.3e} (bound 1e-5); step-1 gradients "
           f"rel {grad_rel:.3e} (bound 1e-4; worst leaf {worst_leaf:.3e}); "
-          f"step 1 repeated: loss bit-equal {repeat['loss']}, params "
-          f"bit-equal {repeat['params']}; launches {shown} = 2 x "
+          f"the compiled step {_graph_line(graph)}; the eager "
+          f"make_train_step from the same start, bit-equal: losses "
+          f"{bit['losses']}, params "
+          + ("after each step " if "moments" not in bit else "")
+          + f"{bit['params']}"
+          + (f", moments {bit['moments']}" if "moments" in bit else "")
+          + f"; launches {shown} = 2 x "
           f"({flash_per_forward(n)} attention, {n['moe']} MoE, {n['ssm']} "
           f"SSM) layers "
           f"x {GATE_STEPS} steps (forward and its recompute; the scan's "
           f"backward {scan_ops.BWD_LAUNCHES_PER_CALL} per layer); "
           + (f"copies dropped by capacity {dropped} of "
              f"{GATE_STEPS * n['moe'] * batch * seq * cfg.top_k} routed "
-             f"({GATE_STEPS} steps x {n['moe']} layers); " if n["moe"]
+             f"({GATE_STEPS} eager steps x {n['moe']} layers); " if n["moe"]
              else "")
           + f"peak {peak:.2f} GiB. Not held: the plain path's own steps "
           f"{own}, rel {[f'{r:.3e}' for r in own_rel]}")
     if launches != want:
         raise AssertionError(f"kernel path launches {launches}, expected "
                              f"{want}")
+    if (graph["captures"], graph["replays"], len(graph["record"])) != (
+            1, GATE_STEPS - 1, 1):
+        raise AssertionError(f"the compiled step's entries {graph}")
     if any(plain_launches.values()):
         raise AssertionError(f"the plain path launched {plain_launches}")
     if not (np.isfinite(losses).all() and max(rel) <= 1e-5):
         raise AssertionError(f"losses {losses} vs plain {plain}")
     if not grad_rel <= 1e-4:
         raise AssertionError(f"step-1 gradients differ by {grad_rel}")
-    if not all(repeat.values()):
-        raise AssertionError(f"step 1 repeated differs: {repeat}")
+    if not all(bit.values()):
+        raise AssertionError(f"the eager steps differ from the compiled "
+                             f"ones: {bit}, {eager_losses} vs {losses}")
     return dict(n_layers=cfg.n_layers, batch=batch, seq=seq,
                 n_experts=cfg.n_experts, losses=losses,
                 plain_losses=plain, max_loss_rel=max(rel),
-                grad_rel=grad_rel, worst_leaf_rel=worst_leaf,
-                repeat_bit_equal=repeat, own_plain_losses=own,
+                grad_rel=grad_rel, worst_leaf_rel=worst_leaf, graph=graph,
+                eager_bit_equal=bit, own_plain_losses=own,
                 own_plain_rel=own_rel, launches=launches,
                 dropped=dropped if n["moe"] else None, peak_gib=peak)
 
@@ -4539,14 +4621,19 @@ def timed_backwards():
 
 def train_timing(arch: str, n_layers: int, batch: int, seq: int,
                  plain_curve: bool, experts: int | None = None) -> dict:
-    """bf16, the config's own dtype, full width, ``n_layers`` layers: one
-    warm step and ``TIMED_STEPS`` timed, then one step taken by its parts
-    (forward, backward, optimizer; each kernel Function's backward timed
-    inside it) and one under the profiler.  With ``plain_curve``, the
-    same steps again from the same seed through the plain versions,
-    their losses reported beside the kernels' (the bf16 flash kernel
-    rounds P to bf16 before P @ V, the plain version does not).
-    ``experts`` cuts the MoE layers' expert count."""
+    """bf16, the config's own dtype, full width, ``n_layers`` layers: the
+    compiled step (``Trainer.compile_step``) once warm (its eager warm-up
+    and capture) and ``TIMED_STEPS`` replays timed, one replay under the
+    profiler; then, its graph and pool freed, the eager
+    ``make_train_step`` once warm and ``TIMED_STEPS`` timed, one under the
+    profiler (host ms and device busy ms per step, the graph beside the
+    eager step, on the same state); then one eager step taken by its
+    parts (forward, backward, optimizer; each kernel Function's backward
+    timed inside it).  With ``plain_curve``, the eager steps again from
+    the same seed through the plain versions, their losses reported
+    beside the kernels' (the bf16 flash kernel rounds P to bf16 before
+    P @ V, the plain version does not).  ``experts`` cuts the MoE layers'
+    expert count."""
     cfg, model, trainer = _trainer(arch, n_layers, experts=experts)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4561,6 +4648,7 @@ def train_timing(arch: str, n_layers: int, batch: int, seq: int,
                                   global_batch=batch), device=DEVICE)
     step = trainer.compile_step()
     steps = 1 + TIMED_STEPS
+    captures, replays = programs.stats["captures"], programs.stats["replays"]
     reset_launches()
     losses, times = [], []
     for i in range(steps):
@@ -4575,13 +4663,48 @@ def train_timing(arch: str, n_layers: int, batch: int, seq: int,
     want = train_launches(cfg, steps)
     if launches != want:
         raise AssertionError(f"launches {launches}, expected {want}")
+    graph = train_graph(model, captures, replays)
+    if (graph["captures"], graph["replays"]) != (1, TIMED_STEPS):
+        raise AssertionError(f"the compiled step's entries {graph}")
     if not (np.isfinite(losses).all() and max(losses) > min(losses)):
         raise AssertionError(f"bf16 losses {losses}")
     step_ms = float(np.median(times[1:]))
     tokens = batch * seq
-
-    # one step by its parts, each Function's backward timed inside it
     b = lm_batch(cfg, data, steps)
+
+    def one_step():
+        nonlocal params, state
+        params, state, m = step(params, state, b)
+        float(m["loss"])
+
+    prof = profile_window(f"{cfg.name} bf16 training step (graph)",
+                          one_step, 1)
+    free_cuda()                     # the entry, its graph and its pool
+    # the eager step on the same state: one warm, TIMED_STEPS timed, one
+    # profiled
+    eager = make_train_step(model, trainer.opt_cfg, trainer.tcfg)
+    eager_times = []
+    for i in range(1 + TIMED_STEPS):
+        b = lm_batch(cfg, data, steps + 1 + i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = eager(params, state, b)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        eager_times.append((time.perf_counter() - t0) * 1e3)
+    eager_ms = float(np.median(eager_times[1:]))
+
+    def one_eager():
+        nonlocal params, state
+        params, state, m = eager(params, state, b)
+        float(m["loss"])
+
+    prof_eager = profile_window(f"{cfg.name} bf16 training step (eager)",
+                                one_eager, 1)
+
+    # one warm eager step by its parts, each Function's backward timed
+    # inside it
+    b = lm_batch(cfg, data, steps + 2 + TIMED_STEPS)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     xs = [t.detach().requires_grad_() for t in convert.leaves(params)]
@@ -4600,21 +4723,13 @@ def train_timing(arch: str, n_layers: int, batch: int, seq: int,
     del xs, grads, loss
     split = dict(forward_ms=(t1 - t0) * 1e3, backward_ms=(t2 - t1) * 1e3,
                  optimizer_ms=(t3 - t2) * 1e3)
+    split_ms = (t3 - t0) * 1e3
     n = layer_counts(cfg)
     calls = {"mamba_scan": n["ssm"], "flash_attention": flash_per_forward(n),
              "moe_router": n["moe"]}
     if {k: len(v) for k, v in bwd.items()} != calls:
         raise AssertionError(f"backwards in a step {bwd}, expected {calls}")
-    split_ms = (t3 - t0) * 1e3
     bwd_ms = {k: sum(v) * 1e3 for k, v in bwd.items() if v}
-    b = lm_batch(cfg, data, steps + 1)
-
-    def one_step():
-        nonlocal params, state
-        params, state, m = step(params, state, b)
-        float(m["loss"])
-
-    prof = profile_window(f"{cfg.name} bf16 training step", one_step, 1)
     peak = torch.cuda.max_memory_allocated() / 2**30
     out = dict(n_layers=cfg.n_layers, batch=batch, seq=seq,
                n_experts=cfg.n_experts, step_ms=step_ms, step_ms_all=times, tok_per_s=tokens
@@ -4625,7 +4740,11 @@ def train_timing(arch: str, n_layers: int, batch: int, seq: int,
                device_busy_ms=prof["device_busy_ms"],
                idle_share=1 - prof["device_busy_ms"] / step_ms,
                device_ops=prof["device_ops"], top=prof["top"],
-               kernels=prof["kernels"], peak_gib=peak)
+               kernels=prof["kernels"], peak_gib=peak, graph=graph,
+               eager_step_ms=eager_ms, eager_step_ms_all=eager_times,
+               eager_device_busy_ms=prof_eager["device_busy_ms"],
+               eager_idle_share=1 - prof_eager["device_busy_ms"] / eager_ms,
+               eager_device_ops=prof_eager["device_ops"])
     shown = {k: v for k, v in launches.items() if v}
     parts = "; ".join(
         f"the {k} backward {v:.1f} ms of it ({calls[k]} calls, "
@@ -4641,6 +4760,14 @@ def train_timing(arch: str, n_layers: int, batch: int, seq: int,
           f"busy {prof['device_busy_ms']:.1f} ms per step (idle "
           f"{100 * out['idle_share']:.1f}%); losses {losses}; launches "
           f"{shown} over {steps} steps; peak {peak:.2f} GiB")
+    print(f"[train] {cfg.name} bf16, {cfg.n_layers} layers, graph vs eager "
+          f"on {CARD}: host {step_ms:.1f} vs {eager_ms:.1f} ms per step "
+          f"(warm medians of {TIMED_STEPS}; eager all "
+          f"{[round(t, 1) for t in eager_times]}), device busy "
+          f"{prof['device_busy_ms']:.1f} vs "
+          f"{prof_eager['device_busy_ms']:.1f} ms per step over "
+          f"{prof['device_ops']:.0f} vs {prof_eager['device_ops']:.0f} "
+          f"kernels and copies; the compiled step {_graph_line(graph)}")
     del params, state
     free_cuda()
     if plain_curve:
@@ -4648,7 +4775,8 @@ def train_timing(arch: str, n_layers: int, batch: int, seq: int,
         plain = []
         with plain_training():
             for i in range(steps):
-                params, state, m = step(params, state, lm_batch(cfg, data, i))
+                params, state, m = eager(params, state,
+                                         lm_batch(cfg, data, i))
                 plain.append(float(m["loss"]))
         del params, state
         free_cuda()

@@ -17,14 +17,16 @@ through the entry's buffers:
 * :meth:`Entry.copy_in` copies a caller's input into a static input on
   every call; :meth:`Entry.refresh` copies weights only when they are not
   the ones loaded (another object, or the same tensors changed in place);
-* arguments too large to copy (an LM's weights, a serving slot's caches)
-  are *bound*: the entry reads and writes the caller's own tensors in
-  place, its key holds their identity (:func:`identity`: address, shape,
-  stride, dtype), and the caller passes the same tensors to every
-  :meth:`Entry.run`; another tree is another entry, never a copy.  The
-  entry keeps only weak references to them, and an entry whose bound
-  tensors died is dropped at the program's next lookup of a new key or
-  by :meth:`Program.prune`;
+* arguments too large to copy (an LM's weights, a serving slot's caches,
+  a training state) are *bound*: the entry reads and writes the caller's
+  own tensors in place, its key holds their identity (:func:`identity`:
+  address, shape, stride, dtype), and the caller passes the same tensors
+  to every :meth:`Entry.run`; another tree is another entry, never a
+  copy.  The entry keeps only weak references to them (a ``None`` in a
+  bound tree, an optimizer state's unused field, is no tensor and is
+  skipped), and an entry whose bound tensors died is dropped at the
+  program's next lookup of a new key, before that key's capture, or by
+  :meth:`Program.prune`;
 * a static buffer that several entries capture and one caller at a time
   owns (the fused step's M_H ring) is a :class:`Resident`;
 * a call's outputs are the entry's static outputs: a caller reads or
@@ -39,6 +41,7 @@ retrainer threads share entries.
 """
 from __future__ import annotations
 
+import gc
 import threading
 import time
 import weakref
@@ -77,11 +80,17 @@ def signature(*trees) -> tuple:
                  for t in leaves(tree))
 
 
+def _tensors(tree) -> list:
+    """The tensor leaves of a bound tree (its ``None`` leaves skipped)."""
+    return [t for t in leaves(tree) if t is not None]
+
+
 def identity(*trees) -> tuple:
-    """Where every leaf of ``trees`` lies and how it is laid out (the key
-    of arguments an entry binds): address, shape, stride, dtype, device."""
+    """Where every tensor leaf of ``trees`` lies and how it is laid out
+    (the key of arguments an entry binds): address, shape, stride, dtype,
+    device."""
     return tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype,
-                  t.device) for tree in trees for t in leaves(tree))
+                  t.device) for t in _tensors(trees))
 
 
 def clear() -> None:
@@ -134,7 +143,7 @@ class Entry:
         self.key = key
         self.args = args
         self.static = static
-        self._bound = [weakref.ref(t) for t in leaves(bound)]
+        self._bound = [weakref.ref(t) for t in _tensors(bound)]
         #: the key of a memory pool shared with other entries (None: the
         #: graph's own)
         self.pool = pool
@@ -173,7 +182,7 @@ class Entry:
     def binds(self, bound: tuple) -> bool:
         """Whether ``bound`` is the trees this entry was built on: the same
         tensors, all alive."""
-        ts = leaves(bound)
+        ts = _tensors(bound)
         return len(ts) == len(self._bound) and all(
             r() is t for r, t in zip(self._bound, ts))
 
@@ -206,9 +215,15 @@ class Entry:
         # private pool.  A private pool takes none of the blocks the
         # allocator caches, and nothing can be freed while a capture runs,
         # so the cache is emptied first (the warm-up's blocks, an LM
-        # prefill's), as ``torch.cuda.graph`` does; its garbage collection,
-        # ~0.1 s a capture in a large process, is left out.  The memory
-        # reserved during the capture is the pool's.
+        # prefill's), as ``torch.cuda.graph`` does, and where the program
+        # asks, after a garbage collection (``Program.collect``).  The
+        # memory reserved during the capture is the pool's.  A training
+        # step's backward runs on autograd's device thread: its launches
+        # go to the capturing stream and the allocator serves that stream
+        # from the pool whichever thread allocates, so the "thread_local"
+        # mode records it as "global" does ("global" would also fail a
+        # capture on another thread's unsafe call: a service thread's, a
+        # checkpoint writer's).
         cur = torch.cuda.current_stream(dev)
         side = _side_stream(dev)
         side.wait_stream(cur)
@@ -221,6 +236,8 @@ class Entry:
         before = [w.recorded for w in _COUNTED]
         t0 = time.perf_counter()
         torch.cuda.synchronize(dev)
+        if self.program.collect:
+            gc.collect()
         torch.cuda.empty_cache()
         mem0 = torch.cuda.memory_reserved(dev)
         graph = torch.cuda.CUDAGraph()
@@ -249,11 +266,20 @@ class Entry:
 class Program:
     """An eager function and its entries, one per key.  ``fn`` takes an
     entry's static arguments positionally and its static values (those
-    JAX marks ``static_argnames``) as keywords."""
+    JAX marks ``static_argnames``) as keywords.  With ``collect``, a
+    capture collects garbage before it empties the cache, as
+    ``torch.cuda.graph`` does: a training step's warm-up leaves its
+    activations and gradients in reference cycles (autograd,
+    checkpointing), which a collection during the capture would return
+    to the cache, where the capture cannot use them (deepseek-v3's fp32
+    training gate in ``chip_smoke.py`` ran out of memory so).  The other programs leave little garbage, and a full collection in a
+    large process stalls every thread waiting on :data:`LOCK` (a
+    service's requests)."""
 
-    def __init__(self, name: str, fn):
+    def __init__(self, name: str, fn, collect: bool = False):
         self.name = name
         self.fn = fn
+        self.collect = collect
         self._entries: dict = {}
         _PROGRAMS.append(self)
 

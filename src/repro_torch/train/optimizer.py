@@ -112,13 +112,22 @@ def _global_norm(grads) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+def _mean(i: int, x: torch.Tensor, dim: int, axis: int) -> torch.Tensor:
+    return torch.mean(x, dim)
+
+
 def update(cfg: OptConfig, grads: Any, state: OptState, params: Any,
-           gnorm: torch.Tensor | None = None
+           gnorm: torch.Tensor | None = None, mean=_mean
            ) -> tuple[Any, OptState, dict]:
     """One step: writes ``params`` and the state's moments in place and
     returns (params, the new state, {"lr", "grad_norm"}).  ``gnorm``, the
     whole gradient's global norm, where ``grads`` is one process's shard
-    of it (the mesh trainer); else it is taken from ``grads``."""
+    of it (the mesh trainer); else it is taken from ``grads``.  ``mean(i,
+    x, dim, axis)``: the mean of ``x`` over its axis ``dim``, which runs
+    along axis ``axis`` (-1: columns, -2: rows) of leaf ``i`` (in
+    ``leaves`` order); the factored moments take their means through it,
+    so the mesh trainer can sum them over the processes that hold the
+    rest of the leaf."""
     step = state.step + 1
     lr = schedule(cfg, step)
     if gnorm is None:
@@ -131,7 +140,8 @@ def update(cfg: OptConfig, grads: Any, state: OptState, params: Any,
     moments = (zip(leaves(state.m), leaves(state.v)) if adamw else
                zip(leaves(state.m), leaves(state.v_row),
                    leaves(state.v_col)))
-    for p, g_leaf, mom in zip(leaves(params), leaves(grads), moments):
+    for i, (p, g_leaf, mom) in enumerate(zip(leaves(params), leaves(grads),
+                                             moments)):
         decay = p.dim() >= 2   # decoupled weight decay on matrices only
         fact = _factored(p.shape)
         # a factored leaf's means run over its last two axes: cut it only
@@ -150,15 +160,15 @@ def update(cfg: OptConfig, grads: Any, state: OptState, params: Any,
                 if fact:
                     vr = vr[sl]
                     vr.copy_(cfg.b2 * vr + (1 - cfg.b2)
-                             * torch.mean(g * g, -1))
+                             * mean(i, g * g, -1, -1))
                     vc.copy_(cfg.b2 * vc + (1 - cfg.b2)
-                             * torch.mean(g * g, -2))
+                             * mean(i, g * g, -2, -2))
                     r = vr / bc2            # (..., rows)
                     c = vc / bc2            # (..., cols)
+                    r_mean = mean(i, r, -1, -2)[..., None, None]
                     denom = torch.sqrt(
                         r[..., :, None] * c[..., None, :]
-                        / torch.clamp_min(torch.mean(r, -1, keepdim=True)
-                                          [..., None], 1e-30)) + cfg.eps
+                        / torch.clamp_min(r_mean, 1e-30)) + cfg.eps
                 else:
                     vc.copy_(cfg.b2 * vc + (1 - cfg.b2) * g * g)
                     denom = torch.sqrt(vc / bc2) + cfg.eps

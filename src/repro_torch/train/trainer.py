@@ -3,8 +3,12 @@ gradients by autograd through ``Model.loss_fn``, microbatched
 accumulation in ``accum_dtype``, the optimizer update; on one device, or
 sharded over a mesh.
 
-PyTorch runs eagerly, so ``Trainer.compile_step`` returns the step as
-it is: there is no jit.
+``Trainer.compile_step`` is the port's ``jax.jit`` of the step
+(``train/programs.py``): on the card the unsharded step is captured once
+per batch shape and state tree as a CUDA graph and replayed after; on
+the CPU the same entry runs the step eagerly on its buffers.  On a mesh
+the step stays eager (``compile_step`` returns it as it is): its DTensor
+redistributions and collectives are not captured.
 
 With a ``mesh`` (a torch ``DeviceMesh`` over the process group), each
 process holds only its shards of the params and of the optimizer's
@@ -21,19 +25,23 @@ moments, as DTensors placed by ``sharding.param_specs`` /
   3. reduce-scatters the gradients to the params' placements, summed over
      the dp axes and divided by their size (a mean over the global batch,
      as the single-device step's);
-  4. updates the shards in place (AdamW is elementwise, so a shard's
-     update is the whole leaf's restricted to it), with the global norm
-     of the whole gradient summed over the mesh.
+  4. updates the shards in place, with the global norm of the whole
+     gradient summed over the mesh.  AdamW is elementwise, so a shard's
+     update is the whole leaf's restricted to it.  AdaFactor's factored
+     moments take means along a leaf's rows and columns: each shard sums
+     its part, the sums are added over the mesh axes that cut that axis
+     of the leaf and divided by the whole leaf's width, so every process
+     holds the whole leaf's means of its own rows (columns), placed as
+     ``optimizer.opt_specs`` places ``v_row`` (``v_col``).
 Gathering the whole tree once a step is the simple schedule; gathering
 group by group (ZeRO-3 proper) is speed work for later.  The model axis
 computes the same thing on each of its processes (no tensor-parallel
-matmuls), apart from the experts under EP.  The factored optimizer
-("adafactor") takes means across the axes a shard cuts, so the mesh step
-runs AdamW only; the dry run plans adafactor's state.
+matmuls), apart from the experts under EP.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
@@ -161,11 +169,8 @@ def make_train_step(model: Model, opt_cfg: Opt.OptConfig,
 
 
 def _mesh_step(model, opt_cfg, tcfg, mesh, dp_axes, adt):
-    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor import Partial, Replicate, Shard
 
-    if opt_cfg.kind != "adamw":
-        raise ValueError("the mesh step runs AdamW (a factored moment's "
-                         "means cross the shards)")
     names = list(mesh_axes(mesh))
     dp = tuple(dp_axes if dp_axes is not None else Sh.dp_axes(mesh))
     sizes = mesh_axes(mesh)
@@ -202,6 +207,19 @@ def _mesh_step(model, opt_cfg, tcfg, mesh, dp_axes, adt):
         out = out.to_local()
         return out / n_dp if n_dp > 1 else out
 
+    def factored_mean(flat):
+        """``Opt.update``'s mean over one axis of a sharded leaf: this
+        shard's sum, added over the mesh dims that cut that axis of the
+        leaf, over the whole leaf's width."""
+        def mean(i, x, dim, axis):
+            dt = flat[i]
+            total = x.sum(dim)
+            for d, p in enumerate(dt.placements):
+                if isinstance(p, Shard) and p.dim == dt.ndim + axis:
+                    dist.all_reduce(total, group=mesh.get_group(d))
+            return total / dt.shape[axis]
+        return mean
+
     def train_step(params, opt_state, batch):
         flat = leaves(params)
         paths = Sh.leaf_paths(params)
@@ -229,12 +247,13 @@ def _mesh_step(model, opt_cfg, tcfg, mesh, dp_axes, adt):
         total = torch.as_tensor(total, dtype=torch.float32,
                                 device=shards[0].device).reshape(1)
         gnorm = torch.sqrt(mesh_sum(total, mesh)[0])
-        local_state = Opt.OptState(
-            opt_state.step, tree_map(lambda dt: dt.to_local(), opt_state.m),
-            tree_map(lambda dt: dt.to_local(), opt_state.v), None, None)
+        local_state = Opt.OptState(opt_state.step, *(
+            None if f is None else tree_map(lambda dt: dt.to_local(), f)
+            for f in opt_state[1:]))
         _, new_state, om = Opt.update(
             opt_cfg, unflatten(params, shards), local_state,
-            tree_map(lambda dt: dt.to_local(), params), gnorm=gnorm)
+            tree_map(lambda dt: dt.to_local(), params), gnorm=gnorm,
+            mean=factored_mean(flat))
         loss = mesh_sum(loss.float().reshape(1).clone(), mesh)[0] \
             / mesh.size()
         return params, opt_state._replace(step=new_state.step), {
@@ -312,29 +331,29 @@ class Trainer:
         return self.shard_state(params)
 
     def shard_state(self, params):
-        """(sharded params, zero moments placed as they are) from a whole
-        params tree that every process of the mesh holds alike (a
-        seeded init, converted JAX params): each keeps its own blocks."""
-        sharded = Sh.shard_tree(params, Sh.param_specs(params, self.mesh),
-                                self.mesh)
-        state = Opt.init(self.opt_cfg, tree_map(lambda dt: dt.to_local(),
-                                                sharded))
-        return sharded, like_shards(state, sharded)
+        """(sharded params, zero optimizer state placed as
+        ``optimizer.opt_specs`` places it) from a whole params tree that
+        every process of the mesh holds alike (a seeded init, converted
+        JAX params): each keeps its own blocks."""
+        specs = Sh.param_specs(params, self.mesh)
+        ospecs = Opt.opt_specs(self.opt_cfg, specs, params)
+        state = Opt.init(self.opt_cfg, params)
+        return Sh.shard_tree(params, specs, self.mesh), Opt.OptState(
+            state.step, *(None if f is None else
+                          Sh.shard_tree(f, spec, self.mesh)
+                          for f, spec in zip(state[1:], ospecs[1:])))
 
     def compile_step(self):
-        self.step_fn = make_train_step(self.model, self.opt_cfg, self.tcfg,
-                                       mesh=self.mesh)
+        """The step as ``jax.jit`` compiles it: without a mesh, the
+        compiled program (``train/programs.py``: captured on the card at
+        its first call on a state tree and batch shape, replayed after;
+        eager on the CPU); on a mesh, the eager mesh step."""
+        if self.mesh is not None:
+            self.step_fn = make_train_step(self.model, self.opt_cfg,
+                                           self.tcfg, mesh=self.mesh)
+            return self.step_fn
+        # imported here: train/programs.py builds on make_train_step
+        from repro_torch.train.programs import train_step
+        self.step_fn = functools.partial(train_step, self.model,
+                                         self.opt_cfg, self.tcfg)
         return self.step_fn
-
-
-def like_shards(state: Opt.OptState, params) -> Opt.OptState:
-    """AdamW moments (local tensors) as DTensors placed as ``params``."""
-    from torch.distributed.tensor import DTensor
-
-    def wrap(t, dt):
-        return DTensor.from_local(t, dt.device_mesh, dt.placements,
-                                  run_check=False, shape=dt.shape,
-                                  stride=dt.stride())
-
-    return Opt.OptState(state.step, tree_map(wrap, state.m, params),
-                        tree_map(wrap, state.v, params), None, None)

@@ -10,7 +10,8 @@ GRU on the card against the CPU, a 2-worker sweep on the card
 against the serial run, the prediction service on the card against its
 CPU twin and over TCP, the trainer's checkpoint drill, the pod
 runtime's online Encoder-LSTM policy at 400 hosts against its CPU twin,
-and START's captured programs (CUDA graphs) against their eager runs.  They
+START's captured programs (CUDA graphs) and the trainer's captured step
+against their eager runs.  They
 need an NVIDIA Hopper card and ``nvcc`` and skip elsewhere; run them on
 the card with
 
@@ -1538,3 +1539,143 @@ def test_slots_share_a_pool_and_capture_again_after_release(cuda):
         assert not [e for e in serve_programs.DECODE_STEP._entries.values()
                     if e.key[0] is model]
     assert runs[0] == runs[1]
+
+
+# ------------- the trainer's step as a CUDA graph (per state tree) ----------
+
+
+def _train_pair(cfg, kind="adamw", n_micro=1, device="cuda"):
+    """A trainer's compiled step and the eager ``make_train_step``, each
+    with its own copy of the same seeded params and zero state."""
+    from repro_torch.train.trainer import TrainConfig, make_train_step
+    ocfg = Opt.OptConfig(kind=kind, lr=3e-3, warmup_steps=5,
+                         total_steps=100)
+    tcfg = TrainConfig(n_micro=n_micro)
+    tr = Trainer(Model(cfg), mesh=None, opt_cfg=ocfg, tcfg=tcfg,
+                 device=device)
+    params = tr.model.init(0, device)
+    mine = convert.tree_map(torch.clone, params)
+    return (tr, params, Opt.init(ocfg, params), mine, Opt.init(ocfg, mine),
+            make_train_step(tr.model, ocfg, tcfg))
+
+
+def _state_tensors(state) -> list:
+    return [t for t in convert.leaves(state) if t is not None]
+
+
+def _hold_replays(cfg, kind="adamw", n_micro=1, steps=3):
+    """``steps`` compiled steps (the warm-up, the capture, then replays)
+    against as many eager steps: every loss, param and moment bit for
+    bit; one capture, ``steps - 1`` replays, and the kernel launches of
+    the run equal to ``steps`` times what one replay records."""
+    from repro_torch.core import programs
+    from repro_torch.train import programs as train_programs
+    tr, p, s, q, t, eager = _train_pair(cfg, kind, n_micro)
+    step = tr.compile_step()
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                  global_batch=4), device="cuda")
+    batches = [_with_patches(cfg, data.batch(i), i) for i in range(steps)]
+    captures, replays = programs.stats["captures"], programs.stats["replays"]
+    chip_smoke.reset_launches()
+    got = [step(p, s, b)[2]["loss"] for b in batches]
+    torch.cuda.synchronize()
+    launches = chip_smoke.kernel_launches()
+    want = []
+    for b in batches:       # the eager step returns a fresh step counter
+        q, t, m = eager(q, t, b)
+        want.append(m["loss"])
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(torch.equal(a, b) for a, b in zip(convert.leaves(p),
+                                                 convert.leaves(q)))
+    assert all(torch.equal(a, b) for a, b in zip(_state_tensors(s),
+                                                 _state_tensors(t)))
+    assert programs.stats["captures"] - captures == 1
+    assert programs.stats["replays"] - replays == steps - 1
+    entries = [e for e in train_programs.TRAIN_STEP._entries.values()
+               if e.key[0] is tr.model]
+    assert len(entries) == 1
+    record = {w.__name__: n for w, n in entries[0].launches.items()}
+    assert {k: v for k, v in launches.items() if v} == {
+        k: steps * v for k, v in record.items()}
+    # a step of n_micro microbatches launches what n_micro steps of one do
+    per_step = chip_smoke.train_launches(cfg, n_micro)
+    assert record == {k: v for k, v in per_step.items() if v}
+    return entries[0]
+
+
+@pytest.mark.parametrize("arch,kind,n_micro", [
+    ("yi-6b", "adamw", 1), ("qwen3-moe-30b-a3b", "adamw", 1),
+    ("deepseek-v3-671b", "adamw", 1), ("falcon-mamba-7b", "adamw", 1),
+    ("internvl2-26b", "adamw", 1), ("seamless-m4t-large-v2", "adamw", 1),
+    ("jamba-1.5-large-398b", "adamw", 1),
+    ("qwen3-moe-30b-a3b", "adafactor", 2),
+    ("falcon-mamba-7b", "adafactor", 1), ("yi-6b", "adamw", 2)])
+def test_reduced_train_replays_equal_the_eager_step(cuda, arch, kind,
+                                                    n_micro):
+    """Reduced fp32 configs of each family: the trainer's compiled step
+    (one capture a state tree) bit-equal to the eager step, its launches
+    counted through the replays (``n_micro`` forwards and recomputations
+    a step)."""
+    cfg = dataclasses.replace(get_reduced(arch), param_dtype="float32")
+    entry = _hold_replays(cfg, kind, n_micro)
+    assert entry.pool_bytes > 0 and entry.capture_ms > 0
+
+
+@pytest.mark.parametrize("mode", ["thread_local", "global"])
+def test_the_train_capture_records_the_backward_in_either_mode(
+        cuda, mode, monkeypatch):
+    """Autograd's backward runs on its own device thread: in either
+    stream-capture mode its launches land in the captured graph and its
+    allocations in the graph's pool, so the replays equal the eager
+    step (the SSM's and the MoE layers' kernels, in the backward too)."""
+    real = torch.cuda.CUDAGraph.capture_begin
+
+    def capture_begin(self, *a, **k):
+        k["capture_error_mode"] = mode
+        return real(self, *a, **k)
+
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "capture_begin", capture_begin)
+    for arch in ("qwen3-moe-30b-a3b", "falcon-mamba-7b"):
+        cfg = dataclasses.replace(get_reduced(arch), param_dtype="float32")
+        _hold_replays(cfg)
+
+
+def test_a_train_capture_that_fails_raises(cuda, monkeypatch):
+    """A step that reads a value to the host inside its forward cannot be
+    captured: the first call raises after its eager warm-up, nothing
+    falls back, and the card works afterwards."""
+    from repro_torch.models import moe as Moe
+    from repro_torch.train import programs as train_programs
+    real = Moe.grouped_ffn
+
+    def reads(x, idx, *a, **k):
+        int(idx.sum())
+        return real(x, idx, *a, **k)
+
+    monkeypatch.setattr(Moe, "grouped_ffn", reads)
+    cfg = dataclasses.replace(get_reduced("qwen3-moe-30b-a3b"),
+                              param_dtype="float32")
+    tr, p, s, *_ = _train_pair(cfg)
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=16,
+                                   global_batch=2), device="cuda").batch(0)
+    with pytest.raises(RuntimeError):
+        tr.compile_step()(p, s, batch)
+    entries = [e for e in train_programs.TRAIN_STEP._entries.values()
+               if e.key[0] is tr.model]
+    assert [e.graph for e in entries] == [None]
+    assert float((torch.ones(3, device=cuda) * 2).sum()) == 6.0
+
+
+def test_the_loss_draws_no_random_numbers_on_the_card(cuda):
+    from repro_torch.train.trainer import value_and_grad
+    for arch in ("yi-6b", "falcon-mamba-7b", "seamless-m4t-large-v2"):
+        cfg = dataclasses.replace(get_reduced(arch), param_dtype="float32")
+        model = Model(cfg)
+        params = model.init(0, cuda)
+        batch = _with_patches(cfg, SyntheticLM(DataConfig(
+            vocab=cfg.vocab, seq_len=16, global_batch=2),
+            device="cuda").batch(0), 0)
+        before = torch.cuda.get_rng_state()
+        loss, _ = value_and_grad(model, params, batch)
+        assert torch.isfinite(loss)
+        assert torch.equal(torch.cuda.get_rng_state(), before)

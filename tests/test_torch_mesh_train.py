@@ -53,8 +53,8 @@ def _jparams(jcfg, seed=0):
     return p, jax.tree_util.tree_map(lambda a: np.array(a, copy=True), p)
 
 
-def _jax_run(jcfg, params, n_micro):
-    ocfg = JOpt.OptConfig(**OPT)
+def _jax_run(jcfg, params, n_micro, kind="adamw"):
+    ocfg = JOpt.OptConfig(kind=kind, **OPT)
     step = jax.jit(j_make_train_step(JModel(jcfg), ocfg,
                                      JTrainConfig(n_micro=n_micro)))
     data = JSyntheticLM(JDataConfig(vocab=jcfg.vocab, seq_len=SEQ,
@@ -85,12 +85,9 @@ def runs(tmp_path_factory):
     return built, got
 
 
-@pytest.mark.parametrize("arch,n_micro,dp", CASES)
-def test_mesh_steps_match_jax_single_device(runs, arch, n_micro, dp):
-    built, got = runs
-    i = CASES.index((arch, n_micro, dp))
+def _hold_to_jax(built, got, i, arch, n_micro, kind="adamw"):
     (jcfg, _), (jp, _) = built[arch]
-    want_losses, want = _jax_run(jcfg, jp, n_micro)
+    want_losses, want = _jax_run(jcfg, jp, n_micro, kind)
     for r in range(4):
         losses = got[r][i]["losses"]
         assert np.allclose(losses, want_losses, rtol=1e-5, atol=0), \
@@ -103,6 +100,73 @@ def test_mesh_steps_match_jax_single_device(runs, arch, n_micro, dp):
         w = np.asarray(w, np.float64)
         err = np.linalg.norm(node - w) / np.linalg.norm(w)
         assert err <= 1e-4, (jax.tree_util.keystr(path), err)
+
+
+@pytest.mark.parametrize("arch,n_micro,dp", CASES)
+def test_mesh_steps_match_jax_single_device(runs, arch, n_micro, dp):
+    built, got = runs
+    _hold_to_jax(built, got, CASES.index((arch, n_micro, dp)), arch,
+                 n_micro)
+
+
+# AdaFactor on the same mesh: each factored leaf's row and column means
+# summed over the mesh axes that cut the leaf, its state placed by
+# ``optimizer.opt_specs``
+AF_CASES = [("demo-100m", 1, None), ("qwen3-moe-30b-a3b", 2, None),
+            ("demo-100m", 2, ("data", "model"))]
+
+
+@pytest.fixture(scope="module")
+def af_runs(tmp_path_factory):
+    built = {arch: (_cfgs(arch), _jparams(_cfgs(arch)[0])) for arch in
+             ARCHS}
+    af = dict(OPT, kind="adafactor")
+    cases = [(built[a][0][1], built[a][1][1], nm, af, dp)
+             for a, nm, dp in AF_CASES]
+    got = spawn("mesh_train", 4, tmp_path_factory.mktemp("mesh_af"),
+                dict(shape=(2, 2), cases=cases, steps=STEPS, batch=BATCH,
+                     seq=SEQ), timeout=180)
+    return built, got
+
+
+@pytest.mark.parametrize("arch,n_micro,dp", AF_CASES)
+def test_mesh_adafactor_steps_match_jax_single_device(af_runs, arch,
+                                                      n_micro, dp):
+    built, got = af_runs
+    _hold_to_jax(built, got, AF_CASES.index((arch, n_micro, dp)), arch,
+                 n_micro, "adafactor")
+
+
+@pytest.mark.parametrize("arch,n_micro,dp", AF_CASES)
+def test_mesh_adafactor_state_is_placed_by_opt_specs(af_runs, arch,
+                                                     n_micro, dp):
+    """Each rank holds its blocks of the bf16 first moment and of the
+    factored second moments as ``opt_specs`` places them (a row or column
+    vector replicated over the axes that cut the leaf's columns or rows:
+    every rank holding a block of a row holds that row's whole mean),
+    and the step counter advanced on every rank."""
+    from types import SimpleNamespace
+
+    from repro_torch import convert
+    from repro_torch.distributed import sharding as Sh
+    from repro_torch.models.lm import Model
+    from repro_torch.models.specs import params_specs
+    from repro_torch.train import optimizer as Opt
+    built, got = af_runs
+    i = AF_CASES.index((arch, n_micro, dp))
+    meta = params_specs(Model(built[arch][0][1]))
+    mesh = SimpleNamespace(shape={"data": 2, "model": 2},
+                           axis_names=("data", "model"))
+    ocfg = Opt.OptConfig(kind="adafactor")
+    state = Opt.init(ocfg, meta)
+    ospec = Opt.opt_specs(ocfg, Sh.param_specs(meta, mesh), meta)
+    want = [sum(Sh.shard_numel(t.shape, sp, mesh) for t, sp in zip(
+        convert.leaves(getattr(state, f)),
+        Sh.spec_leaves(getattr(ospec, f)))) for f in ("m", "v_row", "v_col")]
+    for r in range(4):
+        assert got[r][i]["state_numel"] == want
+        assert got[r][i]["step"] == STEPS
+    assert want[1] + want[2] < want[0] == got[0][i]["local_numel"]
 
 
 @pytest.mark.parametrize("arch,n_micro,dp", CASES)

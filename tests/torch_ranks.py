@@ -150,7 +150,8 @@ def mesh_train(rank, world, shape, cases, steps=3, batch=8, seq=16):
     """The mesh trainer on a ``shape`` (data, model) mesh: per case
     (config, JAX params as numpy, n_micro, OptConfig kwargs, the dp axes
     or None), ``steps`` steps of ``SyntheticLM`` batches from the
-    converted params."""
+    converted params; the local numel of the params and of each of the
+    optimizer state's moment trees."""
     from repro_torch import convert
     from repro_torch.distributed import sharding as Sh
     from repro_torch.launch.mesh import make_host_mesh
@@ -171,8 +172,9 @@ def mesh_train(rank, world, shape, cases, steps=3, batch=8, seq=16):
         want = sum(Sh.shard_numel(t.shape, sp, mesh) for t, sp in
                    zip(convert.leaves(full), Sh.spec_leaves(spec)))
         local = sum(dt.to_local().numel() for dt in convert.leaves(p))
-        moments = sum(dt.to_local().numel()
-                      for dt in convert.leaves(s.m) + convert.leaves(s.v))
+        state_numel = [sum(dt.to_local().numel() for dt in
+                           convert.leaves(f)) for f in s[1:]
+                       if f is not None]
         data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
                                       global_batch=batch), device="cpu")
         step = make_train_step(model, tr.opt_cfg, tr.tcfg, mesh=mesh,
@@ -185,7 +187,8 @@ def mesh_train(rank, world, shape, cases, steps=3, batch=8, seq=16):
         plan = tr.lower(data.batch(0))
         out.append(dict(
             losses=losses, local_numel=local, shard_numel=want,
-            moment_numel=moments, step=int(s.step),
+            moment_numel=sum(state_numel), state_numel=state_numel,
+            step=int(s.step),
             params=convert.to_numpy(whole) if rank == 0 else None,
             placements={".".join(path): str(dt.placements) for path, dt in
                         zip(Sh.leaf_paths(p), convert.leaves(p))},
