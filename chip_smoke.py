@@ -9,8 +9,9 @@ Phases:
 1. environment: a CUDA card, TF32 and bf16 reduced-precision reductions
    off, the card's name and power limit;
 2. build: every CUDA kernel of the port (``lstm_cell``,
-   ``flash_attention``, ``decode_attention``, ``moe_router``,
-   ``mamba_scan`` with its backward), from the sources in the checkout,
+   ``flash_attention`` with its backward, ``decode_attention``,
+   ``moe_router``, ``mamba_scan`` with its backward), from the sources
+   in the checkout,
    one ``nvcc`` per source, all started together;
 3. kernel vs plain: each kernel against its plain PyTorch version on the
    card, at the JAX test sweep's shapes and its path's shapes, and timed
@@ -30,8 +31,12 @@ Phases:
    one bf16 must fail; the scan's serving variant
    (``mamba_scan_with_state``, y and the final state) against its plain
    version and timed at falcon-mamba-7b's longest prefill; the flash
-   and router autograd Functions' gradients against autograd through
-   the plain versions, timed beside them and (flash) SDPA's backward;
+   Function's backward kernel (``flash_attention_bwd``) against its
+   plain version and autograd through the plain attention, a second call
+   bit for bit, at yi-6b's S = 2048 and the training layouts (GQA groups
+   1, 3, 6, 8, Sq != Sk, ragged), timed beside SDPA's backward; the
+   router's Function's gradient against autograd through its plain
+   version;
    flash and decode also at the GQA groups 3, 6 and 8 (64 heads) of the
    archs ported last, and the router at deepseek-v3's 256 experts;
    flash non-causal at Sq != Sk (seamless-m4t-large-v2's cross-attention
@@ -169,9 +174,10 @@ Phases:
    and ``repro_torch.launch.serve`` once at falcon-mamba-7b;
 12c. dense training: yi-6b at full width, an fp32 gate at 4 layers as
    phase 11's (attention through ``flash_attention``'s autograd Function,
-   2 launches per layer per step, none in the backward, against autograd
-   through the plain attention); bf16 at 8 layers, 2 x 2048 tokens, as
-   phase 12, with the plain attention backward's share of the step and
+   2 forward launches per layer per step and the backward kernel's 3,
+   against autograd through the plain attention); bf16 at 8 layers, 2 x
+   2048 tokens, as phase 12, with the attention backward's share of the
+   step and
    the plain path's loss curve from the same seed beside the kernels';
    ``repro_torch.launch.train`` once at its default arch, demo-100m;
 12d. MoE training: qwen3-moe-30b-a3b at full width, the fp32 gate at 2
@@ -337,7 +343,8 @@ from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
     BF16_EXCESS, bf16_rounding_excess)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    attention_ref, flash_attention)
+    attention_lse_ref, attention_ref, flash_attention, flash_attention_bwd,
+    flash_attention_bwd_ref)
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.lstm_cell import (  # noqa: E402
     lstm_cell, lstm_cell_ref)
@@ -434,6 +441,24 @@ FLASH_CROSS = [(1, 16, 16, sq, 1024, 64, False) for sq in (1, 12, 300, 3000)
                ] + [(1, 16, 16, 1024, 1024, 64, False)]
 # the Function's gradients: yi-6b's head layout at S = 2048
 FLASH_GRAD = (1, 32, 4, 2048, 128, True)
+# (b, h, hkv, sq, sk, d, causal): the backward kernel at the training
+# paths' other layouts: yi-6b / qwen3 (G = 8), minitron-4b / phi4-mini
+# (G = 3), internvl2-26b (G = 6, its 256 patches before 256 tokens),
+# seamless-m4t-large-v2's encoder self-attention and decoder cross-
+# attention over its 1024 frames (G = 1, D = 64, non-causal, Sq != Sk),
+# and ragged query and key edges (S = 100 and 77)
+FLASH_GRAD_SWEEP = [(2, 32, 4, 256, 256, 128, True),
+                    (2, 24, 8, 256, 256, 128, True),
+                    (1, 48, 8, 512, 512, 128, True),
+                    (1, 16, 16, 1024, 1024, 64, False),
+                    (2, 16, 16, 256, 1024, 64, False),
+                    (1, 32, 4, 100, 100, 128, True),
+                    (2, 16, 16, 77, 77, 64, True)]
+# the backward's gradients against both plain versions: fp32 within 1e-5
+# relative in norm; bf16 within ATTN_TOL elementwise and, in norm, within
+# twice SDPA's backward's own relative error on the same inputs
+FLASH_BWD_REL = 1e-5
+FLASH_BWD_SDPA_FACTOR = 2.0
 # timed: bf16 (the tensor-core kernel) at both long prefills, fp32 (the
 # CUDA-core kernel) at 2048
 FLASH_TIMED = {(2048, torch.bfloat16), (2048, torch.float32),
@@ -462,6 +487,10 @@ FLASH = dict(source="src/repro_torch/kernels/flash_attention/csrc/"
              "flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/flash_attention.py"
              ":36")
+# the backward has no Pallas kernel: it replaces the custom VJP's _bwd,
+# jax.vjp of the plain version
+FLASH_BWD = dict(source=FLASH["source"],
+                 replaces="src/repro/kernels/flash_attention/ops.py:57")
 DECODE = dict(source="src/repro_torch/kernels/decode_attention/csrc/"
               "decode_attention.cu",
               replaces="src/repro/kernels/decode_attention/"
@@ -626,8 +655,10 @@ GATE_STEPS = TIMED_STEPS = 3
 LM_OPT = dict(warmup_steps=5, total_steps=100)
 # the port's kernels by their names in a profiler trace
 OUR_KERNELS = ("flash_wgmma_kernel", "flash_attention_kernel",
-               "decode_kernel", "router_kernel", "scan_kernel",
-               "scan_bwd_kernel", "scan_bwd_reduce_kernel")
+               "flash_bwd_dq_wgmma", "flash_bwd_dkdv_wgmma",
+               "flash_bwd_dq_f32", "flash_bwd_dkdv_f32",
+               "flash_bwd_group_sum", "decode_kernel", "router_kernel",
+               "scan_kernel", "scan_bwd_kernel", "scan_bwd_reduce_kernel")
 
 
 # --------------------------------- phase 1 ---------------------------------
@@ -1337,85 +1368,170 @@ def check_scan_with_state() -> dict:
     return {"worst": worst, "timing": rows}
 
 
+def _norm_rel(got, want) -> float:
+    """||got - want|| / ||want||, in float64."""
+    want = want.double()
+    return ((got.double() - want).norm() / want.norm()).item()
+
+
 def check_flash_grad() -> dict:
-    """The flash Function's q, k and v gradients against autograd through
-    ``attention_ref`` (its backward is that VJP, recomputed) at yi-6b's
-    head layout and S = 2048, fp32 and bf16: within 1e-6 relative in norm
-    (reported whether bit for bit).  Timed: the Function's forward and
-    backward, the plain backward alone (the recompute and its VJP, which
-    is the Function's backward), SDPA's backward (``enable_gqa``, the
-    library yardstick) and SDPA's forward and backward."""
+    """The flash Function's backward kernel (``flash_attention_bwd``) at
+    yi-6b's head layout and S = 2048 (FLASH_GRAD), then across the
+    training layouts of FLASH_GRAD_SWEEP, fp32 and bf16: through the
+    Function, one forward and BWD_LAUNCHES_PER_CALL backward launches; its
+    gradients against ``flash_attention_bwd_ref`` (fed the forward
+    kernel's own o and lse) and against autograd through
+    ``attention_ref``: fp32 within FLASH_BWD_REL relative in norm, bf16
+    within ATTN_TOL elementwise and, in norm, within FLASH_BWD_SDPA_FACTOR
+    times SDPA's backward's (``enable_gqa``) own error against the same
+    reference; a second call bit for bit.  Timed at FLASH_GRAD: the
+    backward kernel alone beside its plain version, SDPA's backward (the
+    library yardstick) and the bound; the Function's forward and
+    backward, and autograd through ``attention_ref`` (the Function's
+    backward before the kernel)."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     b, h, hkv, s, d, causal = FLASH_GRAD
-    label = f"B={b} H={h} Hkv={hkv} S={s} D={d} causal={causal}"
-    rows, worst = [], {torch.float32: 0.0, torch.bfloat16: 0.0}
-    for dtype in (torch.float32, torch.bfloat16):
-        gen = torch.Generator().manual_seed(800)
-        q, k, v, g = (torch.randn(sh, generator=gen).to("cuda", dtype)
-                      for sh in ((b, h, s, d), (b, hkv, s, d),
-                                 (b, hkv, s, d), (b, h, s, d)))
-        xs = [t.clone().requires_grad_() for t in (q, k, v)]
-        ys = [t.clone().requires_grad_() for t in (q, k, v)]
-        zs = [t.clone().requires_grad_() for t in (q, k, v)]
-        before = flash_attention.launches
-        got = torch.autograd.grad(flash_attention(*xs, causal), xs, g)
-        torch.cuda.synchronize()
-        if flash_attention.launches != before + 1:
-            raise AssertionError("the flash Function did not launch once")
-        want = torch.autograd.grad(attention_ref(*ys, causal=causal), ys, g)
-        lib = torch.autograd.grad(sdpa(*zs, is_causal=causal,
-                                       enable_gqa=True), zs, g)
-        rel, bitwise = [], True
-        for name, a, w, c in zip("qkv", got, want, lib):
-            if not torch.isfinite(a.float()).all():
-                raise AssertionError(f"flash Function d{name}: non-finite")
-            r = ((a.double() - w.double()).norm()
-                 / w.double().norm()).item()
-            rel.append(r)
-            bitwise &= torch.equal(a, w)
-            worst[dtype] = max(worst[dtype],
-                               (a.float() - w.float()).abs().max().item())
-            torch.testing.assert_close(c.float(), w.float(),
-                                       **ATTN_TOL[torch.bfloat16])
-        if not max(rel) <= 1e-6:
-            raise AssertionError(f"flash Function gradients differ by {rel}")
-        out_s = sdpa(*zs, is_causal=causal, enable_gqa=True)
-        f1 = time_auto(lambda: torch.autograd.grad(
-            flash_attention(*xs, causal), xs, g))
-        p1 = time_auto(lambda: torch.autograd.grad(
-            attention_ref(*ys, causal=causal), ys, g))
-        s1 = time_auto(lambda: torch.autograd.grad(out_s, zs, g,
-                                                   retain_graph=True))
-        p2 = time_auto(lambda: torch.autograd.grad(
-            attention_ref(*ys, causal=causal), ys, g))
-        f2 = time_auto(lambda: torch.autograd.grad(
-            flash_attention(*xs, causal), xs, g))
-        sf = time_auto(lambda: torch.autograd.grad(
-            sdpa(*zs, is_causal=causal, enable_gqa=True), zs, g))
-        del out_s
-        flops, nbytes = flash_work(b, h, hkv, s, d, causal,
-                                   q.element_size())
-        # the backward's five products (S = Q K^T again, dP = dO V^T,
-        # dQ = dS K, dK = dS^T Q, dV = P^T dO): 2.5x the forward's FLOPs
-        # over the pairs the mask keeps; q, k, v, o, do read once and dq,
-        # dk, dv written once: twice the forward's bytes
-        bound_ms, bound_by = attn_bound(2.5 * flops, 2 * nbytes, dtype)
-        row = dict(shape=label, dtype=str(dtype)[6:], fwd_bwd_ms=min(f1, f2),
-                   plain_bwd_ms=min(p1, p2), sdpa_bwd_ms=s1,
-                   sdpa_fwd_bwd_ms=sf, bound_ms=bound_ms, bound_by=bound_by,
-                   grad_rel=max(rel), bitwise=bitwise)
-        rows.append(row)
-        print(f"[kernel] flash_attention Function {label} {row['dtype']}: "
-              f"dq, dk, dv against autograd through the plain version rel "
-              f"{[f'{r:.2e}' for r in rel]} (bound 1e-6), bit for bit "
-              f"{bitwise}; forward + backward {row['fwd_bwd_ms']:.3f} ms "
-              f"(runs {f1:.3f}, {f2:.3f}), of which the plain backward "
-              f"(recompute + VJP) {row['plain_bwd_ms']:.3f} ms; SDPA "
-              f"backward {s1:.3f} ms, SDPA forward + backward {sf:.3f} ms; "
-              f"backward bound {bound_ms:.4f} ms ({bound_by})")
-        del xs, ys, zs, got, want, lib
-        free_cuda()
-    return {"worst": worst, "timing": rows}
+    shapes = [(b, h, hkv, s, s, d, causal)] + FLASH_GRAD_SWEEP
+    rows, sweep = [], []
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    worst_rel = dict(worst)
+    for i, (b, h, hkv, sq, sk, d, causal) in enumerate(shapes):
+        label = (f"B={b} H={h} Hkv={hkv} Sq={sq} Sk={sk} D={d} "
+                 f"causal={causal}")
+        for dtype in (torch.float32, torch.bfloat16):
+            bf16 = dtype == torch.bfloat16
+            gen = torch.Generator().manual_seed(800 + i)
+            q, k, v, g = (torch.randn(sh, generator=gen).to("cuda", dtype)
+                          for sh in ((b, h, sq, d), (b, hkv, sk, d),
+                                     (b, hkv, sk, d), (b, h, sq, d)))
+            xs = [t.clone().requires_grad_() for t in (q, k, v)]
+            before = flash_attention.launches, flash_attention_bwd.launches
+            out = flash_attention(*xs, causal)
+            got = torch.autograd.grad(out, xs, g)
+            torch.cuda.synchronize()
+            fwd = 1 if bf16 else -(-(b * h) // 65535)
+            launched = (flash_attention.launches - before[0],
+                        flash_attention_bwd.launches - before[1])
+            if launched != (fwd, flash_ops.BWD_LAUNCHES_PER_CALL):
+                raise AssertionError(f"flash Function {label}: launches "
+                                     f"{launched}, expected {fwd} forward, "
+                                     f"{flash_ops.BWD_LAUNCHES_PER_CALL} "
+                                     f"backward")
+            o, lse = flash_ops._forward(q, k, v, causal, None, with_lse=True)
+            if not torch.equal(o, out.detach()):
+                raise AssertionError(f"flash forward {label}: o with lse "
+                                     f"differs from the Function's")
+            again = flash_attention_bwd(q, k, v, o, lse, g, causal)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, c) for a, c in zip(got, again)):
+                raise AssertionError(f"flash_attention_bwd {label}: two "
+                                     f"calls gave different gradients")
+            del again
+            refs = {"plain": flash_attention_bwd_ref(q, k, v, o, lse, g,
+                                                     causal)}
+            ys = [t.clone().requires_grad_() for t in (q, k, v)]
+            refs["autograd"] = torch.autograd.grad(
+                attention_ref(*ys, causal=causal), ys, g)
+            zs = [t.clone().requires_grad_() for t in (q, k, v)]
+            lib = (torch.autograd.grad(sdpa(*zs, is_causal=causal,
+                                            enable_gqa=True), zs, g)
+                   if bf16 else None)
+            rel, lib_rel = {}, {}
+            for ref, want in refs.items():
+                rel[ref] = [_norm_rel(a, w) for a, w in zip(got, want)]
+                bound = [FLASH_BWD_REL] * 3
+                if bf16:
+                    lib_rel[ref] = [_norm_rel(c, w)
+                                    for c, w in zip(lib, want)]
+                    bound = [FLASH_BWD_SDPA_FACTOR * r for r in lib_rel[ref]]
+                for name, a, w, r, bnd in zip("qkv", got, want, rel[ref],
+                                              bound):
+                    if not torch.isfinite(a.float()).all():
+                        raise AssertionError(f"flash_attention_bwd {label}: "
+                                             f"non-finite d{name}")
+                    if bf16:
+                        torch.testing.assert_close(a.float(), w.float(),
+                                                   **ATTN_TOL[dtype])
+                    if not r <= bnd:
+                        raise AssertionError(
+                            f"flash_attention_bwd {label} {str(dtype)[6:]}: "
+                            f"d{name} differs from the {ref} backward by "
+                            f"{r:.3e} in norm (bound {bnd:.3e})")
+                    worst[dtype] = max(worst[dtype],
+                                       (a.float() - w.float()).abs().max()
+                                       .item())
+                worst_rel[dtype] = max(worst_rel[dtype], *rel[ref])
+            flops, nbytes = flash_work(b, h, hkv, sq, d, causal,
+                                       q.element_size(), sk=sk)
+            # the backward's five products (dV = P^T dO, dP = dO V^T,
+            # S = Q K^T again, dQ = dS K, dK = dS^T Q): 2.5x the forward's
+            # FLOPs over the pairs the mask keeps; q, k, v, o, do and lse
+            # read once, dq, dk, dv written once
+            bound_ms, bound_by = attn_bound(2.5 * flops,
+                                            2 * nbytes + 4 * b * h * sq,
+                                            dtype)
+            row = dict(shape=label, dtype=str(dtype)[6:], rel=rel,
+                       sdpa_rel=lib_rel or None, bound_ms=bound_ms,
+                       bound_by=bound_by)
+            print(f"[kernel] flash_attention_bwd {label} {row['dtype']}: "
+                  f"dq, dk, dv rel in norm against the plain backward "
+                  f"{[f'{r:.2e}' for r in rel['plain']]}, against autograd "
+                  f"{[f'{r:.2e}' for r in rel['autograd']]}"
+                  + (f" (SDPA's {[f'{r:.2e}' for r in lib_rel['autograd']]};"
+                     f" bound {FLASH_BWD_SDPA_FACTOR}x SDPA's)" if bf16 else
+                     f" (bound {FLASH_BWD_REL})")
+                  + "; a second call equal bit for bit")
+            if i:
+                sweep.append(row)
+                del xs, ys, zs, got, refs, lib, out
+                continue
+            zs = [t.clone().requires_grad_() for t in (q, k, v)]
+            out_s = sdpa(*zs, is_causal=causal, enable_gqa=True)
+
+            def kernel():
+                return flash_attention_bwd(q, k, v, o, lse, g, causal)
+
+            def plain():
+                return flash_attention_bwd_ref(q, k, v, o, lse, g, causal)
+
+            def library():
+                return torch.autograd.grad(out_s, zs, g, retain_graph=True)
+
+            k1, p1 = time_auto(kernel), time_auto(plain)
+            s1, s2 = time_auto(library), time_auto(library)
+            p2, k2 = time_auto(plain), time_auto(kernel)
+            f1 = time_auto(lambda: torch.autograd.grad(
+                flash_attention(*xs, causal), xs, g))
+            a1 = time_auto(lambda: torch.autograd.grad(
+                attention_ref(*ys, causal=causal), ys, g))
+            passes = (("flash_bwd_dq_wgmma", "flash_bwd_dkdv_wgmma") if bf16
+                      else ("flash_bwd_dq_f32", "flash_bwd_dkdv_f32")) + (
+                "flash_bwd_group_sum",)
+            prof = profile_window(f"flash_attention_bwd {label} "
+                                  f"{str(dtype)[6:]}", kernel, 10,
+                                  need=passes)
+            row.update(ms=min(k1, k2), plain_ms=min(p1, p2),
+                       sdpa_bwd_ms=min(s1, s2), fwd_bwd_ms=f1,
+                       autograd_ms=a1, device_ms={
+                           n: prof["kernels"].get(n, {}).get("ms")
+                           for n in passes})
+            rows.append(row)
+            print(f"[kernel] flash_attention_bwd {label} {row['dtype']}: "
+                  f"kernel {row['ms']:.4f} ms (runs {k1:.4f}, {k2:.4f}; "
+                  f"device ms per pass {row['device_ms']}), "
+                  f"plain {row['plain_ms']:.3f} ms, SDPA backward "
+                  f"{row['sdpa_bwd_ms']:.4f} ms (runs {s1:.4f}, {s2:.4f}), "
+                  f"bound {bound_ms:.4f} ms ({bound_by}); the Function's "
+                  f"forward + backward {f1:.3f} ms, autograd through the "
+                  f"plain version (recompute + VJP) {a1:.3f} ms")
+            del xs, ys, zs, got, refs, lib, out, out_s
+            free_cuda()
+    print(f"[kernel] flash_attention_bwd largest error against the plain "
+          f"versions fp32 {worst[torch.float32]:.3e} (max abs), "
+          f"{worst_rel[torch.float32]:.3e} (in norm); bf16 "
+          f"{worst[torch.bfloat16]:.3e}, {worst_rel[torch.bfloat16]:.3e}")
+    return {"worst": worst, "worst_rel": worst_rel, "timing": rows,
+            "sweep": sweep}
 
 
 def check_router_grad() -> dict:
@@ -3220,6 +3336,7 @@ def plain_path():
 
 def kernel_launches() -> dict:
     return dict(flash_attention=flash_attention.launches,
+                flash_attention_bwd=flash_attention_bwd.launches,
                 decode_attention=decode_attention.launches,
                 moe_router=moe_router.launches, lstm_cell=lstm_cell.launches,
                 mamba_scan=mamba_scan.launches,
@@ -3228,7 +3345,8 @@ def kernel_launches() -> dict:
 
 
 def reset_launches() -> None:
-    flash_attention.launches = decode_attention.launches = 0
+    flash_attention.launches = flash_attention_bwd.launches = 0
+    decode_attention.launches = 0
     moe_router.launches = lstm_cell.launches = mamba_scan.launches = 0
     mamba_scan_bwd.launches = mamba_scan_with_state.launches = 0
 
@@ -3291,6 +3409,7 @@ def serve_engine(model: Model, params, prompts) -> dict:
     decoded = sum(len(r.out) - 1 for r in done)
     want = dict(flash_attention=(flash_per_forward(n) * len(prompts)
                                  + n["cross"] * decoded),
+                flash_attention_bwd=0,
                 decode_attention=LAUNCHES_PER_CALL * n["attn"] * decoded,
                 moe_router=n["moe"] * (len(prompts) + decoded), lstm_cell=0,
                 mamba_scan=0, mamba_scan_bwd=0,
@@ -4316,7 +4435,7 @@ def decode_graphs_phase(floor: float) -> dict:
 # -------------------------- training phases --------------------------------
 # Each family trains through its kernels: the SSM's scan forward and
 # backward kernels, attention through flash_attention's autograd Function
-# (the kernel forward, the plain version's VJP backward), the MoE router
+# (the forward and backward kernels), the MoE router
 # through moe_router's (the kernel forward, the weights' gradient at its
 # indices backward).
 
@@ -4362,11 +4481,14 @@ def tree_rel(got: dict, want: dict) -> tuple[float, float]:
 def train_launches(cfg, steps: int) -> dict:
     """Kernel launches of ``steps`` training steps: every layer's forward
     and its recompute in the backward launch its kernel (attention, each
-    MoE layer's router, the scan), the scan's backward its two; the
-    attention and router backwards are plain PyTorch."""
+    MoE layer's router, the scan); each attention call's backward and the
+    scan's launch their backward kernels (three and two); the router's
+    backward is plain PyTorch."""
     n = layer_counts(cfg)
     want = {k: 0 for k in kernel_launches()}
     want["flash_attention"] = 2 * flash_per_forward(n) * steps
+    want["flash_attention_bwd"] = (flash_ops.BWD_LAUNCHES_PER_CALL
+                                   * flash_per_forward(n) * steps)
     want["moe_router"] = 2 * n["moe"] * steps
     want["mamba_scan"] = 2 * n["ssm"] * steps
     want["mamba_scan_bwd"] = (scan_ops.BWD_LAUNCHES_PER_CALL * n["ssm"]
@@ -4557,8 +4679,9 @@ def train_gate(arch: str, n_layers: int, batch: int, seq: int,
           + f"; launches {shown} = 2 x "
           f"({flash_per_forward(n)} attention, {n['moe']} MoE, {n['ssm']} "
           f"SSM) layers "
-          f"x {GATE_STEPS} steps (forward and its recompute; the scan's "
-          f"backward {scan_ops.BWD_LAUNCHES_PER_CALL} per layer); "
+          f"x {GATE_STEPS} steps (forward and its recompute; the "
+          f"attention backward {flash_ops.BWD_LAUNCHES_PER_CALL} and the "
+          f"scan's {scan_ops.BWD_LAUNCHES_PER_CALL} per layer); "
           + (f"copies dropped by capacity {dropped} of "
              f"{GATE_STEPS * n['moe'] * batch * seq * cfg.top_k} routed "
              f"({GATE_STEPS} eager steps x {n['moe']} layers); " if n["moe"]
@@ -4749,7 +4872,7 @@ def train_timing(arch: str, n_layers: int, batch: int, seq: int,
     parts = "; ".join(
         f"the {k} backward {v:.1f} ms of it ({calls[k]} calls, "
         f"{100 * out['function_backward_share'][k]:.1f}%"
-        + (", the plain attention VJP" if k == "flash_attention" else "")
+        + (", the backward kernel" if k == "flash_attention" else "")
         + ")" for k, v in bwd_ms.items())
     print(f"[train] {cfg.name} bf16, {cfg.n_layers} layers, {batch} x "
           f"{seq} tokens per step: {step_ms:.1f} ms per step (warm median "
@@ -6797,6 +6920,27 @@ def main() -> None:
         kernels[i]["new_geometries"] = [
             r for r in res["timing"]
             if r["shape"] == "B={} L={} D={} N={}".format(*shape)]
+    # the attention backward: launches from yi-6b's fp32 training gate
+    # (three per attention call), times at FLASH_GRAD in bf16 (the
+    # config's own dtype); SDPA's backward is the library call, its
+    # errors beside the kernel's in each row
+    head = [r for r in flash_grad["timing"] if r["dtype"] == "bfloat16"][0]
+    kernels.append(dict(
+        name="flash_attention_bwd", route="cuda", **FLASH_BWD,
+        launches=dense_fp32["launches"]["flash_attention_bwd"],
+        max_abs_err=flash_grad["worst"][torch.float32],
+        max_abs_err_bf16=flash_grad["worst"][torch.bfloat16],
+        max_rel_err=flash_grad["worst_rel"][torch.float32],
+        max_rel_err_bf16=flash_grad["worst_rel"][torch.bfloat16],
+        ms=head["ms"], kernel_ms=head["ms"], plain_ms=head["plain_ms"],
+        autograd_ms=head["autograd_ms"], bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"], library_ms=head["sdpa_bwd_ms"],
+        shape=head["shape"], per_dtype=flash_grad["timing"],
+        sweep=flash_grad["sweep"],
+        launches_train_moe=moe_fp32["launches"]["flash_attention_bwd"],
+        launches_mesh_train=dist_rec["mesh_train"]["launches"][
+            "flash_attention_bwd"]))
+    new_arch_launches(7)
     print(json.dumps({"slice": slice_stats, "ms_per_interval": buckets}))
     print(json.dumps({"graphs": graphs}))
     print(json.dumps({"start_train_gate": start_gate,

@@ -50,7 +50,8 @@ import torch
 
 from repro_torch.convert import leaves, tree_map
 from repro_torch.kernels.decode_attention import decode_attention
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_bwd)
 from repro_torch.kernels.lstm_cell import lstm_cell
 from repro_torch.kernels.mamba_scan import (mamba_scan, mamba_scan_bwd,
                                             mamba_scan_with_state)
@@ -62,8 +63,9 @@ LOCK = threading.RLock()
 #: kernel wrappers whose launches a graph replays: each counts a launch
 #: recorded during capture in ``recorded``, and a replay adds the graph's
 #: recorded launches to ``launches``
-_COUNTED = (lstm_cell, decode_attention, flash_attention, moe_router,
-            mamba_scan, mamba_scan_bwd, mamba_scan_with_state)
+_COUNTED = (lstm_cell, decode_attention, flash_attention,
+            flash_attention_bwd, moe_router, mamba_scan, mamba_scan_bwd,
+            mamba_scan_with_state)
 
 #: process-wide: captures made, their wall ms, the device memory their
 #: pools reserved (bytes), and graph replays

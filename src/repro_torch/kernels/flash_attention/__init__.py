@@ -1,4 +1,7 @@
-from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                     flash_attention_bwd)
+from repro_torch.kernels.flash_attention.ref import (
+    attention_lse_ref, attention_ref, flash_attention_bwd_ref)
 
-__all__ = ["flash_attention", "attention_ref"]
+__all__ = ["flash_attention", "flash_attention_bwd", "attention_ref",
+           "attention_lse_ref", "flash_attention_bwd_ref"]

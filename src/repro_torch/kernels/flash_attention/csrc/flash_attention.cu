@@ -91,8 +91,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
-                       int n_heads, int group, int sq, int sk,
-                       float sm_scale, int causal, int bh0) {
+                       float* __restrict__ lse, int n_heads, int group,
+                       int sq, int sk, float sm_scale, int causal, int bh0) {
   constexpr int kChunks = D / (4 * kRowThreads);  // a thread's float4s
   __shared__ __align__(16) float ks[kBlockK * D];
   __shared__ __align__(16) float vs[kBlockK * D];
@@ -202,12 +202,14 @@ flash_attention_kernel(const float* __restrict__ q,
              make_float4(acc[c].x / denom, acc[c].y / denom,
                          acc[c].z / denom, acc[c].w / denom));
     }
+    if (lse != nullptr && part == 0)
+      lse[(size_t)bh * sq + qpos] = m + logf(denom);
   }
 }
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
-               int batch, int n_heads, int group, int sq, int sk,
+               void* lse, int batch, int n_heads, int group, int sq, int sk,
                float sm_scale, int causal, void* stream) {
   const int rows = batch * n_heads;
   for (int bh0 = 0; bh0 < rows; bh0 += kMaxGridY) {
@@ -215,7 +217,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
                     (unsigned)min(kMaxGridY, rows - bh0));
     flash_attention_kernel<D><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
         (const float*)q, (const float*)k, (const float*)v, (float*)o,
-        n_heads, group, sq, sk, sm_scale, causal, bh0);
+        (float*)lse, n_heads, group, sq, sk, sm_scale, causal, bh0);
     const int rc = (int)cudaGetLastError();
     if (rc != 0) return rc;
   }
@@ -230,6 +232,7 @@ constexpr int kStages = 2;                 // K/V tiles in flight
 constexpr int kConsumerWarps = 8;          // two warpgroups of 64 rows
 constexpr int kTcThreads = 32 * kConsumerWarps + 32;  // + the producer
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr long long kWatchdogCycles = 1ll << 32;  // ~2 s: a lost barrier
 
 template <int D>
@@ -379,6 +382,18 @@ template <> struct Wgmma<32> {
   }
 };
 template <> struct Wgmma<64> {
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t da,
+                                            uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : WG_D32(0)
+        : "l"(da), "l"(db), "r"(acc));
+  }
   static __device__ __forceinline__ void rs(float (&d)[32],
                                             const uint32_t (&a)[4],
                                             uint64_t db, int acc) {
@@ -451,8 +466,9 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                    const __grid_constant__ CUtensorMap map_k,
                    const __grid_constant__ CUtensorMap map_v,
-                   __nv_bfloat16* __restrict__ o, int n_heads, int group,
-                   int sq, int sk, float scale_log2, int causal) {
+                   __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                   int n_heads, int group, int sq, int sk, float scale_log2,
+                   int causal) {
   using T = Tiles<D>;
   constexpr int kSw = T::kSwizzle;
   extern __shared__ uint8_t smem_raw[];
@@ -622,6 +638,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   for (int h = 0; h < 2; ++h) {
     const int row = r + 8 * h;
     if (row >= sq) continue;
+    // the row's log-sum-exp, natural log: m is in the base-2 domain
+    if (lse != nullptr && lane % 4 == 0)
+      lse[(size_t)bh * sq + row] = (m[h] + log2f(l[h])) * kLn2;
     __nv_bfloat16* orow = o + ((size_t)bh * sq + row) * D + c;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
@@ -678,7 +697,7 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int rows, int heads,
 
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
-                int batch, int n_heads, int group, int sq, int sk,
+                void* lse, int batch, int n_heads, int group, int sq, int sk,
                 float sm_scale, int causal, void* stream) {
   if (encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap map_q, map_k, map_v;
@@ -695,13 +714,13 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
                   (unsigned)((sq + kRows - 1) / kRows));
   flash_wgmma_kernel<D><<<grid, kTcThreads, Tiles<D>::kSmem,
                           (cudaStream_t)stream>>>(
-      map_q, map_k, map_v, (__nv_bfloat16*)o, n_heads, group, sq, sk,
-      sm_scale * kLog2e, causal);
+      map_q, map_k, map_v, (__nv_bfloat16*)o, (float*)lse, n_heads, group,
+      sq, sk, sm_scale * kLog2e, causal);
   return (int)cudaGetLastError();
 }
 
-using Launcher = int (*)(const void*, const void*, const void*, void*, int,
-                         int, int, int, int, float, int, void*);
+using Launcher = int (*)(const void*, const void*, const void*, void*, void*,
+                         int, int, int, int, int, float, int, void*);
 
 Launcher launcher(int head_dim, bool bf16) {
   switch (head_dim) {
@@ -709,6 +728,800 @@ Launcher launcher(int head_dim, bool bf16) {
     case 32: return bf16 ? launch_bf16<32> : launch_f32<32>;
     case 64: return bf16 ? launch_bf16<64> : launch_f32<64>;
     case 128: return bf16 ? launch_bf16<128> : launch_f32<128>;
+    default: return nullptr;
+  }
+}
+
+// ------------------------------ backward ------------------------------
+//
+// dq, dk and dv of the forward's function (FlashAttention-2's backward),
+// from q, k, v, the forward's o and its row log-sum-exp lse (fp32,
+// natural log), and do:
+//
+//   P = exp(sm_scale S - lse), S = Q K^T     dV = P^T dO
+//   dP = dO V^T     dS = P (dP - delta), delta = rowsum(dO o)
+//   dQ = sm_scale dS K                       dK = sm_scale dS^T Q
+//
+// Three launches, no atomics, every sum in a fixed order (two calls give
+// the same bits):
+//
+//   1. the query pass, a block per (b, h, 64-query tile): delta of its
+//      rows (written out for pass 2), then over the key tiles the causal
+//      mask keeps, S and dP again, dS, and dQ += dS K; dq is written once.
+//   2. the key pass, a block per (b, h, 64-key tile): over the query
+//      tiles the mask keeps, S^T and dP^T again, dV += P^T dO and
+//      dK += dS^T Q; this query head's share of dk and dv goes to an fp32
+//      workspace (B, H, Sk, D) each.  A block per query head, not per KV
+//      head, fills the card: at yi-6b's S = 2048 a KV head's 32 key tiles
+//      make 4 * 32 = 128 blocks for 132 SMs, its query heads' 1024.
+//   3. the group sum: dk and dv of each KV head are the sum of its G
+//      query heads' shares, g = 0 .. G-1 in order, in the inputs' dtype.
+//
+// What bounds it: five products over the pairs the mask keeps, 2.5x the
+// forward's FLOPs (the two recomputed ones make it seven), against q, k,
+// v, o, do read once and dq, dk, dv written once; at yi-6b's layout that
+// is ~1,100 FLOP per byte, so operations bound it, as the forward.
+//
+// bf16: all products on wgmma, fed by TMA through the forward's 3-D maps
+// (64-row boxes), one consumer warpgroup (64 rows, wgmma's M) and one
+// producer warp a block.  The producer loads the block's two fixed tiles
+// (K and V in the key pass, Q and dO in the query pass) once, then streams
+// the other two tile by tile into a 2-stage ring with full and empty
+// mbarriers, as the forward does.  The score products are m64n64k16 with
+// both operands K-major in shared memory; P^T and dS (dS^T) are rounded
+// to bf16 in registers, where the accumulator is wgmma's A-fragment
+// layout, and multiply dO, Q or K read MN-major (the transpose bit), as
+// the forward's P V.  P itself stays fp32 for dS.  Only tiles on the
+// causal diagonal or at a ragged edge are masked.
+//
+// fp32: on the CUDA cores, IEEE fp32 FMAs, the same three passes: 4
+// threads a row as the forward, 32-row tiles of the streamed pair staged
+// in shared memory, and a row's two dot products (S and dP) summed over
+// its 4 lanes by shuffles.
+
+constexpr int kBwdRows = 64;                   // rows of every bf16 tile
+constexpr int kBwdThreads = 128 + 32;          // a warpgroup + the producer
+
+template <int D>
+struct BwdTiles {
+  static constexpr int kTile = kBwdRows * D * 2;          // 64 rows, bf16
+  // the block's two fixed tiles, then kStages pairs of streamed ones
+  static constexpr int kData = (2 + 2 * kStages) * kTile;
+  static constexpr int kBars = 1 + 2 * kStages;           // fixed, full, empty
+  // 1 KB to align to the swizzle's period, the barriers, delta's rows
+  static constexpr int kSmem = kData + 1024 + 8 * kBars + 4 * kBwdRows;
+};
+
+// Thread 0 sets up the fixed pair's barrier and the ring's full (one
+// arrival: the producer's, plus the bytes) and empty (the 4 consumer
+// warps) barriers.
+__device__ __forceinline__ void bwd_init_bars(uint32_t bar_f) {
+  if (threadIdx.x == 0) {
+    mbar_init(bar_f, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_f + 8 * (1 + s), 1);
+      mbar_init(bar_f + 8 * (1 + kStages + s), 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// The producer (one thread): the fixed tiles f1 and f2 at row f_row of
+// head f_head, then n tiles of the pair s1, s2 from row t0 * 64 of head
+// s_head into the ring.
+template <int D>
+__device__ __forceinline__ void bwd_produce(
+    const CUtensorMap* f1, const CUtensorMap* f2, int f_row, int f_head,
+    const CUtensorMap* s1, const CUtensorMap* s2, int s_head, int t0, int n,
+    uint32_t base) {
+  using T = Tiles<D>;
+  using B = BwdTiles<D>;
+  const uint32_t bar_f = base + B::kData;
+  mbar_expect_tx(bar_f, 2 * B::kTile);
+  for (int a = 0; a < T::kAtoms; ++a) {
+    const uint32_t off = a * kBwdRows * T::kSwizzle;
+    tma_load(f1, base + off, bar_f, a * T::kAtomCols, f_row, f_head);
+    tma_load(f2, base + B::kTile + off, bar_f, a * T::kAtomCols, f_row,
+             f_head);
+  }
+  for (int t = 0; t < n; ++t) {
+    const int s = t % kStages;
+    const uint32_t full = bar_f + 8 * (1 + s);
+    if (t >= kStages)
+      mbar_wait(bar_f + 8 * (1 + kStages + s), (t / kStages - 1) & 1);
+    mbar_expect_tx(full, 2 * B::kTile);
+    const uint32_t dst = base + (2 + 2 * s) * B::kTile;
+    for (int a = 0; a < T::kAtoms; ++a) {
+      const uint32_t off = a * kBwdRows * T::kSwizzle;
+      tma_load(s1, dst + off, full, a * T::kAtomCols, (t0 + t) * kBwdRows,
+               s_head);
+      tma_load(s2, dst + B::kTile + off, full, a * T::kAtomCols,
+               (t0 + t) * kBwdRows, s_head);
+    }
+  }
+}
+
+// Descriptor of a 64-row tile as a K-major operand at k16 step kk.
+template <int D>
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int kk) {
+  using T = Tiles<D>;
+  return smem_desc(tile + (kk / T::kStepsPerAtom) * kBwdRows * T::kSwizzle +
+                       32 * (kk % T::kStepsPerAtom),
+                   16, 8 * T::kSwizzle, T::kLayout);
+}
+
+// Descriptor of a 64-row tile as an MN-major B operand (its rows are the
+// product's K, its D columns the N) at k16 step kb: rows 16 kb ..
+template <int D>
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kb) {
+  using T = Tiles<D>;
+  return smem_desc(tile + 16 * kb * T::kSwizzle, kBwdRows * T::kSwizzle,
+                   8 * T::kSwizzle, T::kLayout);
+}
+
+// An m64n64 accumulator as the bf16 A fragments of the four k16 steps
+// over its 64 columns.
+__device__ __forceinline__ void to_frags(const float (&acc)[32],
+                                         uint32_t (&f)[4][4]) {
+#pragma unroll
+  for (int kb = 0; kb < 4; ++kb) {
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+      f[kb][x] = pack_bf16(acc[8 * kb + 2 * x], acc[8 * kb + 2 * x + 1]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap map_q,
+                   const __grid_constant__ CUtensorMap map_k,
+                   const __grid_constant__ CUtensorMap map_v,
+                   const __grid_constant__ CUtensorMap map_do,
+                   const __nv_bfloat16* __restrict__ o,
+                   const __nv_bfloat16* __restrict__ dout,
+                   const float* __restrict__ lse, float* __restrict__ delta,
+                   __nv_bfloat16* __restrict__ dq, int n_heads, int group,
+                   int sq, int sk, float scale_log2, float sm_scale,
+                   int causal) {
+  using B = BwdTiles<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar_f = base + B::kData;
+  float* delta_s = reinterpret_cast<float*>(
+      smem_raw + (bar_f + 8 * B::kBars - smem_u32(smem_raw)));
+  const uint32_t s_q = base, s_do = base + B::kTile;
+
+  const int bh = blockIdx.x;                         // b * n_heads + h
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBwdRows;  // heaviest first
+  const int b = bh / n_heads;
+  const int bkv = b * (n_heads / group) + (bh - b * n_heads) / group;
+  const int k_end = causal ? min(sk, q0 + kBwdRows) : sk;
+  const int n = (k_end + kBwdRows - 1) / kBwdRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  bwd_init_bars(bar_f);
+  if (warp == 4) {
+    if (lane == 0)
+      bwd_produce<D>(&map_q, &map_do, q0, bh, &map_k, &map_v, bkv, 0, n,
+                     base);
+    return;
+  }
+
+  // delta of the block's rows, two threads a row, D / 2 columns each
+  {
+    const int row = threadIdx.x / 2, half = threadIdx.x % 2;
+    const int qpos = q0 + row;
+    float sum = 0.f;
+    if (qpos < sq) {
+      const size_t off = ((size_t)bh * sq + qpos) * D + half * (D / 2);
+#pragma unroll
+      for (int x = 0; x < D / 16; ++x) {
+        const uint4 ov = *reinterpret_cast<const uint4*>(o + off + 8 * x);
+        const uint4 gv = *reinterpret_cast<const uint4*>(dout + off + 8 * x);
+        const auto* op = reinterpret_cast<const __nv_bfloat162*>(&ov);
+        const auto* gp = reinterpret_cast<const __nv_bfloat162*>(&gv);
+#pragma unroll
+        for (int y = 0; y < 4; ++y) {
+          const float2 a = __bfloat1622float2(op[y]);
+          const float2 g = __bfloat1622float2(gp[y]);
+          sum = fmaf(a.x, g.x, sum);
+          sum = fmaf(a.y, g.y, sum);
+        }
+      }
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    if (half == 0) {
+      delta_s[row] = sum;
+      if (qpos < sq) delta[(size_t)bh * sq + qpos] = sum;
+    }
+  }
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");  // the consumer warps
+
+  // this thread's rows r and r + 8 (accumulator layout as the forward's)
+  const int r = 16 * warp + lane / 4;
+  const int c = 2 * (lane % 4);
+  const float inf = __int_as_float(0x7f800000);
+  float ll[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qpos = q0 + r + 8 * h;
+    dl[h] = delta_s[r + 8 * h];
+    // a row past sq gets P = 2^-inf = 0
+    ll[h] = qpos < sq ? lse[(size_t)bh * sq + qpos] * kLog2e : inf;
+  }
+  float acc_dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_dq[i] = 0.f;
+
+  mbar_wait(bar_f, 0);
+  for (int t = 0; t < n; ++t) {
+    const int s = t % kStages;
+    const int k0 = t * kBwdRows;
+    const uint32_t s_k = base + (2 + 2 * s) * B::kTile, s_v = s_k + B::kTile;
+    mbar_wait(bar_f + 8 * (1 + s), (t / kStages) & 1);
+    __syncwarp();
+
+    // S = Q K^T and dP = dO V^T
+    float acc_s[32], acc_dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc_s[i] = acc_dp[i] = 0.f;
+    fence_regs(acc_s);
+    fence_regs(acc_dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      Wgmma<64>::ss(acc_s, kmajor<D>(s_q, kk), kmajor<D>(s_k, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      Wgmma<64>::ss(acc_dp, kmajor<D>(s_do, kk), kmajor<D>(s_v, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc_s);
+    fence_regs(acc_dp);
+
+    // dS = P (dP - delta), P = 2^(S sm_scale log2 e - lse log2 e)
+    const bool edge = k0 + kBwdRows > sk || (causal && k0 + kBwdRows - 1 > q0);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i / 2) % 2;
+      const int kpos = k0 + 8 * (i / 4) + c + (i % 2);
+      const int qpos = q0 + r + 8 * h;
+      const bool valid = !edge || (kpos < sk && !(causal && kpos > qpos));
+      const float p = valid ? ex2(fmaf(acc_s[i], scale_log2, -ll[h])) : 0.f;
+      acc_dp[i] = p * (acc_dp[i] - dl[h]);
+    }
+    uint32_t frag[4][4];
+    to_frags(acc_dp, frag);
+
+    // dQ += dS K, K read MN-major
+    fence_regs(acc_dq);
+    wgmma_fence();
+#pragma unroll
+    for (int kb = 0; kb < 4; ++kb)
+      Wgmma<D>::rs(acc_dq, frag[kb], mnmajor<D>(s_k, kb), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc_dq);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_f + 8 * (1 + kStages + s));
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + r + 8 * h;
+    if (row >= sq) continue;
+    __nv_bfloat16* out = dq + ((size_t)bh * sq + row) * D + c;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(out + 8 * j) =
+          pack_bf16(acc_dq[4 * j + 2 * h] * sm_scale,
+                    acc_dq[4 * j + 2 * h + 1] * sm_scale);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap map_q,
+                     const __grid_constant__ CUtensorMap map_k,
+                     const __grid_constant__ CUtensorMap map_v,
+                     const __grid_constant__ CUtensorMap map_do,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     float* __restrict__ dk_ws, float* __restrict__ dv_ws,
+                     int n_heads, int group, int sq, int sk,
+                     float scale_log2, float sm_scale, int causal) {
+  using B = BwdTiles<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar_f = base + B::kData;
+  const uint32_t s_k = base, s_v = base + B::kTile;
+
+  const int bh = blockIdx.x;                         // b * n_heads + h
+  const int k0 = blockIdx.y * kBwdRows;
+  const int b = bh / n_heads;
+  const int bkv = b * (n_heads / group) + (bh - b * n_heads) / group;
+  // query tiles wholly before key k0 are in its causal past: masked
+  const int t0 = causal ? k0 / kBwdRows : 0;
+  const int n = max(0, (sq + kBwdRows - 1) / kBwdRows - t0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  bwd_init_bars(bar_f);
+  if (warp == 4) {
+    if (lane == 0 && n > 0)
+      bwd_produce<D>(&map_k, &map_v, k0, bkv, &map_q, &map_do, bh, t0, n,
+                     base);
+    return;
+  }
+
+  // this thread's key rows r and r + 8, query columns 8 j + c + e
+  const int r = 16 * warp + lane / 4;
+  const int c = 2 * (lane % 4);
+  const float inf = __int_as_float(0x7f800000);
+  const float* lse_bh = lse + (size_t)bh * sq;
+  const float* delta_bh = delta + (size_t)bh * sq;
+  float acc_dk[D / 2], acc_dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+
+  if (n > 0) mbar_wait(bar_f, 0);
+  for (int t = 0; t < n; ++t) {
+    const int s = t % kStages;
+    const int q0 = (t0 + t) * kBwdRows;
+    const uint32_t s_q = base + (2 + 2 * s) * B::kTile, s_do = s_q + B::kTile;
+    mbar_wait(bar_f + 8 * (1 + s), (t / kStages) & 1);
+    __syncwarp();
+
+    // S^T = K Q^T
+    float acc_s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc_s[i] = 0.f;
+    fence_regs(acc_s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      Wgmma<64>::ss(acc_s, kmajor<D>(s_k, kk), kmajor<D>(s_q, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc_s);
+
+    // P^T, fp32, zero where masked
+    const bool edge = q0 + kBwdRows > sq || k0 + kBwdRows > sk ||
+                      (causal && k0 + kBwdRows - 1 > q0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int qpos = q0 + 8 * j + c + e;
+        const float ll = qpos < sq ? lse_bh[qpos] * kLog2e : inf;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 4 * j + 2 * h + e;
+          const int kpos = k0 + r + 8 * h;
+          const bool valid =
+              !edge || (qpos < sq && kpos < sk && !(causal && kpos > qpos));
+          acc_s[i] = valid ? ex2(fmaf(acc_s[i], scale_log2, -ll)) : 0.f;
+        }
+      }
+    }
+    uint32_t frag[4][4];
+    to_frags(acc_s, frag);
+
+    // dP^T = V dO^T, and dV += P^T dO (dO read MN-major)
+    float acc_dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc_dp[i] = 0.f;
+    fence_regs(acc_dp);
+    fence_regs(acc_dv);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      Wgmma<64>::ss(acc_dp, kmajor<D>(s_v, kk), kmajor<D>(s_do, kk), kk > 0);
+#pragma unroll
+    for (int kb = 0; kb < 4; ++kb)
+      Wgmma<D>::rs(acc_dv, frag[kb], mnmajor<D>(s_do, kb), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc_dp);
+    fence_regs(acc_dv);
+
+    // dS^T = P^T (dP^T - delta)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int qpos = q0 + 8 * j + c + e;
+        const float dl = qpos < sq ? delta_bh[qpos] : 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 4 * j + 2 * h + e;
+          acc_dp[i] = acc_s[i] * (acc_dp[i] - dl);
+        }
+      }
+    }
+    to_frags(acc_dp, frag);
+
+    // dK += dS^T Q (Q read MN-major)
+    fence_regs(acc_dk);
+    wgmma_fence();
+#pragma unroll
+    for (int kb = 0; kb < 4; ++kb)
+      Wgmma<D>::rs(acc_dk, frag[kb], mnmajor<D>(s_q, kb), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc_dk);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_f + 8 * (1 + kStages + s));
+  }
+
+  // this query head's share of dK (times sm_scale) and dV
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int kpos = k0 + r + 8 * h;
+    if (kpos >= sk) continue;
+    const size_t off = ((size_t)bh * sk + kpos) * D + c;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<float2*>(dk_ws + off + 8 * j) =
+          make_float2(acc_dk[4 * j + 2 * h] * sm_scale,
+                      acc_dk[4 * j + 2 * h + 1] * sm_scale);
+      *reinterpret_cast<float2*>(dv_ws + off + 8 * j) =
+          make_float2(acc_dv[4 * j + 2 * h], acc_dv[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+// fp32, CUDA cores: the query pass, a block per (b, h, 64-query tile) on
+// grid (x, y), 4 threads a row as the forward.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ o,
+                 const float* __restrict__ dout,
+                 const float* __restrict__ lse, float* __restrict__ delta,
+                 float* __restrict__ dq, int n_heads, int group, int sq,
+                 int sk, float sm_scale, int causal) {
+  constexpr int kChunks = D / (4 * kRowThreads);
+  __shared__ __align__(16) float ks[kBlockK * D];
+  __shared__ __align__(16) float vs[kBlockK * D];
+
+  const int bh = blockIdx.x;
+  const int q0 = blockIdx.y * kBlockQ;
+  const int b = bh / n_heads;
+  const int h = bh - b * n_heads;
+  const size_t kv_base =
+      ((size_t)b * (n_heads / group) + h / group) * (size_t)sk * D;
+  const float* kp = k + kv_base;
+  const float* vp = v + kv_base;
+
+  const int t = threadIdx.x;
+  const int row = t / kRowThreads;
+  const int part = t % kRowThreads;
+  const int qpos = q0 + row;
+  const bool active = qpos < sq;
+  const size_t q_off = ((size_t)bh * sq + (active ? qpos : 0)) * D;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  float4 qr[kChunks], gr[kChunks], acc[kChunks];
+  float dl = 0.f;
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    const int col = 4 * (part + kRowThreads * c);
+    qr[c] = active ? load4(q + q_off + col) : zero;
+    gr[c] = active ? load4(dout + q_off + col) : zero;
+    const float4 oo = active ? load4(o + q_off + col) : zero;
+    dl = fmaf(gr[c].x, oo.x, dl);
+    dl = fmaf(gr[c].y, oo.y, dl);
+    dl = fmaf(gr[c].z, oo.z, dl);
+    dl = fmaf(gr[c].w, oo.w, dl);
+    acc[c] = zero;
+  }
+  dl += __shfl_xor_sync(0xffffffffu, dl, 1);
+  dl += __shfl_xor_sync(0xffffffffu, dl, 2);
+  if (active && part == 0) delta[(size_t)bh * sq + qpos] = dl;
+  const float lr = active ? lse[(size_t)bh * sq + qpos] : 0.f;
+
+  const int q_last = min(q0 + kBlockQ, sq) - 1;
+  const int k_end = causal ? min(sk, q_last + 1) : sk;
+  for (int k0 = 0; k0 < k_end; k0 += kBlockK) {
+    __syncthreads();
+    for (int i = t; i < kBlockK * D / 4; i += kThreads) {
+      const int j = (4 * i) / D;
+      const int col = 4 * i - j * D;
+      const bool in = k0 + j < sk;
+      const size_t off = (size_t)(k0 + j) * D + col;
+      store4(ks + 4 * i, in ? load4(kp + off) : zero);
+      store4(vs + 4 * i, in ? load4(vp + off) : zero);
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int j = 0; j < kBlockK; ++j) {
+      const float* kr = ks + j * D;
+      const float* vr = vs + j * D;
+      float s = 0.f, dp = 0.f;
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) {
+        const int col = 4 * (part + kRowThreads * c);
+        const float4 kk = load4(kr + col);
+        const float4 vv = load4(vr + col);
+        s = fmaf(qr[c].x, kk.x, s);
+        s = fmaf(qr[c].y, kk.y, s);
+        s = fmaf(qr[c].z, kk.z, s);
+        s = fmaf(qr[c].w, kk.w, s);
+        dp = fmaf(gr[c].x, vv.x, dp);
+        dp = fmaf(gr[c].y, vv.y, dp);
+        dp = fmaf(gr[c].z, vv.z, dp);
+        dp = fmaf(gr[c].w, vv.w, dp);
+      }
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      dp += __shfl_xor_sync(0xffffffffu, dp, 1);
+      dp += __shfl_xor_sync(0xffffffffu, dp, 2);
+      const int kpos = k0 + j;
+      const bool valid = kpos < sk && (!causal || qpos >= kpos);
+      const float p = valid ? expf(s * sm_scale - lr) : 0.f;
+      const float ds = p * (dp - dl);
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) {
+        const float4 kk = load4(kr + 4 * (part + kRowThreads * c));
+        acc[c].x = fmaf(ds, kk.x, acc[c].x);
+        acc[c].y = fmaf(ds, kk.y, acc[c].y);
+        acc[c].z = fmaf(ds, kk.z, acc[c].z);
+        acc[c].w = fmaf(ds, kk.w, acc[c].w);
+      }
+    }
+  }
+  if (active) {
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c)
+      store4(dq + q_off + 4 * (part + kRowThreads * c),
+             make_float4(acc[c].x * sm_scale, acc[c].y * sm_scale,
+                         acc[c].z * sm_scale, acc[c].w * sm_scale));
+  }
+}
+
+// fp32, CUDA cores: the key pass, a block per (b, h, 64-key tile), 4
+// threads a key row; Q and dO rows (with their lse and delta) staged 32
+// at a time.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v,
+                   const float* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta,
+                   float* __restrict__ dk_ws, float* __restrict__ dv_ws,
+                   int n_heads, int group, int sq, int sk, float sm_scale,
+                   int causal) {
+  constexpr int kChunks = D / (4 * kRowThreads);
+  __shared__ __align__(16) float qs[kBlockK * D];
+  __shared__ __align__(16) float gs[kBlockK * D];
+  __shared__ float ls[kBlockK], dls[kBlockK];
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kBlockQ;
+  const int b = bh / n_heads;
+  const int h = bh - b * n_heads;
+  const size_t kv_base =
+      ((size_t)b * (n_heads / group) + h / group) * (size_t)sk * D;
+  const float* qp = q + (size_t)bh * sq * D;
+  const float* gp = dout + (size_t)bh * sq * D;
+
+  const int t = threadIdx.x;
+  const int row = t / kRowThreads;
+  const int part = t % kRowThreads;
+  const int kpos = k0 + row;
+  const bool active = kpos < sk;
+  const size_t k_off = kv_base + (size_t)(active ? kpos : 0) * D;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  float4 kr[kChunks], vr[kChunks], adk[kChunks], adv[kChunks];
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    const int col = 4 * (part + kRowThreads * c);
+    kr[c] = active ? load4(k + k_off + col) : zero;
+    vr[c] = active ? load4(v + k_off + col) : zero;
+    adk[c] = adv[c] = zero;
+  }
+
+  // queries before the block's first key are all in its causal past
+  const int i_begin = causal ? k0 - k0 % kBlockK : 0;
+  for (int i0 = i_begin; i0 < sq; i0 += kBlockK) {
+    __syncthreads();
+    for (int i = t; i < kBlockK * D / 4; i += kThreads) {
+      const int j = (4 * i) / D;
+      const int col = 4 * i - j * D;
+      const bool in = i0 + j < sq;
+      const size_t off = (size_t)(i0 + j) * D + col;
+      store4(qs + 4 * i, in ? load4(qp + off) : zero);
+      store4(gs + 4 * i, in ? load4(gp + off) : zero);
+    }
+    if (t < kBlockK) {
+      const bool in = i0 + t < sq;
+      ls[t] = in ? lse[(size_t)bh * sq + i0 + t] : 0.f;
+      dls[t] = in ? delta[(size_t)bh * sq + i0 + t] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int j = 0; j < kBlockK; ++j) {
+      const float* qrow = qs + j * D;
+      const float* grow = gs + j * D;
+      float s = 0.f, dp = 0.f;
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) {
+        const int col = 4 * (part + kRowThreads * c);
+        const float4 qq = load4(qrow + col);
+        const float4 gg = load4(grow + col);
+        s = fmaf(kr[c].x, qq.x, s);
+        s = fmaf(kr[c].y, qq.y, s);
+        s = fmaf(kr[c].z, qq.z, s);
+        s = fmaf(kr[c].w, qq.w, s);
+        dp = fmaf(vr[c].x, gg.x, dp);
+        dp = fmaf(vr[c].y, gg.y, dp);
+        dp = fmaf(vr[c].z, gg.z, dp);
+        dp = fmaf(vr[c].w, gg.w, dp);
+      }
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      dp += __shfl_xor_sync(0xffffffffu, dp, 1);
+      dp += __shfl_xor_sync(0xffffffffu, dp, 2);
+      const int qpos = i0 + j;
+      const bool valid = qpos < sq && active && (!causal || qpos >= kpos);
+      const float p = valid ? expf(s * sm_scale - ls[j]) : 0.f;
+      const float ds = p * (dp - dls[j]);
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) {
+        const int col = 4 * (part + kRowThreads * c);
+        const float4 qq = load4(qrow + col);
+        const float4 gg = load4(grow + col);
+        adv[c].x = fmaf(p, gg.x, adv[c].x);
+        adv[c].y = fmaf(p, gg.y, adv[c].y);
+        adv[c].z = fmaf(p, gg.z, adv[c].z);
+        adv[c].w = fmaf(p, gg.w, adv[c].w);
+        adk[c].x = fmaf(ds, qq.x, adk[c].x);
+        adk[c].y = fmaf(ds, qq.y, adk[c].y);
+        adk[c].z = fmaf(ds, qq.z, adk[c].z);
+        adk[c].w = fmaf(ds, qq.w, adk[c].w);
+      }
+    }
+  }
+  if (active) {
+    const size_t off = ((size_t)bh * sk + kpos) * D;
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const int col = 4 * (part + kRowThreads * c);
+      store4(dk_ws + off + col,
+             make_float4(adk[c].x * sm_scale, adk[c].y * sm_scale,
+                         adk[c].z * sm_scale, adk[c].w * sm_scale));
+      store4(dv_ws + off + col, adv[c]);
+    }
+  }
+}
+
+__device__ __forceinline__ void store4_as(float* p, float4 x) {
+  store4(p, x);
+}
+__device__ __forceinline__ void store4_as(__nv_bfloat16* p, float4 x) {
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
+}
+
+// dk and dv of each KV head: its G query heads' shares summed in order,
+// 4 elements a thread, in the output's dtype.
+template <typename T>
+__global__ void __launch_bounds__(256)
+flash_bwd_group_sum(const float* __restrict__ dk_ws,
+                    const float* __restrict__ dv_ws, T* __restrict__ dk,
+                    T* __restrict__ dv, long long n4, long long head4,
+                    int group) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < n4; i += (long long)gridDim.x * blockDim.x) {
+    const long long bkv = i / head4;
+    const long long src = bkv * group * head4 + (i - bkv * head4);
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), w = a;
+    for (int g = 0; g < group; ++g) {
+      const float4 x = load4(dk_ws + 4 * (src + g * head4));
+      const float4 y = load4(dv_ws + 4 * (src + g * head4));
+      a.x += x.x; a.y += x.y; a.z += x.z; a.w += x.w;
+      w.x += y.x; w.y += y.y; w.z += y.z; w.w += y.w;
+    }
+    store4_as(dk + 4 * i, a);
+    store4_as(dv + 4 * i, w);
+  }
+}
+
+template <typename T>
+int launch_group_sum(const float* ws, void* dk, void* dv, int batch,
+                     int n_heads, int group, int sk, int d,
+                     cudaStream_t stream) {
+  const long long per = (long long)batch * n_heads * sk * d;
+  const long long n4 = per / group / 4;
+  const long long blocks = min((n4 + 255) / 256, 132ll * 16);
+  flash_bwd_group_sum<T><<<(unsigned)blocks, 256, 0, stream>>>(
+      ws, ws + per, (T*)dk, (T*)dv, n4, (long long)sk * d / 4, group);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int bwd_f32(const void* q, const void* k, const void* v, const void* o,
+            const void* lse, const void* dout, void* dq, void* dk, void* dv,
+            void* delta, void* ws, int batch, int n_heads, int group, int sq,
+            int sk, float sm_scale, int causal, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const unsigned rows = (unsigned)(batch * n_heads);
+  const size_t per = (size_t)batch * n_heads * sk * D;
+  flash_bwd_dq_f32<D><<<dim3(rows, (sq + kBlockQ - 1) / kBlockQ), kThreads,
+                        0, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)o,
+      (const float*)dout, (const float*)lse, (float*)delta, (float*)dq,
+      n_heads, group, sq, sk, sm_scale, causal);
+  int rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  flash_bwd_dkdv_f32<D><<<dim3(rows, (sk + kBlockQ - 1) / kBlockQ),
+                          kThreads, 0, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+      (const float*)lse, (const float*)delta, (float*)ws,
+      (float*)ws + per, n_heads, group, sq, sk, sm_scale, causal);
+  rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  return launch_group_sum<float>((const float*)ws, dk, dv, batch, n_heads,
+                                 group, sk, D, st);
+}
+
+template <int D>
+int bwd_bf16(const void* q, const void* k, const void* v, const void* o,
+             const void* lse, const void* dout, void* dq, void* dk, void* dv,
+             void* delta, void* ws, int batch, int n_heads, int group,
+             int sq, int sk, float sm_scale, int causal, void* stream) {
+  using B = BwdTiles<D>;
+  if (encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
+  const cudaStream_t st = (cudaStream_t)stream;
+  CUtensorMap map_q, map_k, map_v, map_do;
+  const int n_kv = batch * (n_heads / group);
+  if (!tensor_map<D>(&map_q, q, sq, batch * n_heads, kBwdRows) ||
+      !tensor_map<D>(&map_do, dout, sq, batch * n_heads, kBwdRows) ||
+      !tensor_map<D>(&map_k, k, sk, n_kv, kBwdRows) ||
+      !tensor_map<D>(&map_v, v, sk, n_kv, kBwdRows))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t rc = cudaFuncSetAttribute(
+      flash_bwd_dq_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      B::kSmem);
+  if (rc != cudaSuccess) return (int)rc;
+  rc = cudaFuncSetAttribute(flash_bwd_dkdv_wgmma<D>,
+                            cudaFuncAttributeMaxDynamicSharedMemorySize,
+                            B::kSmem);
+  if (rc != cudaSuccess) return (int)rc;
+  const unsigned rows = (unsigned)(batch * n_heads);
+  const size_t per = (size_t)batch * n_heads * sk * D;
+  const float scale_log2 = sm_scale * kLog2e;
+  flash_bwd_dq_wgmma<D><<<dim3(rows, (sq + kBwdRows - 1) / kBwdRows),
+                          kBwdThreads, B::kSmem, st>>>(
+      map_q, map_k, map_v, map_do, (const __nv_bfloat16*)o,
+      (const __nv_bfloat16*)dout, (const float*)lse, (float*)delta,
+      (__nv_bfloat16*)dq, n_heads, group, sq, sk, scale_log2, sm_scale,
+      causal);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  flash_bwd_dkdv_wgmma<D><<<dim3(rows, (sk + kBwdRows - 1) / kBwdRows),
+                            kBwdThreads, B::kSmem, st>>>(
+      map_q, map_k, map_v, map_do, (const float*)lse, (const float*)delta,
+      (float*)ws, (float*)ws + per, n_heads, group, sq, sk, scale_log2,
+      sm_scale, causal);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  return launch_group_sum<__nv_bfloat16>((const float*)ws, dk, dv, batch,
+                                         n_heads, group, sk, D, st);
+}
+
+using BwdLauncher = int (*)(const void*, const void*, const void*,
+                            const void*, const void*, const void*, void*,
+                            void*, void*, void*, void*, int, int, int, int,
+                            int, float, int, void*);
+
+BwdLauncher bwd_launcher(int head_dim, bool bf16) {
+  switch (head_dim) {
+    case 16: return bf16 ? bwd_bf16<16> : bwd_f32<16>;
+    case 32: return bf16 ? bwd_bf16<32> : bwd_f32<32>;
+    case 64: return bf16 ? bwd_bf16<64> : bwd_f32<64>;
+    case 128: return bf16 ? bwd_bf16<128> : bwd_f32<128>;
     default: return nullptr;
   }
 }
@@ -724,23 +1537,53 @@ Launcher launcher(int head_dim, bool bf16) {
 // fp32 one launches once per 65535 of batch * n_heads; the bf16 one once,
 // its launch failing past 65535 tiles of 128 queries (its grid y).
 extern "C" int flash_attention_f32(const void* q, const void* k,
-                                   const void* v, void* o, int batch,
-                                   int n_heads, int group, int sq, int sk,
-                                   int head_dim, float sm_scale, int causal,
-                                   void* stream) {
+                                   const void* v, void* o, void* lse,
+                                   int batch, int n_heads, int group, int sq,
+                                   int sk, int head_dim, float sm_scale,
+                                   int causal, void* stream) {
   const Launcher fn = launcher(head_dim, false);
-  return fn ? fn(q, k, v, o, batch, n_heads, group, sq, sk, sm_scale, causal,
-                 stream)
+  return fn ? fn(q, k, v, o, lse, batch, n_heads, group, sq, sk, sm_scale,
+                 causal, stream)
             : (int)cudaErrorInvalidValue;
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k,
-                                    const void* v, void* o, int batch,
-                                    int n_heads, int group, int sq, int sk,
-                                    int head_dim, float sm_scale, int causal,
-                                    void* stream) {
+                                    const void* v, void* o, void* lse,
+                                    int batch, int n_heads, int group, int sq,
+                                    int sk, int head_dim, float sm_scale,
+                                    int causal, void* stream) {
   const Launcher fn = launcher(head_dim, true);
-  return fn ? fn(q, k, v, o, batch, n_heads, group, sq, sk, sm_scale, causal,
-                 stream)
+  return fn ? fn(q, k, v, o, lse, batch, n_heads, group, sq, sk, sm_scale,
+                 causal, stream)
+            : (int)cudaErrorInvalidValue;
+}
+
+// The backward: dq, dk, dv (the inputs' dtype) of the function above for
+// the output gradient dout, from q, k, v, the forward's o and lse (fp32,
+// (B, H, Sq)); delta (fp32, (B, H, Sq)) and ws (fp32, 2 * B * H * Sk * D)
+// are scratch.  Three launches in order (the query pass, the key pass,
+// the group sum); each returns the first nonzero cudaGetLastError() (or
+// the bf16 one's set-up error, as above) and launches nothing after it.
+// The caller guarantees what the forward's does, dout and o contiguous as
+// q, and at most 65535 tiles of 64 queries or keys (the grids' y).
+extern "C" int flash_attention_bwd_f32(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* lse, const void* dout, void* dq, void* dk, void* dv,
+    void* delta, void* ws, int batch, int n_heads, int group, int sq, int sk,
+    int head_dim, float sm_scale, int causal, void* stream) {
+  const BwdLauncher fn = bwd_launcher(head_dim, false);
+  return fn ? fn(q, k, v, o, lse, dout, dq, dk, dv, delta, ws, batch,
+                 n_heads, group, sq, sk, sm_scale, causal, stream)
+            : (int)cudaErrorInvalidValue;
+}
+
+extern "C" int flash_attention_bwd_bf16(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* lse, const void* dout, void* dq, void* dk, void* dv,
+    void* delta, void* ws, int batch, int n_heads, int group, int sq, int sk,
+    int head_dim, float sm_scale, int causal, void* stream) {
+  const BwdLauncher fn = bwd_launcher(head_dim, true);
+  return fn ? fn(q, k, v, o, lse, dout, dq, dk, dv, delta, ws, batch,
+                 n_heads, group, sq, sk, sm_scale, causal, stream)
             : (int)cudaErrorInvalidValue;
 }

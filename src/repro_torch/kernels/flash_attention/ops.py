@@ -6,11 +6,13 @@ stream, or raises; on CPU tensors it runs the plain version
 (:func:`attention_ref`).  It never pads: the kernels mask the ragged edge
 of the sequence.
 
-It is differentiable through a ``torch.autograd.Function``: the forward
-is the kernel (or the plain version on the CPU) and keeps q, k and v;
-the backward runs :func:`attention_ref` again under autograd and returns
-its vector-Jacobian product, as the JAX package's custom VJP does (its
-``_bwd``).  There is no backward kernel.
+It is differentiable through a ``torch.autograd.Function``.  On CUDA
+tensors the forward kernel also writes its rows' log-sum-exp when a
+backward will follow, and the backward is the backward kernel
+(:func:`flash_attention_bwd`: dq, dk and dv from q, k, v, o, lse and
+do).  The JAX package has no backward kernel: its custom VJP (``_bwd``)
+differentiates ``attention_ref``, and on CPU tensors the Function's
+backward does the same (autograd through :func:`attention_ref`).
 """
 from __future__ import annotations
 
@@ -19,21 +21,31 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    attention_ref, flash_attention_bwd_ref)
 
 _SYMBOLS = {torch.float32: "flash_attention_f32",
             torch.bfloat16: "flash_attention_bf16"}
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_BWD_SYMBOLS = {torch.float32: "flash_attention_bwd_f32",
+                torch.bfloat16: "flash_attention_bwd_bf16"}
+_BWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 HEAD_DIMS = (16, 32, 64, 128)     # the kernel's instantiations
 _MAX_GRID_Y = 65535               # fp32: a launch per 65535 of B * H;
-                                  # bf16: its query tiles (of 128) on y
+                                  # bf16: its query tiles (of 128) on y;
+                                  # backward: its tiles of 64 on y
+BWD_TILE = 64                     # the backward's query and key tiles
+# the query pass (dq and delta), the key pass (each query head's share of
+# dk and dv), the sum of those shares over each KV head's group
+BWD_LAUNCHES_PER_CALL = 3
 
 
-def _launcher(dtype: torch.dtype):
-    fn = getattr(_build.library("flash_attention"), _SYMBOLS[dtype])
+def _function(symbol: str, argtypes):
+    fn = getattr(_build.library("flash_attention"), symbol)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
@@ -57,66 +69,142 @@ def _check(q, k, v) -> None:
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
 
 
-def _forward(q, k, v, causal: bool, sm_scale: float | None):
-    """The kernel of q's dtype (CUDA) or the plain version (CPU)."""
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, sm_scale=sm_scale)
+def _check_kernel(name: str, *ts) -> None:
+    """What the kernels take beyond :func:`_check`: the current CUDA
+    device, a head dim in HEAD_DIMS, contiguous 16-byte-aligned tensors."""
+    q = ts[0]
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention has no kernel for {q.device}")
+        raise ValueError(f"{name} has no kernel for {q.device}")
     if q.get_device() != torch.cuda.current_device():
-        raise ValueError("flash_attention inputs must lie on the current "
-                         "device")
+        raise ValueError(f"{name} inputs must lie on the current device")
+    if q.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"{name} kernel takes head_dim in {HEAD_DIMS}, "
+                         f"got {q.shape[3]}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{name} inputs must be contiguous")
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError(f"{name} inputs must be 16-byte aligned")
+
+
+def _forward(q, k, v, causal: bool, sm_scale: float | None,
+             with_lse: bool = False):
+    """The kernel of q's dtype (CUDA) or the plain version (CPU): the
+    output and, on CUDA with ``with_lse``, the rows' log-sum-exp (fp32
+    (B, H, Sq)), else None."""
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, sm_scale=sm_scale), \
+            None
+    _check_kernel("flash_attention", q, k, v)
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel takes head_dim in "
-                         f"{HEAD_DIMS}, got {d}")
-    if not all(t.is_contiguous() for t in (q, k, v)):
-        raise ValueError("flash_attention inputs must be contiguous")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention inputs must be 16-byte aligned")
     out = torch.empty_like(q)
+    lse = (torch.empty(b, h, sq, device=q.device, dtype=torch.float32)
+           if with_lse else None)
     if q.numel() == 0:
-        return out
+        return out, lse
     if sk == 0:
         raise ValueError("flash_attention needs at least one key")
     if q.dtype == torch.bfloat16 and -(-sq // 128) > _MAX_GRID_Y:
         raise ValueError(f"flash_attention kernel: Sq = {sq} exceeds its "
                          f"grid")
     scale = sm_scale if sm_scale is not None else d ** -0.5
-    rc = _launcher(q.dtype)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
-        h // hkv, sq, sk, d, scale, int(causal),
-        torch.cuda.current_stream().cuda_stream)
+    rc = _function(_SYMBOLS[q.dtype], _ARGTYPES)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), b, h, h // hkv, sq, sk, d,
+        scale, int(causal), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc}")
     _build.count(flash_attention, 1 if q.dtype == torch.bfloat16
                  else -(-(b * h) // _MAX_GRID_Y))
-    return out
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
+                        sm_scale: float | None = None):
+    """dq, dk, dv (the inputs' dtypes) of :func:`flash_attention` for the
+    output gradient ``do``, from its inputs, its output ``o`` and its
+    rows' log-sum-exp ``lse`` (fp32 (B, H, Sq)).  On CUDA tensors the
+    backward kernel of q's dtype, or raises; on CPU tensors its plain
+    version :func:`flash_attention_bwd_ref`.
+    ``flash_attention_bwd.launches`` counts kernel launches, three per
+    call (CPU calls do not launch and do not count);
+    ``flash_attention_bwd.recorded`` those recorded into a CUDA graph
+    being captured."""
+    _check(q, k, v)
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"flash_attention_bwd: {name} {tuple(t.shape)}"
+                             f" {t.dtype} on {t.device} must be "
+                             f"{tuple(q.shape)} {q.dtype} on {q.device}")
+    if lse is None or lse.shape != (b, h, sq) or lse.dtype != torch.float32 \
+            or lse.device != q.device:
+        raise ValueError(f"flash_attention_bwd needs the forward's lse "
+                         f"{(b, h, sq)} float32 on {q.device}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, causal,
+                                       sm_scale)
+    _check_kernel("flash_attention_bwd", q, k, v, o, do, lse)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    if sk == 0:
+        raise ValueError("flash_attention_bwd needs at least one key")
+    if -(-max(sq, sk) // BWD_TILE) > _MAX_GRID_Y:
+        raise ValueError(f"flash_attention_bwd kernel: Sq = {sq} or Sk = "
+                         f"{sk} exceeds its grid")
+    scale = sm_scale if sm_scale is not None else d ** -0.5
+    delta = torch.empty(b, h, sq, device=q.device, dtype=torch.float32)
+    ws = torch.empty(2, b, h, sk, d, device=q.device, dtype=torch.float32)
+    rc = _function(_BWD_SYMBOLS[q.dtype], _BWD_ARGTYPES)(
+        *(t.data_ptr() for t in (q, k, v, o, lse, do, dq, dk, dv, delta,
+                                 ws)),
+        b, h, h // hkv, sq, sk, d, scale, int(causal),
+        torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention backward kernel launch failed: "
+                           f"CUDA error {rc}")
+    _build.count(flash_attention_bwd, BWD_LAUNCHES_PER_CALL)
+    return dq, dk, dv
 
 
 class _Flash(torch.autograd.Function):
-    """Forward: :func:`_forward`, keeping q, k and v.  Backward: the VJP
-    of :func:`attention_ref` recomputed under autograd, the gradients in
-    the inputs' dtypes."""
+    """Forward: :func:`_forward`.  On CUDA tensors with ``keep_lse`` (a
+    backward will follow) it keeps q, k, v, the output and its lse, and
+    the backward is :func:`flash_attention_bwd`; on CPU tensors it keeps
+    q, k and v, and the backward is the VJP of :func:`attention_ref`
+    recomputed under autograd.  The gradients are in the inputs' dtypes;
+    an input that needs none gets None."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale):
+    def forward(ctx, q, k, v, causal, sm_scale, keep_lse):
         ctx.causal, ctx.sm_scale = causal, sm_scale
-        ctx.save_for_backward(q, k, v)
-        return _forward(q, k, v, causal, sm_scale)
+        keep = keep_lse and q.device.type == "cuda"
+        out, lse = _forward(q, k, v, causal, sm_scale, with_lse=keep)
+        ctx.save_for_backward(q, k, v, *((out, lse) if keep else ()))
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        xs = [t.detach().requires_grad_(w)
-              for t, w in zip(ctx.saved_tensors, ctx.needs_input_grad)]
-        with torch.enable_grad():
-            o = attention_ref(*xs, causal=ctx.causal, sm_scale=ctx.sm_scale)
-            want = [t for t in xs if t.requires_grad]
-            got = iter(torch.autograd.grad(o, want, g))
-        return tuple(next(got) if t.requires_grad else None
-                     for t in xs) + (None, None)
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[:3]
+        if g.device.type == "cpu":
+            xs = [t.detach().requires_grad_(w)
+                  for t, w in zip(saved, need)]
+            with torch.enable_grad():
+                o = attention_ref(*xs, causal=ctx.causal,
+                                  sm_scale=ctx.sm_scale)
+                want = [t for t in xs if t.requires_grad]
+                got = iter(torch.autograd.grad(o, want, g))
+            grads = tuple(next(got) if t.requires_grad else None
+                          for t in xs)
+        else:
+            grads = tuple(gr if w else None for gr, w in zip(
+                flash_attention_bwd(*saved, g.contiguous(), ctx.causal,
+                                    ctx.sm_scale), need))
+        return grads + (None, None, None)
 
 
 def flash_attention(q, k, v, causal: bool = True,
@@ -124,14 +212,17 @@ def flash_attention(q, k, v, causal: bool = True,
     """GQA attention: q (B, H, Sq, D); k, v (B, Hkv, Sk, D), H % Hkv == 0;
     query head h reads KV head ``h // (H / Hkv)``.  Causal keeps
     ``qpos >= kpos``.  fp32 softmax, output in q's dtype.  Differentiable
-    in q, k and v (the backward is the plain version's).
-    ``flash_attention.launches`` counts kernel launches, forward ones
-    only, a recompute under ``torch.utils.checkpoint`` included (CPU
-    calls do not launch and do not count); ``flash_attention.recorded``
-    those recorded into a CUDA graph being captured."""
+    in q, k and v (on the card the backward kernel, on the CPU the plain
+    version's VJP).  ``flash_attention.launches`` counts forward kernel
+    launches, a recompute under ``torch.utils.checkpoint`` included, and
+    ``flash_attention_bwd.launches`` backward ones (CPU calls do not
+    launch and do not count); ``.recorded`` those recorded into a CUDA
+    graph being captured."""
     _check(q, k, v)
-    return _Flash.apply(q, k, v, causal, sm_scale)
+    keep = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    return _Flash.apply(q, k, v, causal, sm_scale, keep)
 
 
-flash_attention.launches = 0
-flash_attention.recorded = 0
+flash_attention.launches = flash_attention.recorded = 0
+flash_attention_bwd.launches = flash_attention_bwd.recorded = 0

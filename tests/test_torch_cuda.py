@@ -38,7 +38,10 @@ from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.decode_attention.ref import (
     BF16_EXCESS, bf16_rounding_excess, decode_attention_split_ref)
 from repro_torch.kernels.flash_attention import (attention_ref,
-                                                 flash_attention)
+                                                 flash_attention,
+                                                 flash_attention_bwd,
+                                                 flash_attention_bwd_ref)
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.lstm_cell import lstm_cell, lstm_cell_ref
 from repro_torch.kernels.mamba_scan import (mamba_scan, mamba_scan_bwd,
                                             mamba_scan_bwd_ref,
@@ -481,33 +484,196 @@ def test_moe_router_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     assert moe_router.launches == before
 
 
+def _bwd_within_bounds(got, want, dtype, q, k, v, g, causal):
+    """The backward's bounds against a plain version's gradients
+    ``want``: fp32 within chip_smoke.FLASH_BWD_REL relative in norm; bf16
+    within ATTN_TOL elementwise and, in norm, within
+    chip_smoke.FLASH_BWD_SDPA_FACTOR times SDPA's backward's own error
+    (``enable_gqa``, the library's kernel) on the same inputs."""
+    if dtype == torch.float32:
+        bounds = [chip_smoke.FLASH_BWD_REL] * 3
+    else:
+        zs = [t.clone().requires_grad_() for t in (q, k, v)]
+        lib = torch.autograd.grad(torch.nn.functional.
+                                  scaled_dot_product_attention(
+                                      *zs, is_causal=causal,
+                                      enable_gqa=True), zs, g)
+        bounds = [chip_smoke.FLASH_BWD_SDPA_FACTOR * chip_smoke._norm_rel(
+            c, w) for c, w in zip(lib, want)]
+    for x, gt, w, bound in zip((q, k, v), got, want, bounds):
+        assert gt.dtype == x.dtype and gt.shape == x.shape
+        assert torch.isfinite(gt.float()).all()
+        if dtype == torch.bfloat16:
+            torch.testing.assert_close(gt.float(), w.float(),
+                                       **chip_smoke.ATTN_TOL[dtype])
+        assert chip_smoke._norm_rel(gt, w) <= bound
+
+
 @pytest.mark.parametrize("b,h,hkv,s,d,causal", [
     (1, 4, 4, 128, 64, True), (2, 8, 2, 100, 128, True),
     (1, 4, 2, 77, 32, False)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_gradients_through_the_function(cuda, b, h, hkv, s,
                                                         d, causal, dtype):
-    """Through the Function: the kernel forward once, no launch in the
-    backward (the VJP of the plain version, recomputed), the gradients
-    in the inputs' dtypes and equal to autograd through the plain
-    version within 1e-6 relative in norm."""
+    """Through the Function: the kernel forward once, the backward kernel
+    once (its three launches) and nothing else, the gradients in the
+    inputs' dtypes and within the backward's bounds of autograd through
+    the plain version."""
     q, k, v = _qkv(((b, h, s, d), (b, hkv, s, d), (b, hkv, s, d)), dtype,
                    s + d, cuda)
     g = torch.randn(b, h, s, d, generator=torch.Generator().manual_seed(s)
                     ).to(cuda, dtype)
     xs = [t.clone().requires_grad_() for t in (q, k, v)]
     ys = [t.clone().requires_grad_() for t in (q, k, v)]
-    before = flash_attention.launches
+    before = flash_attention.launches, flash_attention_bwd.launches
     out = flash_attention(*xs, causal)
     torch.cuda.synchronize()
-    launched = flash_attention.launches - before
+    assert flash_attention.launches - before[0] == 1
+    assert flash_attention_bwd.launches == before[1]
     got = torch.autograd.grad(out, xs, g)
     torch.cuda.synchronize()
-    assert launched >= 1 and flash_attention.launches - before == launched
+    assert flash_attention.launches - before[0] == 1
+    assert flash_attention_bwd.launches - before[1] == \
+        flash_ops.BWD_LAUNCHES_PER_CALL
     want = torch.autograd.grad(attention_ref(*ys, causal=causal), ys, g)
-    for x, gt, w in zip(xs, got, want):
-        assert gt.dtype == x.dtype and torch.isfinite(gt.float()).all()
-        assert (gt.double() - w.double()).norm() <= 1e-6 * w.double().norm()
+    _bwd_within_bounds(got, want, dtype, q, k, v, g, causal)
+
+
+def _bwd_inputs(b, h, hkv, sq, sk, d, causal, dtype, seed, device):
+    """q, k, v, the forward kernel's o and lse, and an output gradient."""
+    q, k, v, g = _qkv([(b, h, sq, d), (b, hkv, sk, d), (b, hkv, sk, d),
+                       (b, h, sq, d)], dtype, seed, device)
+    o, lse = flash_ops._forward(q, k, v, causal, None, with_lse=True)
+    return q, k, v, o, lse, g
+
+
+# every head dim, the registry's GQA groups (1; 3: minitron-4b, phi4-mini;
+# 6: internvl2-26b; 8: yi-6b, qwen3, deepseek-67b), one tile, ragged
+# query and key edges, Sq != Sk both ways (causal keys past Sq get no
+# gradient), seamless's cross-attention over its 1024 frames, one query
+# row over 129 keys (non-causal: a causal row of one key has dS = 0 up
+# to rounding, no gradient to hold in norm)
+BWD_SHAPES = [(1, 1, 1, 64, 64, 16, False), (1, 4, 2, 100, 100, 16, True),
+              (2, 6, 2, 77, 77, 32, True), (1, 4, 4, 130, 130, 32, False),
+              (1, 6, 1, 150, 150, 64, True), (2, 8, 1, 40, 200, 64, False),
+              (1, 16, 16, 12, 1024, 64, False), (1, 2, 2, 1, 129, 64, False),
+              (1, 24, 8, 300, 300, 128, True),
+              (1, 48, 8, 268, 268, 128, True),
+              (1, 32, 4, 256, 256, 128, True), (1, 4, 2, 100, 300, 128, True),
+              (1, 4, 2, 300, 100, 128, True),
+              (1, 4, 2, 300, 100, 128, False)]
+
+
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,causal", BWD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_kernel_matches_plain_version(
+        cuda, b, h, hkv, sq, sk, d, causal, dtype):
+    """The backward kernel against ``flash_attention_bwd_ref`` on the
+    same o and lse, within the backward's bounds; one call, three
+    launches."""
+    q, k, v, o, lse, g = _bwd_inputs(b, h, hkv, sq, sk, d, causal, dtype,
+                                     sq + sk + d, cuda)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, lse, g, causal)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + \
+        flash_ops.BWD_LAUNCHES_PER_CALL
+    want = flash_attention_bwd_ref(q, k, v, o, lse, g, causal)
+    _bwd_within_bounds(got, want, dtype, q, k, v, g, causal)
+
+
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,causal", [
+    (1, 4, 2, 100, 100, 16, True), (2, 24, 8, 300, 300, 128, True),
+    (1, 16, 16, 300, 1024, 64, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_kernel_is_deterministic(cuda, b, h, hkv, sq,
+                                                     sk, d, causal, dtype):
+    """No atomics: two calls on the same inputs give the same bits."""
+    args = _bwd_inputs(b, h, hkv, sq, sk, d, causal, dtype, 3, cuda)
+    first = flash_attention_bwd(*args, causal)
+    second = flash_attention_bwd(*args, causal)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(first, second))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_captured_flash_attention_bwd_replays_bit_for_bit(cuda, dtype):
+    """The backward recorded into a CUDA graph (its scratch from the
+    graph's pool): the capture records three launches and runs none; a
+    replay on new inputs copied into the captured ones is bit-equal to an
+    eager call on them."""
+    shape = (1, 8, 2, 200, 200, 64, True)
+    args = _bwd_inputs(*shape, dtype, 5, cuda)
+    flash_attention_bwd(*args, True)              # the opt-ins, eagerly
+    torch.cuda.synchronize()
+    launched = flash_attention_bwd.launches
+    recorded = flash_attention_bwd.recorded
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = flash_attention_bwd(*args, True)
+    assert flash_attention_bwd.recorded == recorded + \
+        flash_ops.BWD_LAUNCHES_PER_CALL
+    assert flash_attention_bwd.launches == launched
+    for seed in (6, 7):
+        new = _bwd_inputs(*shape, dtype, seed, cuda)
+        for dst, src in zip(args, new):
+            dst.copy_(src)
+        graph.replay()
+        eager = flash_attention_bwd(*new, True)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, c) for a, c in zip(out, eager)), seed
+
+
+def test_flash_attention_bwd_takes_batch_heads_past_the_grid_limit(cuda):
+    """B * H = 65600 > 65535 on the grids' x."""
+    args = _bwd_inputs(4100, 16, 4, 20, 20, 16, True, torch.bfloat16, 9,
+                       cuda)
+    got = flash_attention_bwd(*args, True)
+    want = flash_attention_bwd_ref(*args, True)
+    for gt, w in zip(got, want):
+        torch.testing.assert_close(gt.float(), w.float(),
+                                   **chip_smoke.ATTN_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_forward_output_is_the_same_with_lse(cuda, dtype):
+    """Serving's forward (no lse) and training's (with lse) write the
+    same o bit for bit; the lse lies within 1e-5 of the plain version's
+    float64 log-sum-exp."""
+    q, k, v = _qkv([(1, 24, 300, 128), (1, 8, 300, 128), (1, 8, 300, 128)],
+                   dtype, 4, cuda)
+    plain, none = flash_ops._forward(q, k, v, True, None)
+    with_lse, lse = flash_ops._forward(q, k, v, True, None, with_lse=True)
+    torch.cuda.synchronize()
+    assert none is None and torch.equal(plain, with_lse)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.double(),
+                     k.double().repeat_interleave(3, 1)) * 128 ** -0.5
+    s = s.masked_fill(torch.ones(300, 300, dtype=torch.bool,
+                                 device=cuda).triu(1), float("-inf"))
+    torch.testing.assert_close(lse.double(), torch.logsumexp(s, -1),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_flash_attention_bwd_refuses_what_the_kernel_does_not_take(cuda):
+    before = flash_attention_bwd.launches
+    args = _bwd_inputs(1, 4, 2, 32, 32, 64, True, torch.float32, 1, cuda)
+    q, k, v, o, lse, g = args
+    with pytest.raises(ValueError, match="head_dim"):
+        bad = [torch.zeros(1, 4 if i in (0, 3, 5) else 2, 32, 48,
+                           device=cuda) for i in range(6)]
+        bad[4] = lse
+        flash_attention_bwd(*bad, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_bwd(q, k, v, o, lse,
+                            g.transpose(2, 3).contiguous().transpose(2, 3),
+                            True)
+    with pytest.raises(ValueError):              # mixed devices
+        flash_attention_bwd(q, k.cpu(), v, o, lse, g, True)
+    with pytest.raises(ValueError):              # do on the CPU
+        flash_attention_bwd(q, k, v, o, lse, g.cpu(), True)
+    with pytest.raises(ValueError):              # no lse
+        flash_attention_bwd(q, k, v, o, None, g, True)
+    assert flash_attention_bwd.launches == before
 
 
 @pytest.mark.parametrize("t,e,k", [(3000, 128, 8), (300, 256, 8),
