@@ -307,6 +307,7 @@ import io
 import json
 import multiprocessing
 import os
+import re
 import shutil
 import signal
 import subprocess
@@ -1374,6 +1375,28 @@ def _norm_rel(got, want) -> float:
     return ((got.double() - want).norm() / want.norm()).item()
 
 
+def flash_bwd_ptxas(d: int) -> dict:
+    """ptxas's verdict on the bf16 backward's two passes at head dim d,
+    from the build log: bytes of spill stores, and the note where it
+    serialised the kernel's wgmma (a C75xx "Potential Performance Loss"),
+    else None."""
+    log = _build.build_log("flash_attention").splitlines()
+    out = {}
+    for name in ("flash_bwd_dq_wgmma", "flash_bwd_dkdv_wgmma"):
+        tag, spill, serial = f"{name}ILi{d}E", None, None
+        for i, line in enumerate(log):
+            if tag not in line:
+                continue
+            if "Compiling entry" in line and i + 2 < len(log):
+                m = re.search(r"(\d+) bytes spill stores", log[i + 2])
+                spill = int(m.group(1)) if m else None
+            m = re.search(r"\(C75\d\d\)[^']*? in the function", line)
+            if m:
+                serial = m.group(0)[:-len(" in the function")]
+        out[name] = {"spill_bytes": spill, "serialised": serial}
+    return out
+
+
 def check_flash_grad() -> dict:
     """The flash Function's backward kernel (``flash_attention_bwd``) at
     yi-6b's head layout and S = 2048 (FLASH_GRAD), then across the
@@ -1388,7 +1411,9 @@ def check_flash_grad() -> dict:
     backward kernel alone beside its plain version, SDPA's backward (the
     library yardstick) and the bound; the Function's forward and
     backward, and autograd through ``attention_ref`` (the Function's
-    backward before the kernel)."""
+    backward before the kernel); beside the bf16 passes' device ms, their
+    ``numRegs`` and ``localSizeBytes`` (``cudaFuncGetAttributes``) and
+    ptxas's verdict (``flash_bwd_ptxas``)."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     b, h, hkv, s, d, causal = FLASH_GRAD
     shapes = [(b, h, hkv, s, s, d, causal)] + FLASH_GRAD_SWEEP
@@ -1510,15 +1535,26 @@ def check_flash_grad() -> dict:
             prof = profile_window(f"flash_attention_bwd {label} "
                                   f"{str(dtype)[6:]}", kernel, 10,
                                   need=passes)
+            # the bf16 passes' registers a thread at launch and local
+            # memory a thread (0 bytes: nothing spilled), and ptxas's
+            # spills and serialised wgmma
+            attrs = flash_ops.bwd_kernel_attributes(d) if bf16 else {}
+            ptxas = flash_bwd_ptxas(d) if bf16 else None
             row.update(ms=min(k1, k2), plain_ms=min(p1, p2),
                        sdpa_bwd_ms=min(s1, s2), fwd_bwd_ms=f1,
                        autograd_ms=a1, device_ms={
                            n: prof["kernels"].get(n, {}).get("ms")
-                           for n in passes})
+                           for n in passes},
+                       num_regs={n: a[0] for n, a in attrs.items()},
+                       local_bytes={n: a[1] for n, a in attrs.items()},
+                       ptxas=ptxas)
             rows.append(row)
             print(f"[kernel] flash_attention_bwd {label} {row['dtype']}: "
                   f"kernel {row['ms']:.4f} ms (runs {k1:.4f}, {k2:.4f}; "
-                  f"device ms per pass {row['device_ms']}), "
+                  f"device ms per pass {row['device_ms']}"
+                  + (f"; numRegs {row['num_regs']}, localSizeBytes "
+                     f"{row['local_bytes']}, ptxas {ptxas}" if bf16 else "")
+                  + "), "
                   f"plain {row['plain_ms']:.3f} ms, SDPA backward "
                   f"{row['sdpa_bwd_ms']:.4f} ms (runs {s1:.4f}, {s2:.4f}), "
                   f"bound {bound_ms:.4f} ms ({bound_by}); the Function's "

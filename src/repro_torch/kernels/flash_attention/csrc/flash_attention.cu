@@ -68,6 +68,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 // ------------------------- fp32: CUDA cores -------------------------
@@ -742,117 +744,223 @@ Launcher launcher(int head_dim, bool bf16) {
 //   dP = dO V^T     dS = P (dP - delta), delta = rowsum(dO o)
 //   dQ = sm_scale dS K                       dK = sm_scale dS^T Q
 //
-// Three launches, no atomics, every sum in a fixed order (two calls give
-// the same bits):
+// Three launches, no atomics, every sum in a fixed order, so two calls
+// and every graph replay give the same bits (dq sums over key tiles, dk
+// and dv over query tiles and a KV head's G query heads; atomics would
+// add them in whatever order the blocks ran):
 //
-//   1. the query pass, a block per (b, h, 64-query tile): delta of its
-//      rows (written out for pass 2), then over the key tiles the causal
-//      mask keeps, S and dP again, dS, and dQ += dS K; dq is written once.
-//   2. the key pass, a block per (b, h, 64-key tile): over the query
+//   1. the query pass, a block per (b, h, 128-query tile): delta and
+//      lse log2(e) of its rows (written out for pass 2, 64 rows of each
+//      side by side per 64-row tile, rows past Sq as lse = inf and
+//      delta = 0), then over the key tiles the causal mask keeps, S and
+//      dP again, dS, and dQ += dS K; dq is written once.
+//   2. the key pass, a block per (b, h, 128-key tile): over the query
 //      tiles the mask keeps, S^T and dP^T again, dV += P^T dO and
 //      dK += dS^T Q; this query head's share of dk and dv goes to an fp32
 //      workspace (B, H, Sk, D) each.  A block per query head, not per KV
-//      head, fills the card: at yi-6b's S = 2048 a KV head's 32 key tiles
-//      make 4 * 32 = 128 blocks for 132 SMs, its query heads' 1024.
+//      head, fills the card: at yi-6b's S = 2048 a KV head's 16 key
+//      blocks make 4 * 16 = 64 blocks for 132 SMs, its query heads' 512.
 //   3. the group sum: dk and dv of each KV head are the sum of its G
 //      query heads' shares, g = 0 .. G-1 in order, in the inputs' dtype.
 //
-// What bounds it: five products over the pairs the mask keeps, 2.5x the
-// forward's FLOPs (the two recomputed ones make it seven), against q, k,
-// v, o, do read once and dq, dk, dv written once; at yi-6b's layout that
-// is ~1,100 FLOP per byte, so operations bound it, as the forward.
+// What bounds it: seven products over the pairs the mask keeps (five
+// distinct, 2.5x the forward's FLOPs; the query pass computes S and dP
+// again rather than accumulating dq across blocks), against q, k, v, o,
+// do read once and dq, dk, dv written once: at yi-6b's layout ~1,100
+// FLOP per byte, so operations bound it, as the forward.
 //
-// bf16: all products on wgmma, fed by TMA through the forward's 3-D maps
-// (64-row boxes), one consumer warpgroup (64 rows, wgmma's M) and one
-// producer warp a block.  The producer loads the block's two fixed tiles
-// (K and V in the key pass, Q and dO in the query pass) once, then streams
-// the other two tile by tile into a 2-stage ring with full and empty
-// mbarriers, as the forward does.  The score products are m64n64k16 with
-// both operands K-major in shared memory; P^T and dS (dS^T) are rounded
-// to bf16 in registers, where the accumulator is wgmma's A-fragment
-// layout, and multiply dO, Q or K read MN-major (the transpose bit), as
-// the forward's P V.  P itself stays fp32 for dS.  Only tiles on the
-// causal diagonal or at a ragged edge are masked.
+// bf16: every product on wgmma, fed by TMA through the forward's 3-D maps
+// (64-row boxes), in FlashAttention-3's layout for Hopper:
+//
+//   * 384 threads a block: two consumer warpgroups, each owning 64 of the
+//     block's 128 fixed rows (wgmma's M), and a producer warpgroup whose
+//     one elected thread issues every load.  The producer loads the
+//     block's two fixed tiles (K and V in the key pass, Q and dO in the
+//     query pass, 128 rows each) once, then streams the other two 64 rows
+//     at a time into a 3-stage ring with full and empty mbarriers.  Both
+//     consumers read every streamed tile: one load feeds twice the
+//     products of a 64-row block.  In the key pass a stage also carries
+//     its 64 rows' lse log2(e) and delta (one 512-byte cp.async.bulk from
+//     pass 1's copy), which replace per-element loads from global memory.
+//   * setmaxnreg: the producer gives its registers up (24 a thread) and
+//     the consumers take them (240): 128 * 24 + 256 * 240 = 64,512, the
+//     block's allocation at launch (384 * 168), one block an SM.  The key
+//     pass's consumer holds dK and dV (128 fp32 at D = 128), S^T and dP^T
+//     (32 each) and a 16-register bf16 fragment.  ptxas gives the
+//     consumers the 240 only if their code cannot trap (see mbar_spin),
+//     and overlaps products only while nothing but wgmma writes an
+//     accumulator with a product in flight and no product issues on a
+//     path of its own; else it serialises every wgmma of the kernel.
+//   * overlap: a software pipeline inside each warpgroup, in the form
+//     that needs no extra accumulator.  Within a tile both score
+//     products issue back to back and the warpgroup waits for the first
+//     alone (wait_group 1): the exponentials of P^T (P) run under dP^T
+//     (dP); the last product, dK += dS^T Q (dQ += dS K), stays in flight
+//     into the next tile, whose score products queue behind it, and the
+//     stage it reads is released only then.  The key pass waits for
+//     dV += P^T dO before dS^T's arithmetic: running dV under it keeps
+//     P^T's fragment alive beside dS^T's, past 240 registers.  Measured on
+//     an H100, a deeper pipeline, the next tile's S issued before this
+//     tile's dS into a second accumulator, left the query pass as fast
+//     as this (the key pass has no room for it: 32 more registers), and
+//     a ping-pong of the two warpgroups on named barriers left both
+//     passes as fast.
+//   * score products m64n64k16, both operands K-major in shared memory;
+//     P^T, dS^T and dS are rounded to bf16 in registers, where the
+//     accumulator is wgmma's A-fragment layout, and multiply dO, Q or K
+//     read MN-major (the transpose bit), as the forward's P V.  P itself
+//     stays fp32 for dS.  Only tiles on the causal diagonal or (query
+//     pass) at a ragged key edge are masked; a warpgroup skips the tiles
+//     wholly masked for its own 64 rows, and those past the ragged edge.
 //
 // fp32: on the CUDA cores, IEEE fp32 FMAs, the same three passes: 4
 // threads a row as the forward, 32-row tiles of the streamed pair staged
 // in shared memory, and a row's two dot products (S and dP) summed over
 // its 4 lanes by shuffles.
 
-constexpr int kBwdRows = 64;                   // rows of every bf16 tile
-constexpr int kBwdThreads = 128 + 32;          // a warpgroup + the producer
+constexpr int kBwdRows = 64;                   // a warpgroup's rows, a
+                                               // streamed tile's rows
+constexpr int kBwdBlock = 128;                 // a block's fixed rows
+constexpr int kBwdConsumers = kBwdBlock / kBwdRows;   // warpgroups
+constexpr int kBwdConsumerThreads = 128 * kBwdConsumers;
+constexpr int kBwdThreads = kBwdConsumerThreads + 128;  // + the producer
+constexpr int kBwdStages = 3;
+// setmaxnreg moves registers within the block's allocation at launch,
+// kBwdThreads * 168 (the most __launch_bounds__(kBwdThreads, 1) allows a
+// thread, in steps of 8): the producer warpgroup gives up what the two
+// consumers take
+constexpr int kLaunchRegs = 65536 / kBwdThreads / 8 * 8;
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+static_assert(128 * kProducerRegs + kBwdConsumerThreads * kConsumerRegs <=
+                  kBwdThreads * kLaunchRegs,
+              "the register budget of one block an SM");
 
 template <int D>
 struct BwdTiles {
-  static constexpr int kTile = kBwdRows * D * 2;          // 64 rows, bf16
-  // the block's two fixed tiles, then kStages pairs of streamed ones
-  static constexpr int kData = (2 + 2 * kStages) * kTile;
-  static constexpr int kBars = 1 + 2 * kStages;           // fixed, full, empty
-  // 1 KB to align to the swizzle's period, the barriers, delta's rows
-  static constexpr int kSmem = kData + 1024 + 8 * kBars + 4 * kBwdRows;
+  static constexpr int kTile = kBwdRows * D * 2;          // streamed, bf16
+  static constexpr int kFixed = kBwdBlock * D * 2;        // fixed, bf16
+  static constexpr int kStage = 2 * kTile;
+  // the two fixed tiles, then the ring's stages
+  static constexpr int kData = 2 * kFixed + kBwdStages * kStage;
+  // 64 rows' lse log2(e), then their delta: a key-pass stage's, or a
+  // query-pass warpgroup's own
+  static constexpr int kStat = 2 * kBwdRows * 4;
+  static constexpr int kStats =
+      kStat * (kBwdStages > kBwdConsumers ? kBwdStages : kBwdConsumers);
+  static constexpr int kBars = 1 + 2 * kBwdStages;        // fixed, full, empty
+  // 1 KB to align the data to the swizzle's period
+  static constexpr int kSmem = 1024 + kData + kStats + 8 * kBars;
 };
 
-// Thread 0 sets up the fixed pair's barrier and the ring's full (one
-// arrival: the producer's, plus the bytes) and empty (the 4 consumer
-// warps) barriers.
+// Rows past Sq padded to a whole query block: the length of a head's run
+// of lse log2(e) and delta in pass 1's copy (two floats a row).
+__device__ __forceinline__ int bwd_padded(int sq) {
+  return (sq + kBwdBlock - 1) / kBwdBlock * kBwdBlock;
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// One bulk copy of ``bytes`` (a multiple of 16, both ends 16-byte
+// aligned) from global memory into shared memory, completing on ``bar``.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// The consumers' wait: no watchdog of their own.  A __trap in their code
+// makes ptxas allocate their registers within the launch's 168 a thread,
+// not setmaxnreg's 240: the key pass then spills and every wgmma of both
+// passes is serialised.  The producer's end-of-ring wait (bwd_produce)
+// keeps a lost barrier from hanging the card.
+__device__ __forceinline__ void mbar_spin(uint32_t bar, int parity) {
+  while (!mbar_try_wait(bar, parity)) {
+  }
+}
+
+// Thread 0 sets up the fixed tiles' barrier and the ring's full (one
+// arrival: the producer's, plus the bytes) and empty (the consumer warps)
+// barriers.
 __device__ __forceinline__ void bwd_init_bars(uint32_t bar_f) {
   if (threadIdx.x == 0) {
     mbar_init(bar_f, 1);
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < kBwdStages; ++s) {
       mbar_init(bar_f + 8 * (1 + s), 1);
-      mbar_init(bar_f + 8 * (1 + kStages + s), 4);
+      mbar_init(bar_f + 8 * (1 + kBwdStages + s), 4 * kBwdConsumers);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 }
 
-// The producer (one thread): the fixed tiles f1 and f2 at row f_row of
-// head f_head, then n tiles of the pair s1, s2 from row t0 * 64 of head
-// s_head into the ring.
+// The producer (one thread): the fixed tiles f1 and f2, 128 rows from
+// f_row of head f_head, then n tiles of the pair s1, s2 from row t0 * 64
+// of head s_head into the ring, each with its rows' lse log2(e) and delta
+// from ``stats`` (the head's run in pass 1's copy) where that is given.
+// Nothing is loaded when n = 0.  It then waits (watchdog and all) until
+// the consumers have released the ring's last tiles: every consumer wait
+// precedes one of those releases, so a lost barrier anywhere traps here.
 template <int D>
 __device__ __forceinline__ void bwd_produce(
     const CUtensorMap* f1, const CUtensorMap* f2, int f_row, int f_head,
     const CUtensorMap* s1, const CUtensorMap* s2, int s_head, int t0, int n,
-    uint32_t base) {
+    const float* stats, uint32_t base) {
   using T = Tiles<D>;
   using B = BwdTiles<D>;
-  const uint32_t bar_f = base + B::kData;
-  mbar_expect_tx(bar_f, 2 * B::kTile);
+  if (n == 0) return;
+  const uint32_t bar_f = base + B::kData + B::kStats;
+  mbar_expect_tx(bar_f, 2 * B::kFixed);
   for (int a = 0; a < T::kAtoms; ++a) {
-    const uint32_t off = a * kBwdRows * T::kSwizzle;
-    tma_load(f1, base + off, bar_f, a * T::kAtomCols, f_row, f_head);
-    tma_load(f2, base + B::kTile + off, bar_f, a * T::kAtomCols, f_row,
-             f_head);
-  }
-  for (int t = 0; t < n; ++t) {
-    const int s = t % kStages;
-    const uint32_t full = bar_f + 8 * (1 + s);
-    if (t >= kStages)
-      mbar_wait(bar_f + 8 * (1 + kStages + s), (t / kStages - 1) & 1);
-    mbar_expect_tx(full, 2 * B::kTile);
-    const uint32_t dst = base + (2 + 2 * s) * B::kTile;
-    for (int a = 0; a < T::kAtoms; ++a) {
-      const uint32_t off = a * kBwdRows * T::kSwizzle;
-      tma_load(s1, dst + off, full, a * T::kAtomCols, (t0 + t) * kBwdRows,
-               s_head);
-      tma_load(s2, dst + B::kTile + off, full, a * T::kAtomCols,
-               (t0 + t) * kBwdRows, s_head);
+    for (int half = 0; half < kBwdConsumers; ++half) {
+      const uint32_t off = (a * kBwdBlock + half * kBwdRows) * T::kSwizzle;
+      const int row = f_row + half * kBwdRows;
+      tma_load(f1, base + off, bar_f, a * T::kAtomCols, row, f_head);
+      tma_load(f2, base + B::kFixed + off, bar_f, a * T::kAtomCols, row,
+               f_head);
     }
   }
+  for (int t = 0; t < n; ++t) {
+    const int s = t % kBwdStages;
+    const uint32_t full = bar_f + 8 * (1 + s);
+    if (t >= kBwdStages)
+      mbar_wait(bar_f + 8 * (1 + kBwdStages + s), (t / kBwdStages - 1) & 1);
+    mbar_expect_tx(full, B::kStage + (stats ? B::kStat : 0));
+    const uint32_t dst = base + 2 * B::kFixed + s * B::kStage;
+    const int row = (t0 + t) * kBwdRows;
+    for (int a = 0; a < T::kAtoms; ++a) {
+      const uint32_t off = a * kBwdRows * T::kSwizzle;
+      tma_load(s1, dst + off, full, a * T::kAtomCols, row, s_head);
+      tma_load(s2, dst + B::kTile + off, full, a * T::kAtomCols, row,
+               s_head);
+    }
+    if (stats)
+      bulk_load(base + B::kData + s * B::kStat, stats + 2 * row, B::kStat,
+                full);
+  }
+  for (int t = n > kBwdStages ? n - kBwdStages : 0; t < n; ++t)
+    mbar_wait(bar_f + 8 * (1 + kBwdStages + t % kBwdStages),
+              (t / kBwdStages) & 1);
 }
 
-// Descriptor of a 64-row tile as a K-major operand at k16 step kk.
-template <int D>
+// Descriptor of a tile of ``Rows`` rows as a K-major operand at k16 step
+// kk (add 64 w rows' bytes to the tile for warpgroup w's rows).
+template <int D, int Rows>
 __device__ __forceinline__ uint64_t kmajor(uint32_t tile, int kk) {
   using T = Tiles<D>;
-  return smem_desc(tile + (kk / T::kStepsPerAtom) * kBwdRows * T::kSwizzle +
+  return smem_desc(tile + (kk / T::kStepsPerAtom) * Rows * T::kSwizzle +
                        32 * (kk % T::kStepsPerAtom),
                    16, 8 * T::kSwizzle, T::kLayout);
 }
 
-// Descriptor of a 64-row tile as an MN-major B operand (its rows are the
-// product's K, its D columns the N) at k16 step kb: rows 16 kb ..
+// Descriptor of a streamed 64-row tile as an MN-major B operand (its rows
+// are the product's K, its D columns the N) at k16 step kb: rows 16 kb ..
 template <int D>
 __device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kb) {
   using T = Tiles<D>;
@@ -872,6 +980,19 @@ __device__ __forceinline__ void to_frags(const float (&acc)[32],
   }
 }
 
+// A consumer warp is done with ring stage s.
+__device__ __forceinline__ void bwd_release(uint32_t bar_f, int s) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) mbar_arrive(bar_f + 8 * (1 + kBwdStages + s));
+}
+
+__device__ __forceinline__ void producer_regs() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+}
+__device__ __forceinline__ void consumer_regs() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+}
+
 template <int D>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap map_q,
@@ -880,142 +1001,179 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap map_q,
                    const __grid_constant__ CUtensorMap map_do,
                    const __nv_bfloat16* __restrict__ o,
                    const __nv_bfloat16* __restrict__ dout,
-                   const float* __restrict__ lse, float* __restrict__ delta,
+                   const float* __restrict__ lse, float* __restrict__ stats,
                    __nv_bfloat16* __restrict__ dq, int n_heads, int group,
                    int sq, int sk, float scale_log2, float sm_scale,
                    int causal) {
+  using T = Tiles<D>;
   using B = BwdTiles<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t bar_f = base + B::kData;
-  float* delta_s = reinterpret_cast<float*>(
-      smem_raw + (bar_f + 8 * B::kBars - smem_u32(smem_raw)));
-  const uint32_t s_q = base, s_do = base + B::kTile;
+  float* const stats_s = reinterpret_cast<float*>(
+      smem_raw + (base + B::kData - smem_u32(smem_raw)));
+  const uint32_t bar_f = base + B::kData + B::kStats;
+  const uint32_t s_q = base, s_do = base + B::kFixed;
 
   const int bh = blockIdx.x;                         // b * n_heads + h
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBwdRows;  // heaviest first
+  // the heaviest (last) query blocks first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBwdBlock;
   const int b = bh / n_heads;
   const int bkv = b * (n_heads / group) + (bh - b * n_heads) / group;
-  const int k_end = causal ? min(sk, q0 + kBwdRows) : sk;
+  const int k_end = causal ? min(sk, q0 + kBwdBlock) : sk;
   const int n = (k_end + kBwdRows - 1) / kBwdRows;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   bwd_init_bars(bar_f);
-  if (warp == 4) {
-    if (lane == 0)
+  if (threadIdx.x >= kBwdConsumerThreads) {
+    producer_regs();
+    if (threadIdx.x == kBwdConsumerThreads)
       bwd_produce<D>(&map_q, &map_do, q0, bh, &map_k, &map_v, bkv, 0, n,
-                     base);
-    return;
-  }
+                     nullptr, base);
+  } else {
+    consumer_regs();
+    const int w = threadIdx.x / 128;               // the warpgroup
+    const int qw = q0 + kBwdRows * w;              // its first row
+    float* const lse_s = stats_s + 2 * kBwdRows * w;
+    float* const dl_s = lse_s + kBwdRows;
 
-  // delta of the block's rows, two threads a row, D / 2 columns each
-  {
-    const int row = threadIdx.x / 2, half = threadIdx.x % 2;
-    const int qpos = q0 + row;
-    float sum = 0.f;
-    if (qpos < sq) {
-      const size_t off = ((size_t)bh * sq + qpos) * D + half * (D / 2);
+    // delta and lse log2(e) of the warpgroup's rows, two threads a row,
+    // D / 2 columns each; rows past sq get lse = inf (P = 0), delta = 0
+    {
+      const int row = threadIdx.x % 128 / 2, half = threadIdx.x % 2;
+      const int qpos = qw + row;
+      float sum = 0.f;
+      if (qpos < sq) {
+        const size_t off = ((size_t)bh * sq + qpos) * D + half * (D / 2);
 #pragma unroll
-      for (int x = 0; x < D / 16; ++x) {
-        const uint4 ov = *reinterpret_cast<const uint4*>(o + off + 8 * x);
-        const uint4 gv = *reinterpret_cast<const uint4*>(dout + off + 8 * x);
-        const auto* op = reinterpret_cast<const __nv_bfloat162*>(&ov);
-        const auto* gp = reinterpret_cast<const __nv_bfloat162*>(&gv);
+        for (int x = 0; x < D / 16; ++x) {
+          const uint4 ov = *reinterpret_cast<const uint4*>(o + off + 8 * x);
+          const uint4 gv =
+              *reinterpret_cast<const uint4*>(dout + off + 8 * x);
+          const auto* op = reinterpret_cast<const __nv_bfloat162*>(&ov);
+          const auto* gp = reinterpret_cast<const __nv_bfloat162*>(&gv);
 #pragma unroll
-        for (int y = 0; y < 4; ++y) {
-          const float2 a = __bfloat1622float2(op[y]);
-          const float2 g = __bfloat1622float2(gp[y]);
-          sum = fmaf(a.x, g.x, sum);
-          sum = fmaf(a.y, g.y, sum);
+          for (int y = 0; y < 4; ++y) {
+            const float2 a = __bfloat1622float2(op[y]);
+            const float2 g = __bfloat1622float2(gp[y]);
+            sum = fmaf(a.x, g.x, sum);
+            sum = fmaf(a.y, g.y, sum);
+          }
         }
       }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      float* const out = stats + 2 * ((size_t)bh * bwd_padded(sq) + qw);
+      if (half == 0) {
+        dl_s[row] = sum;
+        out[kBwdRows + row] = sum;
+      } else {
+        const float l2 = qpos < sq ? lse[(size_t)bh * sq + qpos] * kLog2e
+                                   : __int_as_float(0x7f800000);
+        lse_s[row] = l2;
+        out[row] = l2;
+      }
     }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    if (half == 0) {
-      delta_s[row] = sum;
-      if (qpos < sq) delta[(size_t)bh * sq + qpos] = sum;
+    // the warpgroup's own barrier (id 1 + w)
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + w) : "memory");
+
+    // this thread's rows r and r + 8 (accumulator layout as the forward's)
+    const int lane = threadIdx.x % 32;
+    const int r = 16 * (threadIdx.x % 128 / 32) + lane / 4;
+    const int c = 2 * (lane % 4);
+    const float neg_inf = __int_as_float(0xff800000);
+    float ll[2], dl[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      ll[h] = lse_s[r + 8 * h];
+      dl[h] = dl_s[r + 8 * h];
     }
-  }
-  asm volatile("bar.sync 1, 128;\n" ::: "memory");  // the consumer warps
-
-  // this thread's rows r and r + 8 (accumulator layout as the forward's)
-  const int r = 16 * warp + lane / 4;
-  const int c = 2 * (lane % 4);
-  const float inf = __int_as_float(0x7f800000);
-  float ll[2], dl[2];
+    // the key tiles its rows need: under the causal mask none past its
+    // last row, none at all when every row is past sq
+    const int n_w = qw >= sq ? 0
+                    : causal ? (min(sk, qw + kBwdRows) + kBwdRows - 1) /
+                                   kBwdRows
+                             : n;
+    const uint32_t rows = kBwdRows * w * T::kSwizzle;   // its fixed rows
+    float acc_dq[D / 2], acc_s[32], acc_dp[32];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int qpos = q0 + r + 8 * h;
-    dl[h] = delta_s[r + 8 * h];
-    // a row past sq gets P = 2^-inf = 0
-    ll[h] = qpos < sq ? lse[(size_t)bh * sq + qpos] * kLog2e : inf;
-  }
-  float acc_dq[D / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc_dq[i] = 0.f;
-
-  mbar_wait(bar_f, 0);
-  for (int t = 0; t < n; ++t) {
-    const int s = t % kStages;
-    const int k0 = t * kBwdRows;
-    const uint32_t s_k = base + (2 + 2 * s) * B::kTile, s_v = s_k + B::kTile;
-    mbar_wait(bar_f + 8 * (1 + s), (t / kStages) & 1);
-    __syncwarp();
-
-    // S = Q K^T and dP = dO V^T
-    float acc_s[32], acc_dp[32];
+    for (int i = 0; i < D / 2; ++i) acc_dq[i] = 0.f;
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc_s[i] = acc_dp[i] = 0.f;
-    fence_regs(acc_s);
-    fence_regs(acc_dp);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      Wgmma<64>::ss(acc_s, kmajor<D>(s_q, kk), kmajor<D>(s_k, kk), kk > 0);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      Wgmma<64>::ss(acc_dp, kmajor<D>(s_do, kk), kmajor<D>(s_v, kk), kk > 0);
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(acc_s);
-    fence_regs(acc_dp);
-
-    // dS = P (dP - delta), P = 2^(S sm_scale log2 e - lse log2 e)
-    const bool edge = k0 + kBwdRows > sk || (causal && k0 + kBwdRows - 1 > q0);
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int h = (i / 2) % 2;
-      const int kpos = k0 + 8 * (i / 4) + c + (i % 2);
-      const int qpos = q0 + r + 8 * h;
-      const bool valid = !edge || (kpos < sk && !(causal && kpos > qpos));
-      const float p = valid ? ex2(fmaf(acc_s[i], scale_log2, -ll[h])) : 0.f;
-      acc_dp[i] = p * (acc_dp[i] - dl[h]);
-    }
     uint32_t frag[4][4];
-    to_frags(acc_dp, frag);
 
-    // dQ += dS K, K read MN-major
-    fence_regs(acc_dq);
-    wgmma_fence();
+    mbar_spin(bar_f, 0);
+    for (int t = 0; t < n_w; ++t) {
+      const int s = t % kBwdStages;
+      const int k0 = t * kBwdRows;
+      const uint32_t s_k = base + 2 * B::kFixed + s * B::kStage;
+      const uint32_t s_v = s_k + B::kTile;
+      mbar_spin(bar_f + 8 * (1 + s), (t / kBwdStages) & 1);
+      __syncwarp();
+
+      // S = Q K^T, then dP = dO V^T, in two groups
+      fence_regs(acc_s);
+      fence_regs(acc_dp);
+      wgmma_fence();
 #pragma unroll
-    for (int kb = 0; kb < 4; ++kb)
-      Wgmma<D>::rs(acc_dq, frag[kb], mnmajor<D>(s_k, kb), 1);
-    wgmma_commit();
-    wgmma_wait_all();
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<64>::ss(acc_s, kmajor<D, kBwdBlock>(s_q + rows, kk),
+                      kmajor<D, kBwdRows>(s_k, kk), kk > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<64>::ss(acc_dp, kmajor<D, kBwdBlock>(s_do + rows, kk),
+                      kmajor<D, kBwdRows>(s_v, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();             // S, and the last tile's dQ, are done
+      fence_regs(acc_s);
+      fence_regs(acc_dq);
+      if (t > 0) bwd_release(bar_f, (t - 1) % kBwdStages);
+
+      // P = 2^(S sm_scale log2 e - lse log2 e), under dP's product; the
+      // mask selects the exponent (2^-inf = 0), so that no branch goes
+      // round the exponential
+      const bool edge =
+          k0 + kBwdRows > sk || (causal && k0 + kBwdRows - 1 > qw);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int h = (i / 2) % 2;
+        const int kpos = k0 + 8 * (i / 4) + c + (i % 2);
+        const int qpos = qw + r + 8 * h;
+        const bool valid =
+            !edge || (kpos < sk && !(causal && kpos > qpos));
+        const float x = fmaf(acc_s[i], scale_log2, -ll[h]);
+        acc_s[i] = ex2(valid ? x : neg_inf);
+      }
+      wgmma_wait<0>();
+      fence_regs(acc_dp);
+
+      // dS = P (dP - delta); dQ += dS K (K read MN-major), left in flight
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        acc_dp[i] = acc_s[i] * (acc_dp[i] - dl[(i / 2) % 2]);
+      to_frags(acc_dp, frag);
+      wgmma_fence();
+#pragma unroll
+      for (int kb = 0; kb < 4; ++kb)
+        Wgmma<D>::rs(acc_dq, frag[kb], mnmajor<D>(s_k, kb), 1);
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
     fence_regs(acc_dq);
-    __syncwarp();
-    if (lane == 0) mbar_arrive(bar_f + 8 * (1 + kStages + s));
-  }
+    if (n_w > 0) bwd_release(bar_f, (n_w - 1) % kBwdStages);
+    for (int t = n_w; t < n; ++t) {   // no row of this warpgroup needs it
+      mbar_spin(bar_f + 8 * (1 + t % kBwdStages), (t / kBwdStages) & 1);
+      bwd_release(bar_f, t % kBwdStages);
+    }
 
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = q0 + r + 8 * h;
-    if (row >= sq) continue;
-    __nv_bfloat16* out = dq + ((size_t)bh * sq + row) * D + c;
+    for (int h = 0; h < 2; ++h) {
+      const int row = qw + r + 8 * h;
+      if (row >= sq) continue;
+      __nv_bfloat16* out = dq + ((size_t)bh * sq + row) * D + c;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<uint32_t*>(out + 8 * j) =
-          pack_bf16(acc_dq[4 * j + 2 * h] * sm_scale,
-                    acc_dq[4 * j + 2 * h + 1] * sm_scale);
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(out + 8 * j) =
+            pack_bf16(acc_dq[4 * j + 2 * h] * sm_scale,
+                      acc_dq[4 * j + 2 * h + 1] * sm_scale);
+    }
   }
 }
 
@@ -1025,146 +1183,161 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap map_q,
                      const __grid_constant__ CUtensorMap map_k,
                      const __grid_constant__ CUtensorMap map_v,
                      const __grid_constant__ CUtensorMap map_do,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta,
+                     const float* __restrict__ stats,
                      float* __restrict__ dk_ws, float* __restrict__ dv_ws,
                      int n_heads, int group, int sq, int sk,
                      float scale_log2, float sm_scale, int causal) {
+  using T = Tiles<D>;
   using B = BwdTiles<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t bar_f = base + B::kData;
-  const uint32_t s_k = base, s_v = base + B::kTile;
+  const float* const stats_s = reinterpret_cast<const float*>(
+      smem_raw + (base + B::kData - smem_u32(smem_raw)));
+  const uint32_t bar_f = base + B::kData + B::kStats;
+  const uint32_t s_k = base, s_v = base + B::kFixed;
 
   const int bh = blockIdx.x;                         // b * n_heads + h
-  const int k0 = blockIdx.y * kBwdRows;
+  const int k0 = blockIdx.y * kBwdBlock;             // heaviest first
   const int b = bh / n_heads;
   const int bkv = b * (n_heads / group) + (bh - b * n_heads) / group;
   // query tiles wholly before key k0 are in its causal past: masked
   const int t0 = causal ? k0 / kBwdRows : 0;
   const int n = max(0, (sq + kBwdRows - 1) / kBwdRows - t0);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   bwd_init_bars(bar_f);
-  if (warp == 4) {
-    if (lane == 0 && n > 0)
+  if (threadIdx.x >= kBwdConsumerThreads) {
+    producer_regs();
+    if (threadIdx.x == kBwdConsumerThreads)
       bwd_produce<D>(&map_k, &map_v, k0, bkv, &map_q, &map_do, bh, t0, n,
-                     base);
-    return;
-  }
-
-  // this thread's key rows r and r + 8, query columns 8 j + c + e
-  const int r = 16 * warp + lane / 4;
-  const int c = 2 * (lane % 4);
-  const float inf = __int_as_float(0x7f800000);
-  const float* lse_bh = lse + (size_t)bh * sq;
-  const float* delta_bh = delta + (size_t)bh * sq;
-  float acc_dk[D / 2], acc_dv[D / 2];
+                     stats + 2 * (size_t)bh * bwd_padded(sq), base);
+  } else {
+    consumer_regs();
+    const int w = threadIdx.x / 128;               // the warpgroup
+    const int kw = k0 + kBwdRows * w;              // its first key
+    // this thread's key rows r and r + 8, query columns 8 j + c + e
+    const int lane = threadIdx.x % 32;
+    const int r = 16 * (threadIdx.x % 128 / 32) + lane / 4;
+    const int c = 2 * (lane % 4);
+    const uint32_t rows = kBwdRows * w * T::kSwizzle;   // its fixed rows
+    const float neg_inf = __int_as_float(0xff800000);
+    // ring tiles before t_begin are wholly in its keys' causal past (the
+    // first, for the second warpgroup), all of them when every key is
+    // past sk
+    const int t_begin = kw >= sk ? n : min(n, causal ? w : 0);
+    float acc_dk[D / 2], acc_dv[D / 2], acc_s[32], acc_dp[32];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
-
-  if (n > 0) mbar_wait(bar_f, 0);
-  for (int t = 0; t < n; ++t) {
-    const int s = t % kStages;
-    const int q0 = (t0 + t) * kBwdRows;
-    const uint32_t s_q = base + (2 + 2 * s) * B::kTile, s_do = s_q + B::kTile;
-    mbar_wait(bar_f + 8 * (1 + s), (t / kStages) & 1);
-    __syncwarp();
-
-    // S^T = K Q^T
-    float acc_s[32];
+    for (int i = 0; i < D / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc_s[i] = 0.f;
-    fence_regs(acc_s);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      Wgmma<64>::ss(acc_s, kmajor<D>(s_k, kk), kmajor<D>(s_q, kk), kk > 0);
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(acc_s);
-
-    // P^T, fp32, zero where masked
-    const bool edge = q0 + kBwdRows > sq || k0 + kBwdRows > sk ||
-                      (causal && k0 + kBwdRows - 1 > q0);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int qpos = q0 + 8 * j + c + e;
-        const float ll = qpos < sq ? lse_bh[qpos] * kLog2e : inf;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int i = 4 * j + 2 * h + e;
-          const int kpos = k0 + r + 8 * h;
-          const bool valid =
-              !edge || (qpos < sq && kpos < sk && !(causal && kpos > qpos));
-          acc_s[i] = valid ? ex2(fmaf(acc_s[i], scale_log2, -ll)) : 0.f;
-        }
-      }
-    }
+    for (int i = 0; i < 32; ++i) acc_s[i] = acc_dp[i] = 0.f;
     uint32_t frag[4][4];
-    to_frags(acc_s, frag);
 
-    // dP^T = V dO^T, and dV += P^T dO (dO read MN-major)
-    float acc_dp[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) acc_dp[i] = 0.f;
-    fence_regs(acc_dp);
-    fence_regs(acc_dv);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      Wgmma<64>::ss(acc_dp, kmajor<D>(s_v, kk), kmajor<D>(s_do, kk), kk > 0);
-#pragma unroll
-    for (int kb = 0; kb < 4; ++kb)
-      Wgmma<D>::rs(acc_dv, frag[kb], mnmajor<D>(s_do, kb), 1);
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(acc_dp);
-    fence_regs(acc_dv);
+    if (n > 0) mbar_spin(bar_f, 0);
+    int prev = -1;                 // the stage dK's last product reads
+    for (int t = 0; t < n; ++t) {
+      const int s = t % kBwdStages;
+      const int q0 = (t0 + t) * kBwdRows;
+      const uint32_t s_q = base + 2 * B::kFixed + s * B::kStage;
+      const uint32_t s_do = s_q + B::kTile;
+      const float* const st = stats_s + 2 * kBwdRows * s;
+      mbar_spin(bar_f + 8 * (1 + s), (t / kBwdStages) & 1);
+      __syncwarp();
+      if (t < t_begin) {           // no key of this warpgroup sees it
+        bwd_release(bar_f, s);
+        continue;
+      }
 
-    // dS^T = P^T (dP^T - delta)
+      // S^T = K Q^T, then dP^T = V dO^T, in two groups
+      fence_regs(acc_s);
+      fence_regs(acc_dp);
+      wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<64>::ss(acc_s, kmajor<D, kBwdBlock>(s_k + rows, kk),
+                      kmajor<D, kBwdRows>(s_q, kk), kk > 0);
+      wgmma_commit();
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int qpos = q0 + 8 * j + c + e;
-        const float dl = qpos < sq ? delta_bh[qpos] : 0.f;
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<64>::ss(acc_dp, kmajor<D, kBwdBlock>(s_v + rows, kk),
+                      kmajor<D, kBwdRows>(s_do, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();     // S^T, and the last tile's dK, are done
+      fence_regs(acc_s);
+      fence_regs(acc_dk);
+      if (prev >= 0) bwd_release(bar_f, prev);
+
+      // P^T, fp32, under dP^T's product: zero where masked (the mask
+      // selects the exponent, 2^-inf = 0, so that no branch goes round
+      // the exponential) and for a row past sq (lse = inf)
+      const bool diag = causal && kw + kBwdRows - 1 > q0;
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int i = 4 * j + 2 * h + e;
-          acc_dp[i] = acc_s[i] * (acc_dp[i] - dl);
+      for (int j = 0; j < 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(st + 8 * j + c);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int qpos = q0 + 8 * j + c + e;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = 4 * j + 2 * h + e;
+            const bool valid = !diag || qpos >= kw + r + 8 * h;
+            const float x = fmaf(acc_s[i], scale_log2, -(e ? l2.y : l2.x));
+            acc_s[i] = ex2(valid ? x : neg_inf);
+          }
         }
       }
+      to_frags(acc_s, frag);
+
+      // dV += P^T dO (dO read MN-major)
+      wgmma_fence();
+#pragma unroll
+      for (int kb = 0; kb < 4; ++kb)
+        Wgmma<D>::rs(acc_dv, frag[kb], mnmajor<D>(s_do, kb), 1);
+      wgmma_commit();
+      wgmma_wait<0>();             // dP^T and dV are done
+      fence_regs(acc_dp);
+      fence_regs(acc_dv);
+
+      // dS^T = P^T (dP^T - delta)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 d2 =
+            *reinterpret_cast<const float2*>(st + kBwdRows + 8 * j + c);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = 4 * j + 2 * h + e;
+            acc_dp[i] = acc_s[i] * (acc_dp[i] - (e ? d2.y : d2.x));
+          }
+        }
+      }
+      to_frags(acc_dp, frag);
+
+      // dK += dS^T Q (Q read MN-major), left in flight
+      wgmma_fence();
+#pragma unroll
+      for (int kb = 0; kb < 4; ++kb)
+        Wgmma<D>::rs(acc_dk, frag[kb], mnmajor<D>(s_q, kb), 1);
+      wgmma_commit();
+      prev = s;
     }
-    to_frags(acc_dp, frag);
-
-    // dK += dS^T Q (Q read MN-major)
+    wgmma_wait<0>();
+    fence_regs(acc_dv);
     fence_regs(acc_dk);
-    wgmma_fence();
-#pragma unroll
-    for (int kb = 0; kb < 4; ++kb)
-      Wgmma<D>::rs(acc_dk, frag[kb], mnmajor<D>(s_q, kb), 1);
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(acc_dk);
-    __syncwarp();
-    if (lane == 0) mbar_arrive(bar_f + 8 * (1 + kStages + s));
-  }
+    if (prev >= 0) bwd_release(bar_f, prev);
 
-  // this query head's share of dK (times sm_scale) and dV
+    // this query head's share of dK (times sm_scale) and dV
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int kpos = k0 + r + 8 * h;
-    if (kpos >= sk) continue;
-    const size_t off = ((size_t)bh * sk + kpos) * D + c;
+    for (int h = 0; h < 2; ++h) {
+      const int kpos = kw + r + 8 * h;
+      if (kpos >= sk) continue;
+      const size_t off = ((size_t)bh * sk + kpos) * D + c;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<float2*>(dk_ws + off + 8 * j) =
-          make_float2(acc_dk[4 * j + 2 * h] * sm_scale,
-                      acc_dk[4 * j + 2 * h + 1] * sm_scale);
-      *reinterpret_cast<float2*>(dv_ws + off + 8 * j) =
-          make_float2(acc_dv[4 * j + 2 * h], acc_dv[4 * j + 2 * h + 1]);
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<float2*>(dk_ws + off + 8 * j) =
+            make_float2(acc_dk[4 * j + 2 * h] * sm_scale,
+                        acc_dk[4 * j + 2 * h + 1] * sm_scale);
+        *reinterpret_cast<float2*>(dv_ws + off + 8 * j) =
+            make_float2(acc_dv[4 * j + 2 * h], acc_dv[4 * j + 2 * h + 1]);
+      }
     }
   }
 }
@@ -1466,12 +1639,31 @@ int bwd_f32(const void* q, const void* k, const void* v, const void* o,
                                  group, sk, D, st);
 }
 
+// cudaFuncSetAttribute of a kernel's dynamic shared memory, once per
+// kernel and device: ``done`` holds a bit per device already set.  Two
+// threads that race both set it, which is harmless.
+template <typename Kernel>
+cudaError_t smem_once(Kernel kernel, int bytes,
+                      std::atomic<unsigned long long>& done) {
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return rc;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (bit && (done.load(std::memory_order_acquire) & bit)) return cudaSuccess;
+  rc = cudaFuncSetAttribute(kernel,
+                            cudaFuncAttributeMaxDynamicSharedMemorySize,
+                            bytes);
+  if (rc == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return rc;
+}
+
 template <int D>
 int bwd_bf16(const void* q, const void* k, const void* v, const void* o,
              const void* lse, const void* dout, void* dq, void* dk, void* dv,
-             void* delta, void* ws, int batch, int n_heads, int group,
+             void* stats, void* ws, int batch, int n_heads, int group,
              int sq, int sk, float sm_scale, int causal, void* stream) {
   using B = BwdTiles<D>;
+  static std::atomic<unsigned long long> dq_set{0}, dkdv_set{0};
   if (encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
   const cudaStream_t st = (cudaStream_t)stream;
   CUtensorMap map_q, map_k, map_v, map_do;
@@ -1481,34 +1673,46 @@ int bwd_bf16(const void* q, const void* k, const void* v, const void* o,
       !tensor_map<D>(&map_k, k, sk, n_kv, kBwdRows) ||
       !tensor_map<D>(&map_v, v, sk, n_kv, kBwdRows))
     return (int)cudaErrorInvalidValue;
-  cudaError_t rc = cudaFuncSetAttribute(
-      flash_bwd_dq_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      B::kSmem);
+  cudaError_t rc = smem_once(flash_bwd_dq_wgmma<D>, B::kSmem, dq_set);
   if (rc != cudaSuccess) return (int)rc;
-  rc = cudaFuncSetAttribute(flash_bwd_dkdv_wgmma<D>,
-                            cudaFuncAttributeMaxDynamicSharedMemorySize,
-                            B::kSmem);
+  rc = smem_once(flash_bwd_dkdv_wgmma<D>, B::kSmem, dkdv_set);
   if (rc != cudaSuccess) return (int)rc;
   const unsigned rows = (unsigned)(batch * n_heads);
   const size_t per = (size_t)batch * n_heads * sk * D;
   const float scale_log2 = sm_scale * kLog2e;
-  flash_bwd_dq_wgmma<D><<<dim3(rows, (sq + kBwdRows - 1) / kBwdRows),
+  flash_bwd_dq_wgmma<D><<<dim3(rows, (sq + kBwdBlock - 1) / kBwdBlock),
                           kBwdThreads, B::kSmem, st>>>(
       map_q, map_k, map_v, map_do, (const __nv_bfloat16*)o,
-      (const __nv_bfloat16*)dout, (const float*)lse, (float*)delta,
+      (const __nv_bfloat16*)dout, (const float*)lse, (float*)stats,
       (__nv_bfloat16*)dq, n_heads, group, sq, sk, scale_log2, sm_scale,
       causal);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  flash_bwd_dkdv_wgmma<D><<<dim3(rows, (sk + kBwdRows - 1) / kBwdRows),
+  flash_bwd_dkdv_wgmma<D><<<dim3(rows, (sk + kBwdBlock - 1) / kBwdBlock),
                             kBwdThreads, B::kSmem, st>>>(
-      map_q, map_k, map_v, map_do, (const float*)lse, (const float*)delta,
-      (float*)ws, (float*)ws + per, n_heads, group, sq, sk, scale_log2,
-      sm_scale, causal);
+      map_q, map_k, map_v, map_do, (const float*)stats, (float*)ws,
+      (float*)ws + per, n_heads, group, sq, sk, scale_log2, sm_scale,
+      causal);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
   return launch_group_sum<__nv_bfloat16>((const float*)ws, dk, dv, batch,
                                          n_heads, group, sk, D, st);
+}
+
+// numRegs and localSizeBytes (0: nothing spilled) of the bf16 query and
+// key passes, in that order, from cudaFuncGetAttributes.
+template <int D>
+int bwd_attributes(int* out) {
+  cudaFuncAttributes a;
+  cudaError_t rc = cudaFuncGetAttributes(&a, flash_bwd_dq_wgmma<D>);
+  if (rc != cudaSuccess) return (int)rc;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  rc = cudaFuncGetAttributes(&a, flash_bwd_dkdv_wgmma<D>);
+  if (rc != cudaSuccess) return (int)rc;
+  out[2] = a.numRegs;
+  out[3] = (int)a.localSizeBytes;
+  return 0;
 }
 
 using BwdLauncher = int (*)(const void*, const void*, const void*,
@@ -1560,12 +1764,15 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
 
 // The backward: dq, dk, dv (the inputs' dtype) of the function above for
 // the output gradient dout, from q, k, v, the forward's o and lse (fp32,
-// (B, H, Sq)); delta (fp32, (B, H, Sq)) and ws (fp32, 2 * B * H * Sk * D)
-// are scratch.  Three launches in order (the query pass, the key pass,
-// the group sum); each returns the first nonzero cudaGetLastError() (or
-// the bf16 one's set-up error, as above) and launches nothing after it.
-// The caller guarantees what the forward's does, dout and o contiguous as
-// q, and at most 65535 tiles of 64 queries or keys (the grids' y).
+// (B, H, Sq)); delta (fp32, at least 2 * B * H * Sq' with Sq' = Sq
+// rounded up to a multiple of 128: the fp32 passes use (B, H, Sq) of it,
+// the bf16 ones the rows' lse log2(e) and delta) and ws (fp32,
+// 2 * B * H * Sk * D) are scratch.  Three launches in order (the query
+// pass, the key pass, the group sum); each returns the first nonzero
+// cudaGetLastError() (or the bf16 one's set-up error, as above) and
+// launches nothing after it.  The caller guarantees what the forward's
+// does, dout and o contiguous as q, and at most 65535 tiles of 64
+// queries or keys (the grids' y).
 extern "C" int flash_attention_bwd_f32(
     const void* q, const void* k, const void* v, const void* o,
     const void* lse, const void* dout, void* dq, void* dk, void* dv,
@@ -1586,4 +1793,17 @@ extern "C" int flash_attention_bwd_bf16(
   return fn ? fn(q, k, v, o, lse, dout, dq, dk, dv, delta, ws, batch,
                  n_heads, group, sq, sk, sm_scale, causal, stream)
             : (int)cudaErrorInvalidValue;
+}
+
+// numRegs and localSizeBytes of the bf16 backward's query pass, then its
+// key pass, for head_dim, into out[0..3]; cudaErrorInvalidValue for a
+// head dim without a kernel.
+extern "C" int flash_attention_bwd_attributes(int head_dim, int* out) {
+  switch (head_dim) {
+    case 16: return bwd_attributes<16>(out);
+    case 32: return bwd_attributes<32>(out);
+    case 64: return bwd_attributes<64>(out);
+    case 128: return bwd_attributes<128>(out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

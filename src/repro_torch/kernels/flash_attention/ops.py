@@ -36,7 +36,9 @@ HEAD_DIMS = (16, 32, 64, 128)     # the kernel's instantiations
 _MAX_GRID_Y = 65535               # fp32: a launch per 65535 of B * H;
                                   # bf16: its query tiles (of 128) on y;
                                   # backward: its tiles of 64 on y
-BWD_TILE = 64                     # the backward's query and key tiles
+BWD_TILE = 64                     # the backward's streamed tiles (and
+                                  # the fp32 passes' blocks)
+BWD_BLOCK = 128                   # the bf16 passes' rows a block
 # the query pass (dq and delta), the key pass (each query head's share of
 # dk and dv), the sum of those shares over each KV head's group
 BWD_LAUNCHES_PER_CALL = 3
@@ -156,10 +158,13 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
         raise ValueError(f"flash_attention_bwd kernel: Sq = {sq} or Sk = "
                          f"{sk} exceeds its grid")
     scale = sm_scale if sm_scale is not None else d ** -0.5
-    delta = torch.empty(b, h, sq, device=q.device, dtype=torch.float32)
+    # the rows' delta (fp32 passes); bf16: their lse log2(e) and delta,
+    # rows padded to whole blocks
+    stats = torch.empty(b, h, 2 * -(-sq // BWD_BLOCK) * BWD_BLOCK,
+                        device=q.device, dtype=torch.float32)
     ws = torch.empty(2, b, h, sk, d, device=q.device, dtype=torch.float32)
     rc = _function(_BWD_SYMBOLS[q.dtype], _BWD_ARGTYPES)(
-        *(t.data_ptr() for t in (q, k, v, o, lse, do, dq, dk, dv, delta,
+        *(t.data_ptr() for t in (q, k, v, o, lse, do, dq, dk, dv, stats,
                                  ws)),
         b, h, h // hkv, sq, sk, d, scale, int(causal),
         torch.cuda.current_stream().cuda_stream)
@@ -168,6 +173,22 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
                            f"CUDA error {rc}")
     _build.count(flash_attention_bwd, BWD_LAUNCHES_PER_CALL)
     return dq, dk, dv
+
+
+def bwd_kernel_attributes(head_dim: int) -> dict:
+    """``cudaFuncGetAttributes`` of the bf16 backward's two passes at
+    ``head_dim``: ``{"flash_bwd_dq_wgmma": (numRegs, localSizeBytes),
+    "flash_bwd_dkdv_wgmma": (...)}``; a local size of 0 means nothing
+    spilled.  Builds the kernels on first use."""
+    out = (ctypes.c_int * 4)()
+    fn = _function("flash_attention_bwd_attributes",
+                   [ctypes.c_int, ctypes.c_void_p])
+    rc = fn(head_dim, ctypes.cast(out, ctypes.c_void_p))
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd_attributes({head_dim}): "
+                           f"CUDA error {rc}")
+    return {"flash_bwd_dq_wgmma": (out[0], out[1]),
+            "flash_bwd_dkdv_wgmma": (out[2], out[3])}
 
 
 class _Flash(torch.autograd.Function):

@@ -552,7 +552,10 @@ def _bwd_inputs(b, h, hkv, sq, sk, d, causal, dtype, seed, device):
 # query and key edges, Sq != Sk both ways (causal keys past Sq get no
 # gradient), seamless's cross-attention over its 1024 frames, one query
 # row over 129 keys (non-causal: a causal row of one key has dS = 0 up
-# to rounding, no gradient to hold in norm)
+# to rounding, no gradient to hold in norm); the bf16 passes' 128-row
+# blocks of two 64-row warpgroups: S = 65 (the second warpgroup holds
+# one row or key and 63 past the edge), 1.5 blocks, causal Sq != Sk on
+# 128-row boundaries both ways, D = 16 and 32 over two blocks
 BWD_SHAPES = [(1, 1, 1, 64, 64, 16, False), (1, 4, 2, 100, 100, 16, True),
               (2, 6, 2, 77, 77, 32, True), (1, 4, 4, 130, 130, 32, False),
               (1, 6, 1, 150, 150, 64, True), (2, 8, 1, 40, 200, 64, False),
@@ -561,7 +564,11 @@ BWD_SHAPES = [(1, 1, 1, 64, 64, 16, False), (1, 4, 2, 100, 100, 16, True),
               (1, 48, 8, 268, 268, 128, True),
               (1, 32, 4, 256, 256, 128, True), (1, 4, 2, 100, 300, 128, True),
               (1, 4, 2, 300, 100, 128, True),
-              (1, 4, 2, 300, 100, 128, False)]
+              (1, 4, 2, 300, 100, 128, False),
+              (1, 4, 2, 65, 65, 128, True), (1, 4, 2, 65, 65, 128, False),
+              (1, 8, 2, 192, 192, 128, True), (1, 4, 2, 128, 320, 128, True),
+              (1, 4, 2, 320, 128, 128, True), (1, 4, 2, 256, 256, 16, True),
+              (1, 4, 2, 256, 256, 32, True)]
 
 
 @pytest.mark.parametrize("b,h,hkv,sq,sk,d,causal", BWD_SHAPES)
@@ -584,7 +591,7 @@ def test_flash_attention_bwd_kernel_matches_plain_version(
 
 @pytest.mark.parametrize("b,h,hkv,sq,sk,d,causal", [
     (1, 4, 2, 100, 100, 16, True), (2, 24, 8, 300, 300, 128, True),
-    (1, 16, 16, 300, 1024, 64, False)])
+    (1, 16, 16, 300, 1024, 64, False), (1, 32, 4, 512, 512, 128, True)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_bwd_kernel_is_deterministic(cuda, b, h, hkv, sq,
                                                      sk, d, causal, dtype):
